@@ -1,0 +1,107 @@
+"""Block-local Count Sketch (paper §3.1 + §3.4): the plain PyTorch version.
+
+Every function here works on the block layout ``(nb, G, c)`` of
+:mod:`repro_torch.core.blocks`. Batch ``i`` of a block adds its ``c``
+values into sketch row ``h_j(i)`` for the three hashes ``j``, rotated by
+``rot_j(i, blk)`` lanes and multiplied by the sign ``g_j(i)``:
+
+    Y[h_j(i), (l + rot_j(i,blk)) % c] += g_j(i) * x[i, l]
+
+Linearity gives the homomorphic property ``encode(sum_w X_w) ==
+sum_w encode(X_w)`` up to float addition order, so sketches aggregate
+with a plain sum.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .config import CompressionConfig
+from . import hashing
+
+
+def plan_tables(cfg: CompressionConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """Static (rows, signs) tables: int32 (G, 3), float32 (G, 3)."""
+    return (hashing.batch_rows(cfg.group, cfg.rows, cfg.seed),
+            hashing.batch_signs(cfg.group, cfg.seed))
+
+
+@functools.lru_cache(maxsize=64)
+def device_tables(cfg: CompressionConfig, device: torch.device):
+    """(rows int64 (G*3,), signs f32 (G, 3)) on ``device``, cached."""
+    rows_tbl, signs = plan_tables(cfg)
+    return (torch.from_numpy(rows_tbl.reshape(-1).astype(np.int64)).to(device),
+            torch.from_numpy(signs).to(device))
+
+
+# ----------------------------------------------------------------------
+# Lane rotations (the §3.4 locality randomisation)
+# ----------------------------------------------------------------------
+
+def roll_to_sketch(x: torch.Tensor, rot: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Forward rotation: x (nb,G,c) -> (nb,G,3,c), out[m] = x[(m-rot)%c]."""
+    lane = torch.arange(lanes, device=x.device)
+    idx = (lane - rot[..., None]) % lanes                    # (nb,G,3,c)
+    return torch.gather(x[:, :, None, :].expand(-1, -1, 3, -1), 3, idx)
+
+
+def roll_from_sketch(y: torch.Tensor, rot: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Inverse rotation: y (nb,G,3,c) -> (nb,G,3,c), out[l] = y[(l+rot)%c]."""
+    lane = torch.arange(lanes, device=y.device)
+    return torch.gather(y, 3, (lane + rot[..., None]) % lanes)
+
+
+# ----------------------------------------------------------------------
+# Scatter / gather between batches and sketch rows
+# ----------------------------------------------------------------------
+
+def scatter_rows(contrib: torch.Tensor, rows_flat: torch.Tensor,
+                 rows: int) -> torch.Tensor:
+    """contrib (nb,G,3,c) -> sketch (nb,rows,c), summed at h_j(i)."""
+    nb, g, _, c = contrib.shape
+    out = torch.zeros((nb, rows, c), dtype=contrib.dtype, device=contrib.device)
+    return out.index_add_(1, rows_flat, contrib.reshape(nb, g * 3, c))
+
+
+def gather_rows(sketch: torch.Tensor, rows_flat: torch.Tensor) -> torch.Tensor:
+    """sketch (nb,rows,c) -> (nb,G,3,c) gathered at h_j(i)."""
+    nb, _, c = sketch.shape
+    return sketch[:, rows_flat, :].reshape(nb, -1, 3, c)
+
+
+def median3(est: torch.Tensor) -> torch.Tensor:
+    """Median over dim 2 of (nb,G,3,c) as ``v0+v1+v2 - max - min``, in
+    the reference's operation order."""
+    v0, v1, v2 = est[:, :, 0], est[:, :, 1], est[:, :, 2]
+    return (v0 + v1 + v2
+            - torch.maximum(torch.maximum(v0, v1), v2)
+            - torch.minimum(torch.minimum(v0, v1), v2))
+
+
+# ----------------------------------------------------------------------
+# Encode / estimate
+# ----------------------------------------------------------------------
+
+def encode_blocks(xb: torch.Tensor, block_ids: torch.Tensor,
+                  cfg: CompressionConfig) -> torch.Tensor:
+    """Count-Sketch encode: (nb,G,c) values -> (nb,rows,c) sketch (f32)."""
+    rows_flat, signs = device_tables(cfg, xb.device)
+    rot = hashing.block_rotations(block_ids, cfg.group, cfg.lanes, cfg.seed)
+    contrib = roll_to_sketch(xb.to(torch.float32), rot, cfg.lanes) \
+        * signs[None, :, :, None]
+    return scatter_rows(contrib, rows_flat, cfg.rows)
+
+
+def estimate_blocks(sketch: torch.Tensor, block_ids: torch.Tensor,
+                    cfg: CompressionConfig) -> torch.Tensor:
+    """Median-of-3 Count-Sketch estimate for every coordinate: the
+    fallback for coordinates peeling cannot resolve, and the whole
+    decoder of the sketch-only lossy baseline."""
+    rows_flat, signs = device_tables(cfg, sketch.device)
+    rot = hashing.block_rotations(block_ids, cfg.group, cfg.lanes, cfg.seed)
+    y = roll_from_sketch(gather_rows(sketch, rows_flat), rot, cfg.lanes)
+    return median3(y * signs[None, :, :, None])

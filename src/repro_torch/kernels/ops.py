@@ -1,0 +1,121 @@
+"""Dispatch between the hand-written CUDA kernels and the plain versions.
+
+The single compute backend of the compression pipeline:
+``HomomorphicCompressor`` (and through it the aggregators and training)
+calls the ops here and never reaches into ``core.sketch`` or
+``core.peeling`` directly.
+
+Dispatch follows the tensor's device, under the ``use_pallas`` policy of
+the config (the reference's name, kept so the configs stay equal):
+
+- a tensor on the CPU takes the plain version (``kernels/ref.py``);
+  ``"always"`` raises there, since the kernels exist only on the card;
+- a CUDA tensor takes the hand kernel, or the call raises: ``"never"``
+  raises rather than run the plain version on the card (``chip_smoke.py``
+  calls ``kernels/ref.py`` directly when it compares the two), and so
+  does a leg the kernels do not have yet (``exponents``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.config import CompressionConfig
+from . import ref as ref_ops
+from .sketch_wire import (LAUNCHES, dequant_peel_unpack_cuda,
+                          encode_pack_quantize_cuda)
+
+__all__ = ["LAUNCHES", "encode_pack_quantize", "dequant_peel_unpack",
+           "fused_wire_supported", "wire_codec_passes", "sketch_estimate"]
+
+
+def _use_kernel(cfg: CompressionConfig, t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        if cfg.use_pallas == "never":
+            raise ValueError(
+                "use_pallas='never' on a CUDA tensor: the plain versions run "
+                "on the card only through repro_torch.kernels.ref")
+        return True
+    if t.device.type == "cpu":
+        if cfg.use_pallas == "always":
+            raise ValueError(
+                "use_pallas='always' needs a CUDA tensor: the hand kernels "
+                "exist only on the card")
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _no_quantized_kernel(exponents):
+    if exponents is not None:
+        raise NotImplementedError(
+            "the fxp32 quantize/dequant kernel legs come with the in-network "
+            "slice; on a CUDA tensor only the unquantized wire runs")
+
+
+def fused_wire_supported(cfg: CompressionConfig) -> bool:
+    """Whether the fused wire-codec ops cover this geometry: the bitmap
+    is packed per block, so word boundaries must coincide with block
+    boundaries (``block_elems % 32 == 0``), and only the exact bitmap
+    index packs per block."""
+    return cfg.index == "bitmap" and cfg.block_elems % 32 == 0
+
+
+def _check_fused(cfg, exponents, mantissa_bits):
+    if (exponents is None) != (mantissa_bits is None):
+        raise ValueError("exponents and mantissa_bits must be given together")
+    if not fused_wire_supported(cfg):
+        raise ValueError(
+            f"fused wire codec unsupported for index={cfg.index!r}, "
+            f"block_elems={cfg.block_elems} (need bitmap and %32==0)")
+
+
+def encode_pack_quantize(xb: torch.Tensor, block_ids: torch.Tensor,
+                         cfg: CompressionConfig,
+                         exponents: torch.Tensor | None = None,
+                         mantissa_bits: int | None = None):
+    """Fused wire producer: (nb, G, c) values + (nb,) int32 ids ->
+    (sketch (nb, rows, c) f32|int32, words (nb, wpb) int32,
+    maxabs (nb,) f32), in one pass over the gradient stream."""
+    _check_fused(cfg, exponents, mantissa_bits)
+    if _use_kernel(cfg, xb):
+        _no_quantized_kernel(exponents)
+        return encode_pack_quantize_cuda(xb, block_ids, cfg)
+    return ref_ops.encode_pack_quantize_ref(
+        xb, block_ids, cfg, exponents=exponents, mantissa_bits=mantissa_bits)
+
+
+def dequant_peel_unpack(sketch: torch.Tensor, words: torch.Tensor,
+                        block_ids: torch.Tensor, cfg: CompressionConfig,
+                        exponents: torch.Tensor | None = None,
+                        mantissa_bits: int | None = None):
+    """Fused wire consumer: (nb, rows, c) sketch + (nb, wpb) words + (nb,)
+    ids -> (values f32, residual int8), both (nb, G, c), in one pass over
+    the aggregated wire payload."""
+    _check_fused(cfg, exponents, mantissa_bits)
+    if _use_kernel(cfg, sketch):
+        _no_quantized_kernel(exponents)
+        return dequant_peel_unpack_cuda(sketch, words, block_ids, cfg)
+    return ref_ops.dequant_peel_unpack_ref(
+        sketch, words, block_ids, cfg, exponents=exponents,
+        mantissa_bits=mantissa_bits)
+
+
+def wire_codec_passes(cfg: CompressionConfig, quantized: bool = False,
+                      device: str | torch.device = "cuda"):
+    """Analytic pass counts over the bucket stream per wire direction on
+    ``device``: the fused kernels make 1 each way; the composed plain
+    versions encode + pack (+ quantize) and unpack + peel (+ dequant)."""
+    if (fused_wire_supported(cfg) and torch.device(device).type == "cuda"
+            and cfg.use_pallas != "never"):
+        return {"producer": 1, "consumer": 1}
+    extra = 1 if quantized else 0
+    return {"producer": 2 + extra, "consumer": 2 + extra}
+
+
+def sketch_estimate(sketch: torch.Tensor, block_ids: torch.Tensor,
+                    cfg: CompressionConfig) -> torch.Tensor:
+    """Median-of-3 estimate for every coordinate, (nb, rows, c) ->
+    (nb, G, c). Plain on every device, as in the reference: it is off the
+    training path, and the peel kernel computes the same median in-kernel
+    for its residue."""
+    return ref_ops.sketch_estimate_ref(sketch, block_ids, cfg)

@@ -1,0 +1,67 @@
+"""Training launcher.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+        --layers 4 --workers 2 --steps 4 --global-batch 8 --seq-len 1024
+
+Trains the named architecture at its published widths (``--layers`` cuts
+the depth; ``--smoke`` takes the reduced same-family config instead) with
+``--workers`` data-parallel workers emulated on one device, and prints a
+JSON summary. ``--device cpu`` runs the plain PyTorch versions of the
+codec kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut n_layers to this depth")
+    ap.add_argument("--workers", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--aggregator", choices=["dense", "compressed"], default=None)
+    ap.add_argument("--accum-steps", type=int, default=None)
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.loop import run_training
+
+    arch = get_arch(args.arch)
+    cfg = arch.smoke if args.smoke else arch.model
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    tc = dataclasses.replace(arch.train, workers=args.workers)
+    if args.aggregator:
+        tc = dataclasses.replace(tc, aggregator=args.aggregator)
+    if args.accum_steps is not None or args.smoke:
+        tc = dataclasses.replace(tc, accum_steps=args.accum_steps or 1)
+    if args.lr:
+        tc = dataclasses.replace(tc, optimizer=dataclasses.replace(
+            tc.optimizer, lr=args.lr, total_steps=args.steps))
+    res = run_training(model_api(cfg), tc, global_batch=args.global_batch,
+                       seq_len=args.seq_len, steps=args.steps,
+                       device=args.device)
+    summary = {
+        "arch": args.arch, "layers": cfg.n_layers, "workers": tc.workers,
+        "aggregator": tc.aggregator, "device": args.device,
+        "first_loss": res.losses[0], "last_loss": res.losses[-1],
+        "steps": res.final_step,
+    }
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()
