@@ -2,8 +2,8 @@
 
 A second, self-contained package beside the JAX reference (``repro``).
 Subpackages mirror the reference's names (``core``, ``kernels``, ``net``,
-``models``, ``train``, ``data``, ``configs``, ``launch``) so each module's
-counterpart is found by name. The port imports ``torch`` and ``numpy``
+``ft``, ``models``, ``train``, ``data``, ``configs``, ``launch``) so each
+module's counterpart is found by name. The port imports ``torch`` and ``numpy``
 only; the hand-written CUDA kernels of the wire codec live under
 ``kernels/csrc`` and are built on first use on a CUDA device.
 

@@ -7,8 +7,14 @@
   pack and ONE producer launch; then the sketch SUM and word OR over the
   workers; then ONE consumer launch on the aggregate and ``unpack(rec /
   W)``. This is the reference's unstreamed path on a pure data-parallel
-  mesh with the trivial wire plan; streaming, wire plans, telemetry and
-  the other strategies come with later slices.
+  mesh with the trivial wire plan.
+- :class:`CompressedInNetworkAggregator` — the same stream through the
+  emulated in-network tier: on the fxp32 wire the sketch is quantized to
+  shared-exponent int32 and summed, with the words ORed, by a windowed
+  switch tree; the consumer dequantizes in its one launch.
+
+Streaming, wire plans, telemetry and the other strategies come with
+later slices.
 
 An aggregator is called as ``agg(grads_w, state)``, where ``grads_w[w]``
 is worker w's gradient leaves in the reference's flatten order and
@@ -26,9 +32,11 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.net.fixedpoint import FixedPointWire
+from repro_torch.net.topology import make_topology, tree_all_reduce
 from .config import CompressionConfig
 from .compressor import CompressedLeaf, HomomorphicCompressor
-from .bucketing import make_bucket_plan
+from .bucketing import BucketPlan, make_bucket_plan
 from .collectives import AggregationState, LocalWorkers, dense_all_reduce
 from . import topk as topk_lib
 
@@ -72,13 +80,15 @@ class CompressedAggregator:
     cfg: CompressionConfig
     group: LocalWorkers
 
-    def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
-                 state: AggregationState):
-        cfg, W = self.cfg, self.group.workers
+    def _produce(self, grads_w: Sequence[Sequence[torch.Tensor]],
+                 state: AggregationState, comp: HomomorphicCompressor,
+                 plan: BucketPlan):
+        """Phase I per worker: sparsify + EF (residuals updated in place),
+        pack, one producer launch. Returns each worker's
+        ``(CompressedLeaf, per-block maxabs)``."""
+        cfg = self.cfg
         ef_on = cfg.topk_ratio is not None and cfg.error_feedback
-        comp = HomomorphicCompressor(cfg)
-        plan = make_bucket_plan(grads_w[0], cfg)
-        sketches, words = [], []
+        out = []
         for w, leaves in enumerate(grads_w):
             flats = []
             for g, r in zip(leaves, state.residual):
@@ -87,17 +97,94 @@ class CompressedAggregator:
                 flats.append(flat)
                 if ef_on:
                     r[w].copy_(nr.reshape(r.shape[1:]))
-            c = comp.compress(plan.pack_flat(flats).reshape(-1))
-            sketches.append(c.sketch)
-            words.append(c.index_words)
-        agg = CompressedLeaf(sketch=self.group.sum(sketches),
-                             index_words=self.group.bor(words))
-        rec, stats = comp.recover(agg, plan.padded, with_stats=True)
-        out = plan.unpack(rec.reshape(plan.n_buckets, plan.bucket_elems) / W)
+            out.append(comp.compress_wire(plan.pack_flat(flats).reshape(-1)))
+        return out
+
+    def _finish(self, rec: torch.Tensor, stats, plan: BucketPlan,
+                state: AggregationState):
+        out = plan.unpack(rec.reshape(plan.n_buckets, plan.bucket_elems)
+                          / self.group.workers)
         return out, AggregationState(residual=state.residual, stats=stats)
 
+    def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
+                 state: AggregationState):
+        comp = HomomorphicCompressor(self.cfg)
+        plan = make_bucket_plan(grads_w[0], self.cfg)
+        cs = [c for c, _ in self._produce(grads_w, state, comp, plan)]
+        agg = CompressedLeaf(sketch=self.group.sum([c.sketch for c in cs]),
+                             index_words=self.group.bor(
+                                 [c.index_words for c in cs]))
+        rec, stats = comp.recover(agg, plan.padded, with_stats=True)
+        return self._finish(rec, stats, plan, state)
 
-AGGREGATORS = {"dense": DenseAggregator, "compressed": CompressedAggregator}
+
+@dataclasses.dataclass(frozen=True)
+class CompressedInNetworkAggregator(CompressedAggregator):
+    """Compressed aggregation through the emulated in-network tier, the
+    paper's "aggregate inside the switch" deployment (the reference's
+    unstreamed ``CompressedInNetworkAggregator``).
+
+    Phase I is :class:`CompressedAggregator`'s. Phase II depends on
+    ``cfg.wire_dtype``:
+
+    - ``"fxp32"``, the switch's wire: per bucket, each worker's exponent
+      comes from the producer's per-block ``maxabs`` (the max of the
+      block maxima is the bucket max, exactly), the workers agree on the
+      max (the reference's ``pmax``) before any of them quantizes, each
+      quantizes its sketch to int32
+      (:class:`repro_torch.net.fixedpoint.FixedPointWire`, overflow-free
+      for W workers), and the int32 sketches and the words go through
+      :func:`repro_torch.net.topology.tree_all_reduce` (integer add and
+      OR over ``cfg.topology`` on the group's levels) in windows of
+      ``cfg.switch_slots`` buckets. One consumer launch dequantizes the
+      aggregate with the exponents expanded per block and peels it. The
+      result is the documented codec roundtrip bit for bit, whatever the
+      tree's order.
+    - ``"f32"``, an idealized float-capable tier: the topology is
+      validated and the step is :class:`CompressedAggregator`'s, bit for
+      bit (a tree of float adds would be order-sensitive).
+
+    ``cfg.overlap`` and ``cfg.stream_chunks`` (the streamed schedule)
+    come with the stream-scheduler slice and raise until then.
+    """
+
+    wire = "compressed_innet"
+
+    def __post_init__(self):
+        if self.cfg.overlap or self.cfg.stream_chunks is not None:
+            raise NotImplementedError(
+                "compressed_innet: overlap/stream_chunks need the stream "
+                "scheduler, which is not ported yet")
+
+    def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
+                 state: AggregationState):
+        cfg, group = self.cfg, self.group
+        topo = make_topology(cfg.topology, group)
+        if cfg.wire_dtype == "f32":
+            return super().__call__(grads_w, state)
+        comp = HomomorphicCompressor(cfg)
+        plan = make_bucket_plan(grads_w[0], cfg)
+        wire = FixedPointWire(workers=group.workers)
+        nbk, nbpb = plan.n_buckets, plan.bucket_elems // cfg.block_elems
+        cs, maxabs = zip(*self._produce(grads_w, state, comp, plan))
+        exp = group.max([wire.exponents_from_maxabs(
+            mx.reshape(nbk, nbpb).amax(dim=1)) for mx in maxabs])
+        q = tree_all_reduce(
+            [wire.encode(c.sketch.reshape(nbk, -1), exp) for c in cs],
+            topo, "add", window_slots=cfg.switch_slots)[0]
+        words = tree_all_reduce(
+            [c.index_words.reshape(nbk, -1) for c in cs],
+            topo, "or", window_slots=cfg.switch_slots)[0]
+        rec, stats = comp.recover(
+            CompressedLeaf(sketch=q.reshape(cs[0].sketch.shape),
+                           index_words=words.reshape(-1)),
+            plan.padded, with_stats=True,
+            dequant=(exp.repeat_interleave(nbpb), wire.mantissa_bits))
+        return self._finish(rec, stats, plan, state)
+
+
+AGGREGATORS = {"dense": DenseAggregator, "compressed": CompressedAggregator,
+               "compressed_innet": CompressedInNetworkAggregator}
 
 
 def make_aggregator(name: str, cfg: CompressionConfig, group: LocalWorkers):

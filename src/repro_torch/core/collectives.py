@@ -1,11 +1,12 @@
 """Data-parallel aggregation primitives for workers on one device.
 
 The reference runs its data-parallel workers as devices of a mesh and
-aggregates with ``psum`` (sketches, dense gradients) and an OR
-all-reduce (bitmap words). This slice emulates W workers in one process
-on one device: each worker's payload is computed in turn and
-:class:`LocalWorkers` reduces over the stacked worker axis, with a sum
-for the sketch and a bitwise OR for the words. The ``torch.distributed``
+aggregates with ``psum`` (sketches, dense gradients), an OR all-reduce
+(bitmap words) and a ``pmax`` (fxp32 exponents). The port emulates W
+workers in one process on one device: each worker's payload is computed
+in turn and :class:`LocalWorkers` reduces over the worker axis, with a
+sum for the sketch, a bitwise OR for the words and a max for the
+exponents. The ``torch.distributed``
 wire (NCCL, plus a P2P OR ring since NCCL has no bitwise-OR reduction)
 comes with the multi-card slice.
 """
@@ -14,20 +15,36 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, List, Sequence
+import math
+from typing import Any, List, Sequence, Tuple
 
 import torch
 
 
 @dataclasses.dataclass(frozen=True)
 class LocalWorkers:
-    """W data-parallel workers emulated on one device."""
+    """W data-parallel workers emulated on one device.
+
+    ``levels`` stands in for the reference mesh's data-parallel axes: the
+    size of each level, innermost (the workers under one top-of-rack
+    switch) first, multiplying to ``workers``; by default one level of
+    all W. Worker w's index on the levels is rank-major, as the
+    reference's ``linear_rank``: ``w = i0 + s0 * (i1 + s1 * ...)``.
+    """
 
     workers: int
+    levels: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if self.workers < 1:
             raise ValueError(f"workers must be >= 1, got {self.workers}")
+        if not self.levels:
+            object.__setattr__(self, "levels", (self.workers,))
+        levels = tuple(int(s) for s in self.levels)
+        if min(levels) < 1 or math.prod(levels) != self.workers:
+            raise ValueError(f"levels {levels} do not multiply to "
+                             f"{self.workers} workers")
+        object.__setattr__(self, "levels", levels)
 
     def _check(self, parts: Sequence[torch.Tensor]):
         if len(parts) != self.workers:
@@ -42,6 +59,11 @@ class LocalWorkers:
         """Bitwise OR over workers (int32 words carrying uint32 bits)."""
         self._check(parts)
         return functools.reduce(torch.bitwise_or, parts)
+
+    def max(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Elementwise max over workers (the reference's ``pmax``)."""
+        self._check(parts)
+        return functools.reduce(torch.maximum, parts)
 
 
 def dense_all_reduce(grads_w: Sequence[Sequence[torch.Tensor]],

@@ -33,7 +33,7 @@ from . import index as index_lib
 
 class CompressedLeaf(NamedTuple):
     """Wire format for one stream. Sketch aggregates by +, words by |."""
-    sketch: torch.Tensor       # (nb, rows, lanes) f32
+    sketch: torch.Tensor       # (nb, rows, lanes) f32, or int32 on fxp32
     index_words: torch.Tensor  # (w,) int32 carrying uint32 bits
 
 
@@ -78,15 +78,23 @@ class HomomorphicCompressor:
     # ---- Phase II — recovery -------------------------------------------
 
     def recover(self, comp: CompressedLeaf, n: int, shape=None,
-                with_stats: bool = False, block_offset: int = 0):
+                with_stats: bool = False, block_offset: int = 0,
+                dequant=None):
         """One consumer pass over the aggregated payload; recovery stats
-        come from a popcount of the packed words."""
+        come from a popcount of the packed words.
+
+        ``dequant``: ``(per_block_exponents (nb,) int32, mantissa_bits)``
+        for an int32 fxp32 aggregate, which the same consumer pass then
+        dequantizes (``exponents`` of :mod:`repro_torch.kernels.ops`)
+        instead of a separate stream-sized decode before peeling."""
         self._require_fused()
         plan = make_plan(n, self.cfg)
         ids = self._ids(plan.nb, block_offset, comp.sketch.device)
         words2d = comp.index_words.reshape(plan.nb, self.cfg.block_elems // 32)
-        values, residual = ops.dequant_peel_unpack(comp.sketch, words2d,
-                                                   ids, self.cfg)
+        exps, mbits = dequant if dequant is not None else (None, None)
+        values, residual = ops.dequant_peel_unpack(
+            comp.sketch, words2d, ids, self.cfg, exponents=exps,
+            mantissa_bits=mbits)
         x = from_blocks(values, plan, shape)
         if not with_stats:
             return x

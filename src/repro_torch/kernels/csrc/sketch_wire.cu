@@ -5,13 +5,26 @@
 // Producer, wire_encode_kernel, replaces the TPU kernel
 // src/repro/kernels/sketch_wire.py:encode_pack_quantize_pallas (body
 // _wire_encode_kernel). One pass over the gradient block: Count-Sketch
-// encode, non-zero bitmap pack, per-block max|sketch|.
+// encode, non-zero bitmap pack, per-block max|sketch|. Its quantize leg
+// (TS = int, body _wire_encode_q_kernel) stores the fxp32 wire's
+// int32(rint(acc * 2^(M - e))) for the block's exponent e instead of the
+// f32 cell; maxabs stays the f32 max|acc|.
 //
 // Consumer, wire_peel_kernel, replaces
 // src/repro/kernels/sketch_wire.py:dequant_peel_unpack_pallas (body
 // _wire_peel_kernel). One pass over the aggregated wire payload: bitmap
 // unpack, initial degrees, exactly `rounds` synchronous peel rounds, and
-// the median-of-3 estimate for bits still set.
+// the median-of-3 estimate for bits still set. Its dequant leg (TS = int,
+// body _wire_peel_dq_kernel) loads the int32 aggregate as
+// float(q) * 2^(e - M) where the f32 leg loads y.
+//
+// The legs' scales are exact powers of two written into the exponent
+// field (pow2f), never exp2f/ldexpf, and the conversions round half to
+// even (__float2int_rn, __int2float_rn), as rint and the int-to-float
+// cast do: the quantize leg equals "f32 leg, then FixedPointWire.encode"
+// and the dequant leg "FixedPointWire.decode, then f32 leg" bit for bit
+// on any input. Each adds one multiply and one conversion per sketch
+// cell and 4 bytes of exponent per block, so the bounds below hold.
 //
 // Bound. Both are bound by device memory. Per block of G*c elements the
 // producer reads the block (4Gc bytes) and writes the sketch, the words
@@ -48,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -70,6 +85,26 @@ __device__ void block_rotations(int* rot, uint32_t blk, int group, int lanes,
   }
 }
 
+// Exact float 2^k for k in [-126, 127] (net/fixedpoint.py:pow2).
+__device__ __forceinline__ float pow2f(int k) {
+  return __int_as_float((k + 127) << 23);
+}
+
+// A sketch cell as the wire carries it: f32, or the fxp32 int32 at the
+// block's scale s (2^(M-e) to store, 2^(e-M) to load).
+__device__ __forceinline__ void store_cell(float* p, float acc, float) {
+  *p = acc;
+}
+__device__ __forceinline__ void store_cell(int* p, float acc, float s) {
+  *p = __float2int_rn(acc * s);
+}
+__device__ __forceinline__ float load_cell(const float* p, float) {
+  return *p;
+}
+__device__ __forceinline__ float load_cell(const int* p, float s) {
+  return __int2float_rn(*p) * s;
+}
+
 __device__ __forceinline__ float block_max(float v, float* scratch) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -85,16 +120,18 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
 }
 
 // Shared-memory layout of the producer: x block (when kResident), then
-// rotations.
-template <bool kResident>
+// rotations. TS is the sketch's wire type: float, or int for the
+// quantize leg (exps and mbits are read only then).
+template <bool kResident, typename TS>
 __global__ void __launch_bounds__(kThreads)
 wire_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
                    const int* __restrict__ row_ptr,
                    const int* __restrict__ ent,
                    const float* __restrict__ ent_sign,
-                   float* __restrict__ sketch, uint32_t* __restrict__ words,
-                   float* __restrict__ maxabs, int group, int lanes, int rows,
-                   uint32_t salt) {
+                   TS* __restrict__ sketch, uint32_t* __restrict__ words,
+                   float* __restrict__ maxabs,
+                   const int* __restrict__ exps, int mbits, int group,
+                   int lanes, int rows, uint32_t salt) {
   extern __shared__ float smem[];
   __shared__ float warp_max[kThreads / 32];
   const int n = group * lanes;
@@ -122,7 +159,9 @@ wire_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
   __syncthreads();
 
   float mx = 0.0f;
-  float* sb = sketch + blk * rows * lanes;
+  float s = 1.0f;
+  if constexpr (std::is_same<TS, int>::value) s = pow2f(mbits - exps[blk]);
+  TS* sb = sketch + blk * rows * lanes;
   for (int m = threadIdx.x; m < lanes; m += blockDim.x) {
     for (int r = 0; r < rows; ++r) {
       float acc = 0.0f;
@@ -132,7 +171,7 @@ wire_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
         if (src < 0) src += lanes;
         acc += ent_sign[q] * xs[(t / 3) * lanes + src];
       }
-      sb[r * lanes + m] = acc;
+      store_cell(sb + r * lanes + m, acc, s);
       mx = fmaxf(mx, fabsf(acc));
     }
   }
@@ -142,15 +181,17 @@ wire_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
 
 // Shared-memory layout of the consumer: y, val, d (when kResident),
 // current bits, bits peeled this round, rotations. Otherwise y and d are
-// this block's planes of y_dev and d_dev, and val is the output.
-template <bool kResident>
+// this block's planes of y_dev and d_dev (y then holds the dequantized
+// floats on the int leg), and val is the output. TS as in the producer.
+template <bool kResident, typename TS>
 __global__ void __launch_bounds__(kThreads)
-wire_peel_kernel(const float* __restrict__ sketch,
+wire_peel_kernel(const TS* __restrict__ sketch,
                  const uint32_t* __restrict__ words,
                  const int* __restrict__ ids, const int* __restrict__ row_ptr,
                  const int* __restrict__ ent,
                  const float* __restrict__ ent_sign,
                  const int* __restrict__ hrow, const float* __restrict__ sign,
+                 const int* __restrict__ exps, int mbits,
                  float* __restrict__ values, int8_t* __restrict__ residual,
                  float* y_dev, int* d_dev, int group, int lanes, int rows,
                  int rounds, uint32_t salt) {
@@ -180,7 +221,10 @@ wire_peel_kernel(const float* __restrict__ sketch,
   int* rot = reinterpret_cast<int*>(pk + nw);
 
   block_rotations(rot, (uint32_t)ids[blk], group, lanes, salt);
-  for (int e = threadIdx.x; e < ns; e += blockDim.x) y[e] = sketch[blk * ns + e];
+  float s = 1.0f;
+  if constexpr (std::is_same<TS, int>::value) s = pow2f(exps[blk] - mbits);
+  for (int e = threadIdx.x; e < ns; e += blockDim.x)
+    y[e] = load_cell(sketch + blk * ns + e, s);
   for (int w = threadIdx.x; w < nw; w += blockDim.x) bw[w] = wg[w];
   __syncthreads();
 
@@ -285,6 +329,37 @@ int set_smem(const void* fn, size_t smem) {
   return (int)err;
 }
 
+template <bool kResident, typename TS>
+int launch_encode(const float* x, const int* ids, const int* row_ptr,
+                  const int* ent, const float* ent_sign, TS* sketch,
+                  uint32_t* words, float* maxabs, const int* exps, int mbits,
+                  int nb, int group, int lanes, int rows, uint32_t salt,
+                  size_t smem, cudaStream_t stream) {
+  int err = set_smem((const void*)wire_encode_kernel<kResident, TS>, smem);
+  if (err) return err;
+  if (nb > 0)
+    wire_encode_kernel<kResident, TS><<<nb, kThreads, smem, stream>>>(
+        x, ids, row_ptr, ent, ent_sign, sketch, words, maxabs, exps, mbits,
+        group, lanes, rows, salt);
+  return (int)cudaGetLastError();
+}
+
+template <bool kResident, typename TS>
+int launch_peel(const TS* sketch, const uint32_t* words, const int* ids,
+                const int* row_ptr, const int* ent, const float* ent_sign,
+                const int* hrow, const float* sign, const int* exps,
+                int mbits, float* values, int8_t* residual, float* y_dev,
+                int* d_dev, int nb, int group, int lanes, int rows,
+                int rounds, uint32_t salt, size_t smem, cudaStream_t stream) {
+  int err = set_smem((const void*)wire_peel_kernel<kResident, TS>, smem);
+  if (err) return err;
+  if (nb > 0)
+    wire_peel_kernel<kResident, TS><<<nb, kThreads, smem, stream>>>(
+        sketch, words, ids, row_ptr, ent, ent_sign, hrow, sign, exps, mbits,
+        values, residual, y_dev, d_dev, group, lanes, rows, rounds, salt);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -311,57 +386,73 @@ size_t sketch_wire_peel_smem(int group, int lanes, int rows, int resident) {
          sizeof(uint32_t) * 2 * (n / 32) + sizeof(int) * 3 * (size_t)group;
 }
 
+// exps == NULL: the f32 wire, `sketch` is float. Otherwise the quantize
+// leg: (nb,) int32 exponents, mantissa bits `mbits`, `sketch` is int32.
 int sketch_wire_encode(const float* x, const int* ids, const int* row_ptr,
-                       const int* ent, const float* ent_sign, float* sketch,
-                       int* words, float* maxabs, int nb, int group,
-                       int lanes, int rows, int resident, unsigned salt,
-                       void* stream) {
+                       const int* ent, const float* ent_sign, void* sketch,
+                       int* words, float* maxabs, const int* exps, int nb,
+                       int group, int lanes, int rows, int mbits,
+                       int resident, unsigned salt, void* stream) {
   const size_t smem = sketch_wire_encode_smem(group, lanes, resident);
-  const void* fn = resident ? (const void*)wire_encode_kernel<true>
-                            : (const void*)wire_encode_kernel<false>;
-  int err = set_smem(fn, smem);
-  if (err) return err;
-  if (nb > 0) {
-    uint32_t* w = reinterpret_cast<uint32_t*>(words);
-    if (resident)
-      wire_encode_kernel<true><<<nb, kThreads, smem, (cudaStream_t)stream>>>(
-          x, ids, row_ptr, ent, ent_sign, sketch, w, maxabs, group, lanes,
-          rows, salt);
-    else
-      wire_encode_kernel<false><<<nb, kThreads, smem, (cudaStream_t)stream>>>(
-          x, ids, row_ptr, ent, ent_sign, sketch, w, maxabs, group, lanes,
-          rows, salt);
+  uint32_t* w = reinterpret_cast<uint32_t*>(words);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (exps == nullptr) {
+    float* sk = static_cast<float*>(sketch);
+    return resident
+               ? launch_encode<true>(x, ids, row_ptr, ent, ent_sign, sk, w,
+                                     maxabs, exps, mbits, nb, group, lanes,
+                                     rows, salt, smem, st)
+               : launch_encode<false>(x, ids, row_ptr, ent, ent_sign, sk, w,
+                                      maxabs, exps, mbits, nb, group, lanes,
+                                      rows, salt, smem, st);
   }
-  return (int)cudaGetLastError();
+  int* sk = static_cast<int*>(sketch);
+  return resident
+             ? launch_encode<true>(x, ids, row_ptr, ent, ent_sign, sk, w,
+                                   maxabs, exps, mbits, nb, group, lanes,
+                                   rows, salt, smem, st)
+             : launch_encode<false>(x, ids, row_ptr, ent, ent_sign, sk, w,
+                                    maxabs, exps, mbits, nb, group, lanes,
+                                    rows, salt, smem, st);
 }
 
 // y_dev (nb, rows, lanes) f32 and d_dev (nb, rows, lanes) int32 are
-// scratch for resident == 0 and unused otherwise.
-int sketch_wire_peel(const float* sketch, const int* words, const int* ids,
+// scratch for resident == 0 and unused otherwise. exps == NULL: `sketch`
+// is the f32 aggregate; otherwise the int32 fxp32 aggregate, dequantized
+// with (nb,) int32 exponents and mantissa bits `mbits`.
+int sketch_wire_peel(const void* sketch, const int* words, const int* ids,
                      const int* row_ptr, const int* ent,
                      const float* ent_sign, const int* hrow,
-                     const float* sign, float* values, signed char* residual,
-                     float* y_dev, int* d_dev, int nb, int group, int lanes,
-                     int rows, int rounds, int resident, unsigned salt,
-                     void* stream) {
+                     const float* sign, const int* exps, float* values,
+                     signed char* residual, float* y_dev, int* d_dev, int nb,
+                     int group, int lanes, int rows, int rounds, int mbits,
+                     int resident, unsigned salt, void* stream) {
   const size_t smem = sketch_wire_peel_smem(group, lanes, rows, resident);
-  const void* fn = resident ? (const void*)wire_peel_kernel<true>
-                            : (const void*)wire_peel_kernel<false>;
-  int err = set_smem(fn, smem);
-  if (err) return err;
-  if (nb > 0) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(words);
-    int8_t* res = reinterpret_cast<int8_t*>(residual);
-    if (resident)
-      wire_peel_kernel<true><<<nb, kThreads, smem, (cudaStream_t)stream>>>(
-          sketch, w, ids, row_ptr, ent, ent_sign, hrow, sign, values, res,
-          y_dev, d_dev, group, lanes, rows, rounds, salt);
-    else
-      wire_peel_kernel<false><<<nb, kThreads, smem, (cudaStream_t)stream>>>(
-          sketch, w, ids, row_ptr, ent, ent_sign, hrow, sign, values, res,
-          y_dev, d_dev, group, lanes, rows, rounds, salt);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(words);
+  int8_t* res = reinterpret_cast<int8_t*>(residual);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (exps == nullptr) {
+    const float* sk = static_cast<const float*>(sketch);
+    return resident
+               ? launch_peel<true>(sk, w, ids, row_ptr, ent, ent_sign, hrow,
+                                   sign, exps, mbits, values, res, y_dev,
+                                   d_dev, nb, group, lanes, rows, rounds,
+                                   salt, smem, st)
+               : launch_peel<false>(sk, w, ids, row_ptr, ent, ent_sign, hrow,
+                                    sign, exps, mbits, values, res, y_dev,
+                                    d_dev, nb, group, lanes, rows, rounds,
+                                    salt, smem, st);
   }
-  return (int)cudaGetLastError();
+  const int* sk = static_cast<const int*>(sketch);
+  return resident
+             ? launch_peel<true>(sk, w, ids, row_ptr, ent, ent_sign, hrow,
+                                 sign, exps, mbits, values, res, y_dev, d_dev,
+                                 nb, group, lanes, rows, rounds, salt, smem,
+                                 st)
+             : launch_peel<false>(sk, w, ids, row_ptr, ent, ent_sign, hrow,
+                                  sign, exps, mbits, values, res, y_dev,
+                                  d_dev, nb, group, lanes, rows, rounds, salt,
+                                  smem, st);
 }
 
 }  // extern "C"

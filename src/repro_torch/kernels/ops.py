@@ -12,8 +12,11 @@ the config (the reference's name, kept so the configs stay equal):
   ``"always"`` raises there, since the kernels exist only on the card;
 - a CUDA tensor takes the hand kernel, or the call raises: ``"never"``
   raises rather than run the plain version on the card (``chip_smoke.py``
-  calls ``kernels/ref.py`` directly when it compares the two), and so
-  does a leg the kernels do not have yet (``exponents``).
+  calls ``kernels/ref.py`` directly when it compares the two).
+
+Both kernels have both legs of the reference: with ``exponents`` and
+``mantissa_bits`` the producer quantizes to the fxp32 int32 sketch and
+the consumer dequantizes it, on the card as in the plain versions.
 """
 
 from __future__ import annotations
@@ -45,13 +48,6 @@ def _use_kernel(cfg: CompressionConfig, t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def _no_quantized_kernel(exponents):
-    if exponents is not None:
-        raise NotImplementedError(
-            "the fxp32 quantize/dequant kernel legs come with the in-network "
-            "slice; on a CUDA tensor only the unquantized wire runs")
-
-
 def fused_wire_supported(cfg: CompressionConfig) -> bool:
     """Whether the fused wire-codec ops cover this geometry: the bitmap
     is packed per block, so word boundaries must coincide with block
@@ -75,11 +71,13 @@ def encode_pack_quantize(xb: torch.Tensor, block_ids: torch.Tensor,
                          mantissa_bits: int | None = None):
     """Fused wire producer: (nb, G, c) values + (nb,) int32 ids ->
     (sketch (nb, rows, c) f32|int32, words (nb, wpb) int32,
-    maxabs (nb,) f32), in one pass over the gradient stream."""
+    maxabs (nb,) f32), in one pass over the gradient stream; the sketch
+    is the fxp32 int32 one when (nb,) int32 per-block ``exponents`` and
+    ``mantissa_bits`` are given."""
     _check_fused(cfg, exponents, mantissa_bits)
     if _use_kernel(cfg, xb):
-        _no_quantized_kernel(exponents)
-        return encode_pack_quantize_cuda(xb, block_ids, cfg)
+        return encode_pack_quantize_cuda(xb, block_ids, cfg, exponents=exponents,
+                                         mantissa_bits=mantissa_bits)
     return ref_ops.encode_pack_quantize_ref(
         xb, block_ids, cfg, exponents=exponents, mantissa_bits=mantissa_bits)
 
@@ -90,11 +88,14 @@ def dequant_peel_unpack(sketch: torch.Tensor, words: torch.Tensor,
                         mantissa_bits: int | None = None):
     """Fused wire consumer: (nb, rows, c) sketch + (nb, wpb) words + (nb,)
     ids -> (values f32, residual int8), both (nb, G, c), in one pass over
-    the aggregated wire payload."""
+    the aggregated wire payload; an int32 fxp32 sketch is dequantized in
+    the same pass with (nb,) int32 per-block ``exponents`` and
+    ``mantissa_bits``."""
     _check_fused(cfg, exponents, mantissa_bits)
     if _use_kernel(cfg, sketch):
-        _no_quantized_kernel(exponents)
-        return dequant_peel_unpack_cuda(sketch, words, block_ids, cfg)
+        return dequant_peel_unpack_cuda(sketch, words, block_ids, cfg,
+                                        exponents=exponents,
+                                        mantissa_bits=mantissa_bits)
     return ref_ops.dequant_peel_unpack_ref(
         sketch, words, block_ids, cfg, exponents=exponents,
         mantissa_bits=mantissa_bits)

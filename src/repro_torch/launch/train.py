@@ -1,13 +1,18 @@
 """Training launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
-        --layers 4 --workers 2 --steps 4 --global-batch 8 --seq-len 1024
+        --layers 4 --workers 2 --steps 4 --global-batch 8 --seq-len 1024 \
+        --aggregator compressed_innet --wire fxp32
 
 Trains the named architecture at its published widths (``--layers`` cuts
 the depth; ``--smoke`` takes the reduced same-family config instead) with
 ``--workers`` data-parallel workers emulated on one device, and prints a
-JSON summary. ``--device cpu`` runs the plain PyTorch versions of the
-codec kernels.
+JSON summary. ``--aggregator`` picks the strategy and ``--wire`` the
+in-network tier's wire (``f32``, or ``fxp32``: the sketch quantized to
+shared-exponent int32 for the switch). ``--accum-steps`` defaults to 1:
+the config's microbatch count is sized for the reference's pod-scale
+global batch, and a small batch split over the workers cannot take it.
+``--device cpu`` runs the plain PyTorch versions of the codec kernels.
 """
 
 from __future__ import annotations
@@ -28,8 +33,12 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
-    ap.add_argument("--aggregator", choices=["dense", "compressed"], default=None)
-    ap.add_argument("--accum-steps", type=int, default=None)
+    ap.add_argument("--aggregator",
+                    choices=["dense", "compressed", "compressed_innet"],
+                    default=None)
+    ap.add_argument("--wire", choices=["f32", "fxp32"], default=None,
+                    help="the in-network tier's sketch wire")
+    ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -45,8 +54,10 @@ def main(argv=None):
     tc = dataclasses.replace(arch.train, workers=args.workers)
     if args.aggregator:
         tc = dataclasses.replace(tc, aggregator=args.aggregator)
-    if args.accum_steps is not None or args.smoke:
-        tc = dataclasses.replace(tc, accum_steps=args.accum_steps or 1)
+    if args.wire:
+        tc = dataclasses.replace(tc, compression=dataclasses.replace(
+            tc.compression, wire_dtype=args.wire))
+    tc = dataclasses.replace(tc, accum_steps=args.accum_steps)
     if args.lr:
         tc = dataclasses.replace(tc, optimizer=dataclasses.replace(
             tc.optimizer, lr=args.lr, total_steps=args.steps))
@@ -55,7 +66,8 @@ def main(argv=None):
                        device=args.device)
     summary = {
         "arch": args.arch, "layers": cfg.n_layers, "workers": tc.workers,
-        "aggregator": tc.aggregator, "device": args.device,
+        "aggregator": tc.aggregator, "wire": tc.compression.wire_dtype,
+        "device": args.device,
         "first_loss": res.losses[0], "last_loss": res.losses[-1],
         "steps": res.final_step,
     }

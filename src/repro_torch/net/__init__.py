@@ -1,1 +1,3 @@
-"""Fixed-point wire helpers (the in-network tier comes in a later slice)."""
+"""Emulated in-network aggregation tier: the fixed-point wire codec
+(``fixedpoint``), reduction trees over the emulated workers
+(``topology``) and the programmable-switch device model (``switch``)."""

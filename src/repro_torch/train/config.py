@@ -3,13 +3,17 @@ data-parallel world, optimizer, memory policy.
 
 The reference's ``TrainConfig`` without ``sharding``: ``workers`` stands
 in for the data-parallel world (W workers emulated on one device, see
-``core/collectives.LocalWorkers``). ``remat`` defaults to ``"none"``, the
-only policy this slice runs.
+``core/collectives.LocalWorkers``) and ``dp_levels`` for the mesh's
+data-parallel axes (the level sizes, innermost first, that the
+in-network tier's ``tor_spine`` tree maps onto; empty means one level of
+all W). ``remat`` defaults to ``"none"``, the only policy the port runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Tuple
 
 from repro_torch.core.config import CompressionConfig
 from .optimizer import OptimizerConfig
@@ -17,7 +21,7 @@ from .optimizer import OptimizerConfig
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    aggregator: str = "compressed"       # "dense" | "compressed"
+    aggregator: str = "compressed"       # "dense" | "compressed" | "compressed_innet"
     compression: CompressionConfig = dataclasses.field(
         default_factory=CompressionConfig)
     optimizer: OptimizerConfig = dataclasses.field(
@@ -25,6 +29,7 @@ class TrainConfig:
     remat: str = "none"
     accum_steps: int = 1                 # microbatch gradient accumulation
     workers: int = 1                     # data-parallel workers (W)
+    dp_levels: Tuple[int, ...] = ()      # DP level sizes, innermost first
     seed: int = 0
 
     def __post_init__(self):
@@ -38,3 +43,6 @@ class TrainConfig:
                 f"remat={self.remat!r}: only 'none' is supported in this slice")
         if self.workers < 1 or self.accum_steps < 1:
             raise ValueError("workers and accum_steps must be >= 1")
+        if self.dp_levels and math.prod(self.dp_levels) != self.workers:
+            raise ValueError(f"dp_levels {self.dp_levels} do not multiply "
+                             f"to {self.workers} workers")

@@ -6,8 +6,9 @@ The step follows the reference's Algorithm 1 deployment:
   1. worker w computes local gradients on batch rows
      ``[w·B/W, (w+1)·B/W)`` (with optional microbatch accumulation);
   2. the gradients are aggregated across the workers by the strategy
-     ``tc.aggregator`` (``"dense"`` or ``"compressed"``); as in the
-     reference, a single worker always aggregates densely;
+     ``tc.aggregator`` (``"dense"``, ``"compressed"`` or
+     ``"compressed_innet"``); as in the reference, a single worker always
+     aggregates densely;
   3. the optimizer applies the mean gradient, replicated.
 
 The workers run in turn on one device (``core/collectives.LocalWorkers``).
@@ -62,7 +63,7 @@ def build_train_step(api: ModelAPI, tc: TrainConfig):
     """Returns ``step_fn(state, batch) -> (state, metrics)``; ``batch``
     holds the global batch's tensors on the params' device."""
     W = tc.workers
-    group = LocalWorkers(W)
+    group = LocalWorkers(W, tc.dp_levels)
     ocfg = tc.optimizer
     aggregator = agg_lib.make_aggregator(
         tc.aggregator if W > 1 else "dense", tc.compression, group)

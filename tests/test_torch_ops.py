@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.compressor import HomomorphicCompressor
 from repro_torch.core.config import CompressionConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.net.fixedpoint import FixedPointWire, pow2
 
 CFGS = [
     CompressionConfig(ratio=0.2, lanes=128, rows=6, rounds=8),
@@ -83,18 +84,60 @@ def test_always_on_cpu_raises():
 
 
 def test_exponents_on_the_kernel_path_raise(monkeypatch):
-    """The quantize/dequant legs have no kernel yet: where the kernel path
-    is taken (a CUDA tensor), ``exponents`` raises before any launch."""
+    """Where the kernel path is taken (a CUDA tensor), malformed
+    ``exponents`` raise in the wrapper before anything is built or
+    launched: they must be (nb,) int32, with 2 <= mantissa_bits <= 30."""
     monkeypatch.setattr(ops, "_use_kernel", lambda cfg, t: True)
     cfg = CFGS[0]
-    xb, ids = blocks(cfg, 1, 0.05, 3), ids_for(1)
-    exps = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="in-network"):
-        ops.encode_pack_quantize(xb, ids, cfg, exponents=exps, mantissa_bits=29)
+    xb, ids = blocks(cfg, 2, 0.05, 3), ids_for(2)
     sk, w, _ = ref.encode_pack_quantize_ref(xb, ids, cfg)
-    with pytest.raises(NotImplementedError, match="in-network"):
-        ops.dequant_peel_unpack(sk.to(torch.int32), w, ids, cfg,
-                                exponents=exps, mantissa_bits=29)
+    q = sk.to(torch.int32)
+    before = dict(ops.LAUNCHES)
+    for exps, mbits, err in [
+            (torch.zeros(2, dtype=torch.int64), 29, TypeError),
+            (torch.zeros(3, dtype=torch.int32), 29, ValueError),
+            (torch.zeros(2, dtype=torch.int32), 31, ValueError)]:
+        with pytest.raises(err):
+            ops.encode_pack_quantize(xb, ids, cfg, exponents=exps,
+                                     mantissa_bits=mbits)
+        with pytest.raises(err):
+            ops.dequant_peel_unpack(q, w, ids, cfg, exponents=exps,
+                                    mantissa_bits=mbits)
+    with pytest.raises(TypeError, match="int32"):   # an f32 sketch on the dq leg
+        ops.dequant_peel_unpack(sk, w, ids, cfg,
+                                exponents=torch.zeros(2, dtype=torch.int32),
+                                mantissa_bits=29)
+    assert ops.LAUNCHES == before
+
+
+def test_exponents_reach_the_kernel_wrappers(monkeypatch):
+    """On the kernel path ``exponents`` and ``mantissa_bits`` go to the
+    CUDA wrappers (the quantize and dequant legs), unchanged."""
+    monkeypatch.setattr(ops, "_use_kernel", lambda cfg, t: True)
+    seen = {}
+
+    def spy(name):
+        def wrapper(*args, **kw):
+            seen[name] = (args, kw)
+            return name
+        return wrapper
+
+    monkeypatch.setattr(ops, "encode_pack_quantize_cuda", spy("producer"))
+    monkeypatch.setattr(ops, "dequant_peel_unpack_cuda", spy("consumer"))
+    cfg = CFGS[0]
+    xb, ids = blocks(cfg, 2, 0.05, 3), ids_for(2)
+    sk, w, _ = ref.encode_pack_quantize_ref(xb, ids, cfg)
+    exps = torch.tensor([-3, 5], dtype=torch.int32)
+    assert ops.encode_pack_quantize(xb, ids, cfg, exponents=exps,
+                                    mantissa_bits=29) == "producer"
+    assert ops.dequant_peel_unpack(sk.to(torch.int32), w, ids, cfg,
+                                   exponents=exps, mantissa_bits=29) == "consumer"
+    for name in ("producer", "consumer"):
+        args, kw = seen[name]
+        assert kw["exponents"] is exps and kw["mantissa_bits"] == 29
+        assert args[-1] is cfg
+    ops.encode_pack_quantize(xb, ids, cfg)
+    assert seen["producer"][1] == {"exponents": None, "mantissa_bits": None}
 
 
 def test_exponents_need_mantissa_bits():
@@ -216,10 +259,9 @@ def test_cuda_dispatch_rules(cuda_dev):
     xb, ids = blocks(cfg, 1, 0.05, 10).to(cuda_dev), ids_for(1, 0, cuda_dev)
     with pytest.raises(ValueError, match="never"):
         ops.encode_pack_quantize(xb, ids, cfg)
-    with pytest.raises(NotImplementedError, match="in-network"):
+    with pytest.raises(TypeError, match="int32"):   # exponents on the card, f32
         ops.encode_pack_quantize(xb, ids, CFGS[0],
-                                 exponents=torch.zeros(1, dtype=torch.int32,
-                                                       device=cuda_dev),
+                                 exponents=torch.zeros(1, device=cuda_dev),
                                  mantissa_bits=29)
     with pytest.raises(TypeError):
         ops.encode_pack_quantize(xb.double(), ids, CFGS[0])
@@ -229,3 +271,97 @@ def test_cuda_dispatch_rules(cuda_dev):
     w = torch.zeros((1, huge.block_elems // 32), dtype=torch.int32, device=cuda_dev)
     with pytest.raises(ValueError, match="shared memory"):
         ops.dequant_peel_unpack(sk, w, ids, huge)
+
+
+# ----------------------------------------------------------------------
+# the fxp32 legs on the card: quantize producer, dequant consumer
+# ----------------------------------------------------------------------
+
+def _two_worker_exponents(cfg, xbs, ids, mbits=29):
+    """Per-block W=2 exponents from the kernels' real maxabs, as the
+    in-network aggregator agrees on them (FixedPointWire(2), M=29)."""
+    wire = FixedPointWire(2)
+    assert wire.mantissa_bits == mbits
+    mx = [ops.encode_pack_quantize(xb, ids, cfg)[2] for xb in xbs]
+    return wire, wire.exponents_from_maxabs(torch.maximum(*mx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CFGS, ids=IDS)
+@pytest.mark.parametrize("frac", [0.04, 0.4])
+def test_quantized_legs_match_plain_dyadic(cuda_dev, cfg, frac):
+    ids = ids_for(5, 7000, cuda_dev)
+    xbs = [blocks(cfg, 5, frac, 20 + s).to(cuda_dev) for s in range(2)]
+    wire, e = _two_worker_exponents(cfg, xbs, ids)
+    M = wire.mantissa_bits
+    qs = []
+    for xb in xbs:
+        got = ops.encode_pack_quantize(xb, ids, cfg, exponents=e, mantissa_bits=M)
+        want = ref.encode_pack_quantize_ref(xb, ids, cfg, exponents=e,
+                                            mantissa_bits=M)
+        assert got[0].dtype == torch.int32
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        qs.append(got)
+    q = qs[0][0] + qs[1][0]
+    words = qs[0][1] | qs[1][1]
+    got = ops.dequant_peel_unpack(q, words, ids, cfg, exponents=e, mantissa_bits=M)
+    want = ref.dequant_peel_unpack_ref(q, words, ids, cfg, exponents=e,
+                                       mantissa_bits=M)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CFGS, ids=IDS)
+def test_quantized_legs_equal_f32_legs_composed_with_the_wire(cuda_dev, cfg):
+    """On Gaussian inputs the quantize leg equals the f32 producer kernel
+    followed by ``FixedPointWire.encode``, and the dequant leg equals
+    ``decode`` followed by the f32 consumer kernel, bit for bit. Against
+    the plain versions: q within one step plus the f32 tolerance
+    (rtol=1e-5, atol=1e-6) at the block's scale of the plain q (the plain
+    version sums in atomic order, and an ulp of a cell near the block's
+    max is 2^(M-24) steps of q), values within rtol=1e-5, atol=1e-6."""
+    ids = ids_for(5, 37, cuda_dev)
+    xbs = [blocks(cfg, 5, 0.04, 30 + s, kind="gauss").to(cuda_dev) for s in range(2)]
+    wire, e = _two_worker_exponents(cfg, xbs, ids)
+    M = wire.mantissa_bits
+    nb = 5
+    qs = []
+    for xb in xbs:
+        sk, w, mx = ops.encode_pack_quantize(xb, ids, cfg)
+        q, wq, mxq = ops.encode_pack_quantize(xb, ids, cfg, exponents=e,
+                                              mantissa_bits=M)
+        assert torch.equal(q.reshape(nb, -1), wire.encode(sk.reshape(nb, -1), e))
+        assert torch.equal(w, wq) and torch.equal(mx, mxq)
+        q_plain = ref.encode_pack_quantize_ref(xb, ids, cfg, exponents=e,
+                                               mantissa_bits=M)[0]
+        steps = ((1e-5 * sk.abs() + 1e-6).reshape(nb, -1)
+                 * pow2(M - e)[:, None]).reshape(q.shape)
+        assert bool(((q - q_plain).abs() <= steps + 1).all())
+        qs.append((q, w))
+    q = qs[0][0] + qs[1][0]
+    words = qs[0][1] | qs[1][1]
+    v, r = ops.dequant_peel_unpack(q, words, ids, cfg, exponents=e, mantissa_bits=M)
+    y = wire.decode(q.reshape(nb, -1), e).reshape(q.shape)
+    v2, r2 = ops.dequant_peel_unpack(y, words, ids, cfg)
+    assert torch.equal(v, v2) and torch.equal(r, r2)
+    v3, r3 = ref.dequant_peel_unpack_ref(q, words, ids, cfg, exponents=e,
+                                         mantissa_bits=M)
+    torch.testing.assert_close(v, v3, rtol=1e-5, atol=1e-6)
+    assert torch.equal(r, r3)
+
+
+@pytest.mark.cuda
+def test_quantized_legs_count_their_own_launches(cuda_dev):
+    cfg = CFGS[3]
+    xb = blocks(cfg, 3, 0.04, 40).to(cuda_dev)
+    ids = ids_for(3, 0, cuda_dev)
+    e = torch.zeros(3, dtype=torch.int32, device=cuda_dev)
+    before = dict(ops.LAUNCHES)
+    q, w, _ = ops.encode_pack_quantize(xb, ids, cfg, exponents=e, mantissa_bits=29)
+    ops.dequant_peel_unpack(q, w, ids, cfg, exponents=e, mantissa_bits=29)
+    after = dict(ops.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "encode_pack_quantize": 0, "dequant_peel_unpack": 0,
+        "encode_pack_quantize_q": 1, "dequant_peel_unpack_dq": 1}
