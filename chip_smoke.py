@@ -63,7 +63,37 @@ The in-network slice (``aggregator="compressed_innet"``, fxp32 wire):
     equals the ``compressed`` aggregate bit for bit everywhere and the
     dense mean at every coordinate the peel recovers.
 
-Then the ``{"kernels": [...]}`` line (all four kernel legs), the
+The Bloom-index slice (``index="bloom"``, the standalone encode and peel
+kernels):
+
+13. kernels_std — the standalone encode and peel against their plain
+    versions on 2048 blocks at offset ids, the peel fed the candidates of
+    a Bloom filter built over the blocks: the main geometry with dyadic
+    inputs at 4% and 40% bit for bit and Gaussian inputs to rtol=1e-5,
+    atol=1e-6, residual exactly; the unaligned geometry lanes=500 (G=60,
+    n % 32 = 16), dyadic and Gaussian; dyadic in the two geometries whose
+    state lives in device memory. On every aligned input the standalone
+    sketch equals the fused producer's and the standalone peel the fused
+    consumer's on the packed bits, bit for bit; two runs bit-identical.
+14. bloom_train — the train of phase 4 with ``index="bloom"`` and top-k
+    0.1%: per step W standalone encode launches and one standalone peel,
+    no fused leg; per step the recovery stats, the filter's fill and the
+    candidates against the true union of the two workers' non-zeros (kept
+    by an observer of ``bloom_build`` during the step, read after it).
+15. bloom_breakdown — its stage times: encode kernel, ``bloom_build``,
+    sum/OR, ``bloom_query`` and peel kernel in place of the fused
+    producer and consumer.
+16. bloom_stream — both standalone kernels against their plain versions
+    at the full stream (encode on one worker's 0.1% stream, peel on the
+    aggregate of two with Bloom candidates, dyadic bit for bit); their
+    kernel and plain times; and the standalone peel on the bitmap bits of
+    two 4% payloads beside the fused consumer, equal bit for bit.
+17. bloom_lossless — 1%-dense dyadic gradients per worker in the
+    lossless profile (rows 60, ratio 2) with the Bloom index: the
+    aggregate equals the dense mean bit for bit at every coordinate, the
+    filter's false positives peeling to exactly 0.
+
+Then the ``{"kernels": [...]}`` line (all six kernel rows), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
 CPU fallback: without a CUDA device the script exits non-zero before
 printing a result.
@@ -72,6 +102,7 @@ printing a result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import pathlib
 import statistics
@@ -138,7 +169,8 @@ class Checker:
 
     def __init__(self):
         self.err = {"encode_pack_quantize": 0.0, "dequant_peel_unpack": 0.0,
-                    "encode_pack_quantize_q": 0.0, "dequant_peel_unpack_dq": 0.0}
+                    "encode_pack_quantize_q": 0.0, "dequant_peel_unpack_dq": 0.0,
+                    "sketch_encode": 0.0, "sketch_peel": 0.0}
         self.q_steps = 0       # largest |q_kernel - q_plain| of a case (Gaussian)
 
     def __call__(self, name, got, want, exact):
@@ -225,6 +257,46 @@ class Checker:
         self(name, got[1], want[1], True)
         return got
 
+    def encode_std(self, xb, ids, cfg, exact):
+        """Standalone encode kernel vs plain on ``xb``, and, on an aligned
+        geometry, vs the fused producer's sketch bit for bit (any input).
+        Returns the kernel's sketch."""
+        from repro_torch.kernels import ops, ref
+        got = ops.sketch_encode(xb, ids, cfg)
+        self("sketch_encode", got, ref.sketch_encode_ref(xb, ids, cfg), exact)
+        twin = fused_twin(cfg)
+        if twin is not None:
+            self("sketch_encode", got, ops.encode_pack_quantize(xb, ids, twin)[0],
+                 True)
+        return got
+
+    def peel_std(self, sk, bits, ids, cfg, exact):
+        """Standalone peel kernel vs plain on one aggregate and its
+        candidate bits, and, on an aligned geometry, vs the fused consumer
+        on the packed bits, bit for bit (any input). Returns the kernel's
+        outputs."""
+        from repro_torch.core import index as index_lib
+        from repro_torch.kernels import ops, ref
+        got = ops.sketch_peel(sk, bits, ids, cfg)
+        want = ref.sketch_peel_ref(sk, bits, ids, cfg)
+        self("sketch_peel", got[0], want[0], exact)
+        self("sketch_peel", got[1], want[1], True)
+        twin = fused_twin(cfg)
+        if twin is not None:
+            words = index_lib.pack_bits(bits).reshape(sk.shape[0], -1)
+            fused = ops.dequant_peel_unpack(sk, words, ids, twin)
+            self("sketch_peel", got[0], fused[0], True)
+            self("sketch_peel", got[1], fused[1], True)
+        return got
+
+
+def fused_twin(cfg):
+    """The bitmap config of ``cfg``'s geometry where the fused kernels
+    cover it, else None."""
+    from repro_torch.kernels import ops
+    twin = dataclasses.replace(cfg, index="bitmap")
+    return twin if ops.fused_wire_supported(twin) else None
+
 
 def phase_kernels(cfg, dev, check):
     """Kernel vs plain version on the card on 2048 blocks at offset ids,
@@ -304,6 +376,50 @@ def phase_kernels_q(cfg, dev, check):
               "exponent_range": [int(e.min()), int(e.max())],
               "max_q_steps_vs_plain": check.q_steps,
               "nnz": int(index_lib.popcount(w)), "residual": int(res.sum())})
+
+
+def phase_kernels_std(cfg, dev, check):
+    """The standalone encode and peel against their plain versions on
+    2048 blocks at offset ids; the peel takes the candidates of a Bloom
+    filter built over the blocks (the non-zeros and the filter's false
+    positives). The main geometry (three input kinds, run-to-run
+    repeatability), the unaligned lanes=500 (G=60, n % 32 = 16), and the
+    two geometries whose state outgrows shared memory; on every aligned
+    geometry each kernel also equals its fused counterpart bit for bit."""
+    import torch
+    from repro_torch.core import index as index_lib
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5678)
+    ids = torch.arange(CHECK_BLOCKS, dtype=torch.int32, device=dev) + CHECK_OFFSET
+    cases = [(cfg, CHECK_BLOCKS, kind, frac) for kind, frac in
+             [("dyadic", 0.04), ("dyadic", 0.40), ("gauss", 0.04)]]
+    unaligned = dataclasses.replace(cfg, lanes=500)
+    cases += [(unaligned, CHECK_BLOCKS, kind, 0.04) for kind in ("dyadic", "gauss")]
+    cases += [(big, BIG_BLOCKS, "dyadic", 0.04) for big in
+              (dataclasses.replace(cfg, ratio=2.0, rows=60),
+               dataclasses.replace(cfg, ratio=0.05))]
+    for c, nb, kind, frac in cases:
+        exact = kind == "dyadic"
+        xb = make_blocks(c, nb, frac, kind, gen)
+        idb = ids[:nb]
+        sk = check.encode_std(xb, idb, c, exact)
+        bits = index_lib.bloom_query(xb.shape, c, index_lib.bloom_build(xb, c))
+        if not bool(bits[xb != 0].all()):
+            raise AssertionError("the Bloom query missed a non-zero")
+        _, res = check.peel_std(sk, bits, idb, c, exact)
+        if c is cfg and kind == "gauss":   # no atomics: runs repeat bit for bit
+            if not torch.equal(ops.sketch_encode(xb, idb, c), sk):
+                raise AssertionError("sketch_encode is not run-to-run deterministic")
+            runs = [ops.sketch_peel(sk, bits, idb, c) for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError("sketch_peel is not run-to-run deterministic")
+        emit({"phase": "kernels_std", "case": f"{kind}@{frac} rows={c.rows} "
+              f"G={c.group} lanes={c.lanes}", "blocks": nb, "agree": True,
+              "equal_to_fused": fused_twin(c) is not None,
+              "nonzeros": int((xb != 0).sum()), "candidates": int(bits.sum()),
+              "residual": int(res.sum())})
 
 
 def bound(nbytes, nops):
@@ -393,10 +509,55 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     return recs
 
 
-def phase_train(dev, phase="train", wire="f32"):
+class BloomObserver:
+    """Keeps what ``bloom_build`` is given and returns during a step (each
+    worker's block stream and filter: references only, no work) and
+    reads them after the step, outside its clock: ``run_training`` calls
+    its log hook after taking the step's time. Per step: the filter's
+    fill and the true union of the workers' non-zeros, for the
+    candidates of the step's ``RecoveryStats``."""
+
+    def __init__(self):
+        self.held, self.steps = [], []
+
+    def __enter__(self):
+        from repro_torch.core import index as index_lib
+        self._build = build = index_lib.bloom_build
+
+        def observed(xb, cfg, **kw):
+            words = build(xb, cfg, **kw)
+            self.held.append((xb, words))
+            return words
+
+        index_lib.bloom_build = observed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import index as index_lib
+        index_lib.bloom_build = self._build
+
+    def after_step(self, _line):
+        import torch
+        from repro_torch.core import index as index_lib
+        if len(self.held) != WORKERS:
+            raise AssertionError(f"{len(self.held)} filters built in a step")
+        nz = [xb != 0 for xb, _ in self.held]
+        filt = functools.reduce(torch.bitwise_or, [w for _, w in self.held])
+        self.steps.append({
+            "coordinates": nz[0].numel(),
+            "worker_nnz": [int(m.sum()) for m in nz],
+            "union_nnz": int(functools.reduce(torch.logical_or, nz).sum()),
+            "filter_bits": filt.numel() * 32,
+            "filter_set_bits": int(index_lib.popcount(filt))})
+        self.held.clear()
+
+
+def phase_train(dev, phase="train", wire="f32", fields=None):
     """The main path: ``compressed`` (``wire="f32"``) or, with
-    ``wire="fxp32"``, ``compressed_innet`` on the fxp32 wire. The launch
-    counters are zeroed just before the run and read just after."""
+    ``wire="fxp32"``, ``compressed_innet`` on the fxp32 wire; ``fields``
+    override the config's compression fields (the Bloom path:
+    ``index="bloom"``, a 0.1% top-k). The launch counters are zeroed just
+    before the run and read just after."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -409,42 +570,67 @@ def phase_train(dev, phase="train", wire="f32"):
     tc = dataclasses.replace(
         arch.train, workers=WORKERS, accum_steps=1, remat="none",
         aggregator="compressed_innet" if innet else "compressed",
-        compression=dataclasses.replace(arch.train.compression, wire_dtype=wire))
+        compression=dataclasses.replace(arch.train.compression, wire_dtype=wire,
+                                        **(fields or {})))
+    bloom = tc.compression.index == "bloom"
     api = model_api(mcfg)
     torch.cuda.reset_peak_memory_stats()
+    observer = BloomObserver() if bloom else None
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
-    res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ, steps=STEPS,
-                       device=dev, log_every=0)
+    if bloom:
+        with observer:
+            res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+                               steps=STEPS, device=dev, log_every=1,
+                               log_fn=observer.after_step)
+    else:
+        res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+                           steps=STEPS, device=dev, log_every=0)
     launches = dict(ops.LAUNCHES)
-    # per step: W f32 producer launches, then one consumer launch (the
-    # dequant leg on the fxp32 wire); the quantize leg is off the path
-    want = {"encode_pack_quantize": WORKERS * STEPS,
-            "dequant_peel_unpack": 0 if innet else STEPS,
-            "encode_pack_quantize_q": 0,
-            "dequant_peel_unpack_dq": STEPS if innet else 0}
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    if bloom:
+        # per step: W standalone encodes, one standalone peel, no fused leg
+        want.update(sketch_encode=WORKERS * STEPS, sketch_peel=STEPS)
+    else:
+        # per step: W f32 producer launches, then one consumer launch (the
+        # dequant leg on the fxp32 wire); the quantize leg is off the path
+        want.update(encode_pack_quantize=WORKERS * STEPS)
+        want["dequant_peel_unpack_dq" if innet else "dequant_peel_unpack"] = STEPS
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if not all(torch.isfinite(torch.tensor(res.losses))):
         raise AssertionError(f"non-finite loss: {res.losses}")
-    last = res.metrics[-1]
-    if last["recovery_nnz"] != last["recovery_peeled"] + last["recovery_residual"]:
-        raise AssertionError("recovery stats do not add up")
+    recovery = [{k[len("recovery_"):]: int(m[k]) for k in m
+                 if k.startswith("recovery_")} for m in res.metrics]
+    for r in recovery:
+        if r["nnz"] != r["peeled"] + r["residual"]:
+            raise AssertionError("recovery stats do not add up")
     n_params = sum(p.numel() for p in res.state.params.leaves())
     out = {"phase": phase, "arch": "granite-3-2b", "dtype": mcfg.dtype,
            "params": n_params,
            "reduced": {"n_layers": f"{arch.model.n_layers} -> {LAYERS}"},
            "workers": WORKERS, "global_batch": BATCH, "seq_len": SEQ,
            "aggregator": tc.aggregator, "wire": wire,
+           "index": tc.compression.index, "topk_ratio": tc.compression.topk_ratio,
            "topology": tc.compression.topology,
            "switch_slots": tc.compression.switch_slots,
            "steps": STEPS, "warmup_steps": 1,
            "step_ms": [s * 1e3 for s in res.step_seconds[1:]],
            "warmup_ms": res.step_seconds[0] * 1e3,
-           "losses": res.losses, "launches": launches,
-           "recovery": [{k[len("recovery_"):]: int(m[k]) for k in m
-                         if k.startswith("recovery_")} for m in res.metrics],
+           "losses": res.losses, "launches": launches, "recovery": recovery,
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    if bloom:
+        for r, o in zip(recovery, observer.steps):
+            if r["nnz"] < o["union_nnz"]:
+                raise AssertionError("fewer candidates than true non-zeros")
+            o.update(fill=o["filter_set_bits"] / o["filter_bits"],
+                     candidates=r["nnz"],
+                     false_positives=r["nnz"] - o["union_nnz"],
+                     false_positive_share=(r["nnz"] - o["union_nnz"])
+                     / o["coordinates"])
+        out["bloom"] = observer.steps
+        out["peak_mem_note"] = ("includes the observer's references to both "
+                                "workers' block streams")
     emit(out)
     return out, launches, api, tc, res.state
 
@@ -455,19 +641,25 @@ def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown"):
     stages can be set against the measured step time. On the fxp32
     in-network wire the sum/OR and the consumer give way to the exponent
     agreement and quantization, the windowed switch tree and the dequant
-    consumer."""
+    consumer; with the Bloom index the producer's parts (encode kernel,
+    ``bloom_build``, the max) and the consumer's (``bloom_query``, peel
+    kernel) are timed apart."""
     import torch
+    from repro_torch.core import index as index_lib
     from repro_torch.core.aggregators import sparsify_leaf
+    from repro_torch.core.blocks import make_plan, to_blocks
     from repro_torch.core.bucketing import make_bucket_plan
     from repro_torch.core.collectives import LocalWorkers
     from repro_torch.core.compressor import CompressedLeaf, HomomorphicCompressor
     from repro_torch.data.pipeline import batch_fn
+    from repro_torch.kernels import ops
     from repro_torch.net.fixedpoint import FixedPointWire
     from repro_torch.net.topology import make_topology, tree_all_reduce
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.loop import device_batch
 
     cfg, W = tc.compression, tc.workers
+    bloom = cfg.index == "bloom"
     params = state.params
     leaves = params.leaves()
     host = batch_fn(api.cfg, BATCH, SEQ, seed=tc.seed)(0)
@@ -494,10 +686,18 @@ def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown"):
         produced = [comp.compress_wire(s) for s in streams]
         del streams
         cs = [c for c, _ in produced]
-        stages = {
-            "sparsify_pack": (W, cuda_ms(sparsify_pack, 5, 1)),
-            "producer": (W, cuda_ms(lambda: comp.compress(stream), 5, 1)),
-        }
+        stages = {"sparsify_pack": (W, cuda_ms(sparsify_pack, 5, 1))}
+        if bloom:
+            lp = make_plan(stream.numel(), cfg)
+            xb0, sk0 = to_blocks(stream, lp), cs[0].sketch
+            ids = torch.arange(lp.nb, dtype=torch.int32, device=dev)
+            stages["encode_kernel"] = (W, cuda_ms(
+                lambda: ops.sketch_encode(xb0, ids, cfg), 5, 1))
+            stages["bloom_build"] = (W, cuda_ms(
+                lambda: index_lib.bloom_build(xb0, cfg), 5, 1))
+            stages["maxabs"] = (W, cuda_ms(lambda: sk0.abs().amax(dim=(1, 2)), 5, 1))
+        else:
+            stages["producer"] = (W, cuda_ms(lambda: comp.compress(stream), 5, 1))
         if tc.aggregator == "compressed_innet" and cfg.wire_dtype == "fxp32":
             wire = FixedPointWire(W)
             topo = make_topology(cfg.topology, group)
@@ -533,7 +733,16 @@ def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown"):
             stages["sum_or"] = (1, cuda_ms(
                 lambda: (group.sum([x.sketch for x in cs]),
                          group.bor([x.index_words for x in cs])), 5, 1))
-            stages["consumer"] = (1, cuda_ms(consumer, 5, 1))
+            if bloom:
+                bshape = (lp.nb, lp.group, lp.lanes)
+                query = lambda: index_lib.bloom_query(bshape, cfg, agg.index_words)
+                bits = query()
+                stages["bloom_query"] = (1, cuda_ms(query, 5, 1))
+                stages["peel_kernel"] = (1, cuda_ms(
+                    lambda: ops.sketch_peel(agg.sketch, bits, ids, cfg), 5, 1))
+                del bits
+            else:
+                stages["consumer"] = (1, cuda_ms(consumer, 5, 1))
         rec = consumer()
         agg_leaves = plan.unpack(rec.reshape(plan.n_buckets, plan.bucket_elems) / W)
         lr = opt_lib.lr_schedule(state.step, tc.optimizer, dev)
@@ -550,12 +759,30 @@ def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown"):
         sent = {"/".join(path): float((sparsify_leaf(
                     g.reshape(-1).float(), r[0], cfg)[0] != 0).float().mean())
                 for path, g, r in zip(params.paths, grads, state.residual)}
+
+        def zero_residual_selection(g):
+            """Worker 0's selection of one leaf with a zero residual, as at
+            step 0: the share sent, the share whose magnitude ties the
+            smallest one sent (the threshold's level), and how many
+            distinct magnitudes are sent."""
+            flat = g.reshape(-1).float()
+            mags = flat.abs()
+            sent = sparsify_leaf(flat, torch.zeros_like(flat), cfg)[0] != 0
+            if not bool(sent.any()):
+                return {"sent": 0.0, "tied_at_threshold": 0.0, "distinct_sent": 0}
+            return {"sent": float(sent.float().mean()),
+                    "tied_at_threshold": float((mags == mags[sent].min()).float().mean()),
+                    "distinct_sent": int(torch.unique(mags[sent]).numel())}
+
+        selection = {"/".join(path): zero_residual_selection(g)
+                     for path, g in zip(params.paths, grads)}
     stages = {"forward_backward": (W, cuda_ms(fwd_bwd, 5, 1)), **stages}
     total = sum(n * ms for n, ms in stages.values())
     out = {"phase": phase, "step_ms_median": statistics.median(step_ms),
            "stages_ms": {k: {"per_call": ms, "calls": n, "per_step": n * ms}
                          for k, (n, ms) in stages.items()},
-           "sum_of_stages_ms": total, "worker0_sent_fraction": sent}
+           "sum_of_stages_ms": total, "worker0_sent_fraction": sent,
+           "worker0_zero_residual_selection": selection}
     emit(out)
     return out
 
@@ -817,6 +1044,155 @@ def phase_innet_lossless(mcfg, dev):
           "peeled_equal_bit_for_bit": True, "innet_aggregate_s": innet_s})
 
 
+def phase_bloom_stream(cfg, dev, n_blocks, check):
+    """The standalone kernels at the Bloom path's full stream: the encode
+    on one worker's 0.1% stream (Gaussian to rtol=1e-5, then dyadic bit
+    for bit, and equal to the fused producer's sketch), the peel on the
+    aggregate of two workers' 0.1% dyadic payloads with the candidates of
+    their ORed filters (bit for bit, and equal to the fused consumer on
+    the packed candidates). Times both kernels and their plain versions;
+    then, for comparison with the fused consumer, the standalone peel and
+    the fused consumer on the bitmap bits of two 4% payloads, equal bit
+    for bit. Returns the two kernels' records."""
+    import torch
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.collectives import LocalWorkers
+    from repro_torch.core.peeling import peel_blocks
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    nb, G, c, R = n_blocks, cfg.group, cfg.lanes, cfg.rows
+    n_el = nb * G * c
+    ids = torch.arange(nb, dtype=torch.int32, device=dev)
+    group = LocalWorkers(WORKERS)
+    density = cfg.topk_ratio
+    check.encode_std(make_blocks(cfg, nb, density, "gauss", gen), ids, cfg, False)
+    xs = [make_blocks(cfg, nb, density, "dyadic", gen) for _ in range(WORKERS)]
+    sk = group.sum([check.encode_std(x, ids, cfg, True) for x in xs])
+    filt = group.bor([index_lib.bloom_build(x, cfg) for x in xs])
+    bits = index_lib.bloom_query((nb, G, c), cfg, filt)
+    union = functools.reduce(torch.logical_or, [x != 0 for x in xs])
+    if not bool(bits[union].all()):
+        raise AssertionError("the Bloom query missed a non-zero of the union")
+    _, res = check.peel_std(sk, bits, ids, cfg, True)
+    x0 = xs[0]
+    nnz0, n_union = int((x0 != 0).sum()), int(union.sum())
+    del xs, union
+    torch.cuda.empty_cache()
+    cand, n_res = int(bits.sum()), int(res.sum())
+    rounds = peel_blocks(sk, bits, ids, cfg).rounds_used
+
+    # the standalone peel on the bitmap bits of two 4% payloads, beside the
+    # fused consumer on their words (the main path's consumer, row 2)
+    xs4 = [make_blocks(cfg, nb, 0.04, "dyadic", gen) for _ in range(WORKERS)]
+    sk4 = group.sum([ops.sketch_encode(x, ids, cfg) for x in xs4])
+    bits4 = functools.reduce(torch.logical_or, [x != 0 for x in xs4])
+    del xs4
+    torch.cuda.empty_cache()
+    twin = fused_twin(cfg)
+    words4 = index_lib.pack_bits(bits4).reshape(nb, -1)
+    std4 = ops.sketch_peel(sk4, bits4, ids, cfg)
+    if not all(torch.equal(a, b) for a, b in
+               zip(std4, ops.dequant_peel_unpack(sk4, words4, ids, twin))):
+        raise AssertionError("standalone peel differs from the fused consumer")
+    n4, n4_res = int(bits4.sum()), int(std4[1].sum())
+    del std4
+    peel4_ms = cuda_ms(lambda: ops.sketch_peel(sk4, bits4, ids, cfg), 5)
+    fused4_ms = cuda_ms(lambda: ops.dequant_peel_unpack(sk4, words4, ids, twin), 5)
+    del sk4, bits4, words4
+    torch.cuda.empty_cache()
+    emit({"phase": "bloom_stream", "blocks": nb, "workers": WORKERS,
+          "density_per_worker": density, "agree": True,
+          "worker0_nnz": nnz0, "union_nnz": n_union,
+          "filter_bits": filt.numel() * 32,
+          "filter_fill": int(index_lib.popcount(filt)) / (filt.numel() * 32),
+          "candidates": cand, "false_positives": cand - n_union,
+          "peeled": cand - n_res, "estimated": n_res,
+          "plain_rounds_to_fixpoint": rounds,
+          "bitmap_4pct": {"aggregate_nnz": n4, "estimated": n4_res,
+                          "standalone_peel_ms": peel4_ms,
+                          "fused_consumer_ms": fused4_ms,
+                          "equal_bit_for_bit": True}})
+    # bytes: each input read once, each output written once (ids included);
+    # operations as phase 6's: sign x value + add per (non-zero, hash) and
+    # the store of each cell; the peel's initial degrees, a degree test per
+    # (candidate, hash, round) to the fixpoint, 9 per peeled candidate and
+    # 10 per estimate
+    enc_bytes = n_el * 4 + nb * 4 + nb * R * c * 4
+    dec_bytes = nb * R * c * 4 + n_el + nb * 4 + n_el * 4 + n_el
+    enc_ops = 6 * nnz0 + nb * R * c
+    dec_ops = 3 * cand + 3 * cand * rounds + 9 * (cand - n_res) + 10 * n_res
+    recs = []
+    for name, kfn, pfn, nbytes, nops, replaces, pit in [
+        ("sketch_encode", lambda: ops.sketch_encode(x0, ids, cfg),
+         lambda: ref.sketch_encode_ref(x0, ids, cfg), enc_bytes, enc_ops,
+         "src/repro/kernels/sketch_encode.py:114", 5),
+        ("sketch_peel", lambda: ops.sketch_peel(sk, bits, ids, cfg),
+         lambda: ref.sketch_peel_ref(sk, bits, ids, cfg), dec_bytes, dec_ops,
+         "src/repro/kernels/sketch_peel.py:133", 3),
+    ]:
+        b_ms, b_by = bound(nbytes, nops)
+        recs.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/sketch_codec.cu",
+                     "replaces": replaces, "launches": None,
+                     "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
+                     "plain_ms": cuda_ms(pfn, pit, warmup=1), "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, "blocks": nb,
+                     "bytes": nbytes, "ops": nops})
+    del x0, sk, bits
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_bloom_lossless(mcfg, dev):
+    """1%-dense dyadic gradients of the model per worker in the lossless
+    profile (rows 60, ratio 2; the peel keeps its state in device memory)
+    with the Bloom index: the ``compressed`` aggregate equals the dense
+    mean bit for bit at every coordinate, so the filter's false positives
+    (candidates beyond the true union) peel to exactly 0."""
+    import torch
+    from repro_torch.core.aggregators import make_aggregator
+    from repro_torch.core.collectives import AggregationState, LocalWorkers
+    from repro_torch.core.config import CompressionConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import model_api
+
+    params = model_api(mcfg).init(0, dev)
+    shapes = [tuple(p.shape) for p in params.leaves()]
+    del params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    group = LocalWorkers(WORKERS)
+    grads_w = dyadic_grads(shapes, 0.01, gen, dev)
+    stubs = [torch.zeros((0,), device=dev) for _ in shapes]
+    cfg = CompressionConfig(ratio=2.0, rows=60, index="bloom")
+    before = dict(ops.LAUNCHES)
+    t = time.perf_counter()
+    out, st = make_aggregator("compressed", cfg, group)(
+        grads_w, AggregationState(residual=stubs))
+    torch.cuda.synchronize()
+    agg_s = time.perf_counter() - t
+    delta = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    if delta != dict(dict.fromkeys(before, 0), sketch_encode=WORKERS, sketch_peel=1):
+        raise AssertionError(f"launches {delta}: expected W encodes and one peel")
+    dense = make_aggregator("dense", cfg, group)(
+        grads_w, AggregationState(residual=None))[0]
+    differ = sum(int((a != b).sum()) for a, b in zip(out, dense))
+    union = sum(int(((a != 0) | (b != 0)).sum()) for a, b in zip(*grads_w))
+    nnz, n_est = int(st.stats.nnz), int(st.stats.residual)
+    if differ or n_est:
+        raise AssertionError(
+            f"{differ} coordinates differ from the dense mean, {n_est} of "
+            f"{nnz} candidates fell back to the estimate")
+    emit({"phase": "bloom_lossless", "profile": {"ratio": 2.0, "rows": 60},
+          "index": "bloom", "density_per_worker": 0.01, "union_nnz": union,
+          "candidates": nnz, "false_positives": nnz - union,
+          "peeled": int(st.stats.peeled), "estimated": n_est,
+          "differ_from_dense": differ, "equal_to_dense_everywhere": True,
+          "aggregate_s": agg_s})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -834,15 +1210,17 @@ def main() -> int:
           "cuda": torch.version.cuda, "tf32": False})
 
     t0 = time.perf_counter()
-    for name in build.SOURCES:
-        build.load(name)
+    build.load_all()     # one nvcc a source, all started together
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_LOG.items()}})
 
     cfg = CompressionConfig(ratio=0.1, topk_ratio=0.04)
+    bloom_fields = {"index": "bloom", "topk_ratio": 0.001}
+    cfg_bloom = dataclasses.replace(cfg, **bloom_fields)
     check = Checker()
     phase_kernels(cfg, dev, check)
     phase_kernels_q(cfg, dev, check)
+    phase_kernels_std(cfg_bloom, dev, check)
     torch.cuda.empty_cache()
 
     train, launches, api, tc, state = phase_train(dev)
@@ -855,6 +1233,12 @@ def main() -> int:
                     phase="innet_breakdown")
     del state
     torch.cuda.empty_cache()
+    bloom, launches_bloom, _, tc_bloom, state = phase_train(
+        dev, phase="bloom_train", fields=bloom_fields)
+    phase_breakdown(api, tc_bloom, state, bloom["step_ms"], dev,
+                    phase="bloom_breakdown")
+    del state
+    torch.cuda.empty_cache()
     n = train["params"]
     n_blocks = cfg.num_buckets(n) * cfg.bucket_elems_for(n) // cfg.block_elems
     recs = phase_main_stream(cfg, dev, n_blocks, check)
@@ -862,16 +1246,24 @@ def main() -> int:
     phase_switch(payload, cfg.switch_slots)
     del payload
     torch.cuda.empty_cache()
-    recs += recs_q
+    recs += recs_q + phase_bloom_stream(cfg_bloom, dev, n_blocks, check)
     # each row's launches come from the path it serves: the f32 legs from
-    # the compressed train, the fxp32 legs from the in-network train
+    # the compressed train, the fxp32 legs from the in-network train, the
+    # standalone kernels from the Bloom train
     for r in recs:
-        on = launches_innet if r["name"].endswith(("_q", "_dq")) else launches
+        if r["name"].endswith(("_q", "_dq")):
+            on = launches_innet
+        elif r["name"].startswith("sketch_"):
+            on = launches_bloom
+        else:
+            on = launches
         r["launches"] = on[r["name"]]
         r["launches_by_path"] = {"train": launches[r["name"]],
-                                 "innet_train": launches_innet[r["name"]]}
+                                 "innet_train": launches_innet[r["name"]],
+                                 "bloom_train": launches_bloom[r["name"]]}
     phase_lossless(api.cfg, tc, dev)
     phase_innet_lossless(api.cfg, dev)
+    phase_bloom_lossless(api.cfg, dev)
 
     emit({"kernels": recs})
     print(smi, flush=True)

@@ -7,7 +7,9 @@
   pack and ONE producer launch; then the sketch SUM and word OR over the
   workers; then ONE consumer launch on the aggregate and ``unpack(rec /
   W)``. This is the reference's unstreamed path on a pure data-parallel
-  mesh with the trivial wire plan.
+  mesh with the trivial wire plan. With the Bloom index (or an unaligned
+  bitmap) the producer and consumer are the compressor's composed passes
+  around the standalone encode and peel kernels.
 - :class:`CompressedInNetworkAggregator` — the same stream through the
   emulated in-network tier: on the fxp32 wire the sketch is quantized to
   shared-exponent int32 and summed, with the words ORed, by a windowed
@@ -145,7 +147,11 @@ class CompressedInNetworkAggregator(CompressedAggregator):
       bit (a tree of float adds would be order-sensitive).
 
     ``cfg.overlap`` and ``cfg.stream_chunks`` (the streamed schedule)
-    come with the stream-scheduler slice and raise until then.
+    come with the stream-scheduler slice and raise until then. The fxp32
+    wire needs ``index="bitmap"``: the tree ORs the words bucket by
+    bucket, and a Bloom filter has no per-bucket words (the reference
+    fails reshaping them); a bitmap geometry with ``block_elems % 32 !=
+    0`` works, since buckets hold whole words.
     """
 
     wire = "compressed_innet"
@@ -155,6 +161,13 @@ class CompressedInNetworkAggregator(CompressedAggregator):
             raise NotImplementedError(
                 "compressed_innet: overlap/stream_chunks need the stream "
                 "scheduler, which is not ported yet")
+        if self.cfg.wire_dtype == "fxp32" and self.cfg.index != "bitmap":
+            raise ValueError(
+                f"compressed_innet with wire_dtype='fxp32' needs "
+                f"index='bitmap', got index={self.cfg.index!r}: the switch "
+                "tree ORs the index words per bucket, and a Bloom filter "
+                "hashes the whole stream's coordinates into words that "
+                "belong to no bucket")
 
     def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
                  state: AggregationState):

@@ -4,7 +4,8 @@ Two flavours of one splitmix32-style mixer, as in the reference:
 
 - a **numpy** version at plan time for the static per-batch row
   assignments ``h_j(i)`` and signs ``g_j(i)`` (shared across blocks);
-- a **torch** version for the per-(block, batch, hash) rotation offsets.
+- a **torch** version for the per-(block, batch, hash) rotation offsets
+  and the Bloom filter's bit positions.
 
 Torch on the CPU cannot shift, take a remainder of, or sum ``uint32``,
 so the torch mixer computes in int64 masked to 32 bits. A product of two
@@ -106,3 +107,18 @@ def block_rotations(block_ids: torch.Tensor, group: int, lanes: int,
            + i[None, :, None] * 3 + j[None, None, :]
            + rotation_salt(seed)) & _MASK32
     return mix32(key) % lanes
+
+
+def bloom_positions(ids: torch.Tensor, k: int, m_bits: int,
+                    seed: int) -> torch.Tensor:
+    """Bloom-filter bit positions of coordinate ids: int64 (..., k) in
+    [0, m_bits).
+
+    The key of hash ``j`` is ``ids * k + j + (seed ^ 0xB10053)`` in
+    uint32, mixed and reduced mod ``m_bits``, as in the reference.
+    """
+    ids = ids.to(torch.int64) & _MASK32
+    ks = torch.arange(k, dtype=torch.int64, device=ids.device)
+    key = (_mul32(ids, k)[..., None] + ks
+           + ((seed ^ 0xB10053) & _MASK32)) & _MASK32
+    return mix32(key) % m_bits

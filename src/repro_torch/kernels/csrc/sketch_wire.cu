@@ -50,9 +50,11 @@
 // version's exactly. The bitmap word w, bit k is element 32w+k of the
 // block: one __ballot_sync per warp over 32 consecutive elements.
 //
-// The TPU kernels' one-hot plan-matrix contraction, VMEM budgets and
-// multi-block grid cells are not carried over. Several blocks per CUDA
-// block, cp.async/TMA staging and a warp-specialised peel are later work.
+// The owner-sum encode and the peel rounds live in sketch_tile.cuh, shared
+// with the standalone encode and peel of sketch_codec.cu. The TPU kernels'
+// one-hot plan-matrix contraction, VMEM budgets and multi-block grid cells
+// are not carried over. Several blocks per CUDA block, cp.async/TMA
+// staging and a warp-specialised peel are later work.
 //
 // Interface: plain C, loaded with ctypes. Each function returns the
 // cudaError_t of the launch (0 on success). Words are uint32 bits (the
@@ -63,61 +65,11 @@
 
 #include <type_traits>
 
+#include "sketch_tile.cuh"
+
+using namespace sketch_tile;
+
 namespace {
-
-constexpr int kThreads = 512;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// rot[3i + j] = rot_j(i, blk), as src/repro/core/hashing.py:block_rotations.
-__device__ void block_rotations(int* rot, uint32_t blk, int group, int lanes,
-                                uint32_t salt) {
-  for (int t = threadIdx.x; t < group * 3; t += blockDim.x) {
-    uint32_t key = blk * 0x01000193u + (uint32_t)t + salt;
-    rot[t] = (int)(mix32(key) % (uint32_t)lanes);
-  }
-}
-
-// Exact float 2^k for k in [-126, 127] (net/fixedpoint.py:pow2).
-__device__ __forceinline__ float pow2f(int k) {
-  return __int_as_float((k + 127) << 23);
-}
-
-// A sketch cell as the wire carries it: f32, or the fxp32 int32 at the
-// block's scale s (2^(M-e) to store, 2^(e-M) to load).
-__device__ __forceinline__ void store_cell(float* p, float acc, float) {
-  *p = acc;
-}
-__device__ __forceinline__ void store_cell(int* p, float acc, float s) {
-  *p = __float2int_rn(acc * s);
-}
-__device__ __forceinline__ float load_cell(const float* p, float) {
-  return *p;
-}
-__device__ __forceinline__ float load_cell(const int* p, float s) {
-  return __int2float_rn(*p) * s;
-}
-
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? scratch[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  }
-  return v;
-}
 
 // Shared-memory layout of the producer: x block (when kResident), then
 // rotations. TS is the sketch's wire type: float, or int for the
@@ -158,31 +110,16 @@ wire_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
   }
   __syncthreads();
 
-  float mx = 0.0f;
   float s = 1.0f;
   if constexpr (std::is_same<TS, int>::value) s = pow2f(mbits - exps[blk]);
-  TS* sb = sketch + blk * rows * lanes;
-  for (int m = threadIdx.x; m < lanes; m += blockDim.x) {
-    for (int r = 0; r < rows; ++r) {
-      float acc = 0.0f;
-      for (int q = row_ptr[r]; q < row_ptr[r + 1]; ++q) {
-        const int t = ent[q];
-        int src = m - rot[t];
-        if (src < 0) src += lanes;
-        acc += ent_sign[q] * xs[(t / 3) * lanes + src];
-      }
-      store_cell(sb + r * lanes + m, acc, s);
-      mx = fmaxf(mx, fabsf(acc));
-    }
-  }
+  float mx = encode_cells(xs, rot, row_ptr, ent, ent_sign,
+                          sketch + blk * rows * lanes, s, lanes, rows);
   mx = block_max(mx, warp_max);
   if (threadIdx.x == 0) maxabs[blk] = mx;
 }
 
-// Shared-memory layout of the consumer: y, val, d (when kResident),
-// current bits, bits peeled this round, rotations. Otherwise y and d are
-// this block's planes of y_dev and d_dev (y then holds the dequantized
-// floats on the int leg), and val is the output. TS as in the producer.
+// The consumer: its state as sketch_tile::peel_planes lays it out (y then
+// holds the dequantized floats on the int leg). TS as in the producer.
 template <bool kResident, typename TS>
 __global__ void __launch_bounds__(kThreads)
 wire_peel_kernel(const TS* __restrict__ sketch,
@@ -200,133 +137,20 @@ wire_peel_kernel(const TS* __restrict__ sketch,
   const long long blk = blockIdx.x;
   const uint32_t* wg = words + blk * nw;
   float* vout = values + blk * n;
-  int8_t* rout = residual + blk * n;
-  float *y, *val;
-  int* d;
-  uint32_t* bw;
-  if constexpr (kResident) {
-    y = smem;
-    val = y + ns;
-    d = reinterpret_cast<int*>(val + n);
-    bw = reinterpret_cast<uint32_t*>(d + ns);
-  } else {
-    // Barriers order device-memory accesses within a block as they do
-    // shared ones, so the rounds below hold as written.
-    y = y_dev + blk * ns;
-    d = d_dev + blk * ns;
-    val = vout;
-    bw = reinterpret_cast<uint32_t*>(smem);
-  }
-  uint32_t* pk = bw + nw;
-  int* rot = reinterpret_cast<int*>(pk + nw);
+  const PeelPlanes p =
+      peel_planes<kResident>(smem, y_dev, d_dev, vout, blk, n, ns, nw);
 
-  block_rotations(rot, (uint32_t)ids[blk], group, lanes, salt);
+  block_rotations(p.rot, (uint32_t)ids[blk], group, lanes, salt);
   float s = 1.0f;
   if constexpr (std::is_same<TS, int>::value) s = pow2f(exps[blk] - mbits);
   for (int e = threadIdx.x; e < ns; e += blockDim.x)
-    y[e] = load_cell(sketch + blk * ns + e, s);
-  for (int w = threadIdx.x; w < nw; w += blockDim.x) bw[w] = wg[w];
+    p.y[e] = load_cell(sketch + blk * ns + e, s);
+  for (int w = threadIdx.x; w < nw; w += blockDim.x) p.bw[w] = wg[w];
   __syncthreads();
 
-  // Initial degrees: cell (r, m) counts the indexed coordinates hashing to it.
-  for (int m = threadIdx.x; m < lanes; m += blockDim.x) {
-    for (int r = 0; r < rows; ++r) {
-      int cnt = 0;
-      for (int q = row_ptr[r]; q < row_ptr[r + 1]; ++q) {
-        const int t = ent[q];
-        int src = m - rot[t];
-        if (src < 0) src += lanes;
-        const int e = (t / 3) * lanes + src;
-        cnt += (bw[e >> 5] >> (e & 31)) & 1u;
-      }
-      d[r * lanes + m] = cnt;
-    }
-  }
-  __syncthreads();
-
-  for (int round = 0; round < rounds; ++round) {
-    // Gather on the round-start y and d: a set bit with a singleton cell
-    // is peeled, its value taken from the first such hash j.
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      bool peel = false;
-      float v = 0.0f;
-      if ((bw[e >> 5] >> (e & 31)) & 1u) {
-        const int i = e / lanes, l = e - i * lanes;
-        for (int j = 0; j < 3; ++j) {
-          const int t = 3 * i + j;
-          int col = l + rot[t];
-          if (col >= lanes) col -= lanes;
-          const int c = hrow[t] * lanes + col;
-          if (d[c] == 1) {
-            v = sign[t] * y[c];
-            peel = true;
-            break;
-          }
-        }
-      }
-      const unsigned pw = __ballot_sync(0xffffffffu, peel);
-      if (peel) {
-        if constexpr (kResident) val[e] = v;
-        vout[e] = 0.0f + v;  // each element is peeled at most once
-      }
-      if ((threadIdx.x & 31) == 0) {
-        pk[e >> 5] = pw;
-        bw[e >> 5] &= ~pw;
-      }
-    }
-    __syncthreads();
-    // Scatter: subtract this round's peeled values and degrees from every
-    // cell they hash to, each cell summed by its owner in (i, j) order.
-    for (int m = threadIdx.x; m < lanes; m += blockDim.x) {
-      for (int r = 0; r < rows; ++r) {
-        float dy = 0.0f;
-        int dd = 0;
-        for (int q = row_ptr[r]; q < row_ptr[r + 1]; ++q) {
-          const int t = ent[q];
-          int src = m - rot[t];
-          if (src < 0) src += lanes;
-          const int e = (t / 3) * lanes + src;
-          if ((pk[e >> 5] >> (e & 31)) & 1u) {
-            dy += ent_sign[q] * val[e];
-            ++dd;
-          }
-        }
-        y[r * lanes + m] -= dy;
-        d[r * lanes + m] -= dd;
-      }
-    }
-    __syncthreads();
-  }
-
-  // Bits still set take the median-of-3 estimate, sum - max - min.
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const uint32_t bit = 1u << (e & 31);
-    int8_t res = 0;
-    if (bw[e >> 5] & bit) {
-      const int i = e / lanes, l = e - i * lanes;
-      float v[3];
-      for (int j = 0; j < 3; ++j) {
-        const int t = 3 * i + j;
-        int col = l + rot[t];
-        if (col >= lanes) col -= lanes;
-        v[j] = sign[t] * y[hrow[t] * lanes + col];
-      }
-      const float med = v[0] + v[1] + v[2] - fmaxf(fmaxf(v[0], v[1]), v[2]) -
-                        fminf(fminf(v[0], v[1]), v[2]);
-      vout[e] = 0.0f + med;
-      res = 1;
-    } else if (!(wg[e >> 5] & bit)) {
-      vout[e] = 0.0f;
-    }
-    rout[e] = res;
-  }
-}
-
-int set_smem(const void* fn, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) cudaGetLastError();  // clear it; report it below
-  return (int)err;
+  peel_block<kResident>(p, row_ptr, ent, ent_sign, hrow, sign, vout,
+                        residual + blk * n, WordBits{wg}, n, lanes, rows,
+                        rounds);
 }
 
 template <bool kResident, typename TS>
@@ -366,24 +190,16 @@ extern "C" {
 
 // The most dynamic shared memory a block may opt in to on `device`, or a
 // negative cudaError_t.
-int sketch_wire_max_smem(int device) {
-  int v = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return err == cudaSuccess ? v : -(int)err;
-}
+int sketch_wire_max_smem(int device) { return max_smem_optin(device); }
 
 // Dynamic shared memory of each kernel; `resident` keeps the x block (the
 // producer) or y, d and the peeled values (the consumer) there too.
 size_t sketch_wire_encode_smem(int group, int lanes, int resident) {
-  return sizeof(float) * (resident ? (size_t)group * lanes : 0) +
-         sizeof(int) * 3 * (size_t)group;
+  return encode_smem(group, lanes, resident);
 }
 
 size_t sketch_wire_peel_smem(int group, int lanes, int rows, int resident) {
-  const size_t n = (size_t)group * lanes, ns = (size_t)rows * lanes;
-  return (resident ? sizeof(float) * (ns + n) + sizeof(int) * ns : 0) +
-         sizeof(uint32_t) * 2 * (n / 32) + sizeof(int) * 3 * (size_t)group;
+  return peel_smem(group, lanes, rows, resident);
 }
 
 // exps == NULL: the f32 wire, `sketch` is float. Otherwise the quantize

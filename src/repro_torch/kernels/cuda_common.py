@@ -1,0 +1,89 @@
+"""What every CUDA kernel wrapper of this package shares: the launch
+counters, the hash tables the kernels read, the input checks, the choice
+between a kernel's shared-memory and device-memory variants, and the
+stream.
+
+The hash tables reach the kernels as small device arrays, cached per
+config and device: for every sketch row ``r`` the list of ``(i, j)``
+pairs with ``h_j(i) == r`` in ``(i, j)`` order (``row_ptr``/``ent``, with
+their signs), plus ``h_j(i)`` and ``g_j(i)`` flat by ``3i + j``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import CompressionConfig
+from repro_torch.core import hashing
+
+# Kernel launches by wrapper (and by leg of the fused kernels: ``_q``/
+# ``_dq`` are the fxp32 quantize and dequant legs). Each wrapper adds one
+# to its count where it launches, and nowhere else.
+LAUNCHES = {"encode_pack_quantize": 0, "dequant_peel_unpack": 0,
+            "encode_pack_quantize_q": 0, "dequant_peel_unpack_dq": 0,
+            "sketch_encode": 0, "sketch_peel": 0}
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+
+def row_lists(cfg: CompressionConfig):
+    """(row_ptr (rows+1,), ent (3G,), ent_sign (3G,)): for each sketch
+    row the flat indices ``3i + j`` hashing to it, in ``(i, j)`` order."""
+    rows_tbl = hashing.batch_rows(cfg.group, cfg.rows, cfg.seed).reshape(-1)
+    signs = hashing.batch_signs(cfg.group, cfg.seed).reshape(-1)
+    ent = np.argsort(rows_tbl, kind="stable").astype(np.int32)
+    counts = np.bincount(rows_tbl, minlength=cfg.rows)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return row_ptr, ent, signs[ent].astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def tables(cfg: CompressionConfig, device: torch.device):
+    """(row_ptr, ent, ent_sign, hrow, sign) on ``device``."""
+    row_ptr, ent, ent_sign = row_lists(cfg)
+    hrow = hashing.batch_rows(cfg.group, cfg.rows, cfg.seed).reshape(-1)
+    sign = hashing.batch_signs(cfg.group, cfg.seed).reshape(-1)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (row_ptr, ent, ent_sign, hrow, sign))
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device):
+    """Raise unless ``t`` lies on ``device`` with ``dtype`` (one dtype or
+    a tuple of them) and ``shape``, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes "
+                        f"{' or '.join(map(str, dtypes))}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def resident(cfg: CompressionConfig, smem_of, max_smem,
+             device: torch.device) -> bool:
+    """Whether a kernel keeps its per-block state in shared memory:
+    ``smem_of(1)`` bytes fit the card's opt-in limit, which the library
+    function ``max_smem(device_index)`` reports. Raises if even the
+    device-memory variant's ``smem_of(0)`` bytes do not fit."""
+    limit = max_smem(device.index)
+    if limit < 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: cudaError {-limit}")
+    if smem_of(0) > limit:
+        raise ValueError(
+            f"geometry group={cfg.group} lanes={cfg.lanes} rows={cfg.rows} "
+            f"needs {smem_of(0)} B of shared memory per block, the card "
+            f"allows {limit}")
+    return smem_of(1) <= limit
+
+
+def stream(device: torch.device):
+    """PyTorch's current stream on ``device``, for a ctypes call."""
+    return P(torch.cuda.current_stream(device).cuda_stream)

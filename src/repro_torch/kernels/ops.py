@@ -14,9 +14,12 @@ the config (the reference's name, kept so the configs stay equal):
   raises rather than run the plain version on the card (``chip_smoke.py``
   calls ``kernels/ref.py`` directly when it compares the two).
 
-Both kernels have both legs of the reference: with ``exponents`` and
-``mantissa_bits`` the producer quantizes to the fxp32 int32 sketch and
-the consumer dequantizes it, on the card as in the plain versions.
+The fused wire kernels have both legs of the reference: with
+``exponents`` and ``mantissa_bits`` the producer quantizes to the fxp32
+int32 sketch and the consumer dequantizes it, on the card as in the
+plain versions. The standalone ``sketch_encode`` and ``sketch_peel``
+serve the geometries the fused kernels do not cover (the Bloom index,
+``block_elems % 32 != 0``).
 """
 
 from __future__ import annotations
@@ -25,11 +28,14 @@ import torch
 
 from repro_torch.core.config import CompressionConfig
 from . import ref as ref_ops
-from .sketch_wire import (LAUNCHES, dequant_peel_unpack_cuda,
-                          encode_pack_quantize_cuda)
+from .cuda_common import LAUNCHES
+from .sketch_encode import sketch_encode_cuda
+from .sketch_peel import sketch_peel_cuda
+from .sketch_wire import dequant_peel_unpack_cuda, encode_pack_quantize_cuda
 
-__all__ = ["LAUNCHES", "encode_pack_quantize", "dequant_peel_unpack",
-           "fused_wire_supported", "wire_codec_passes", "sketch_estimate"]
+__all__ = ["LAUNCHES", "sketch_encode", "sketch_peel", "encode_pack_quantize",
+           "dequant_peel_unpack", "fused_wire_supported", "wire_codec_passes",
+           "sketch_estimate"]
 
 
 def _use_kernel(cfg: CompressionConfig, t: torch.Tensor) -> bool:
@@ -46,6 +52,24 @@ def _use_kernel(cfg: CompressionConfig, t: torch.Tensor) -> bool:
                 "exist only on the card")
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+def sketch_encode(xb: torch.Tensor, block_ids: torch.Tensor,
+                  cfg: CompressionConfig) -> torch.Tensor:
+    """(nb, G, c) values (f32, f16 or bf16) + (nb,) int32 ids ->
+    (nb, rows, c) f32 sketch."""
+    if _use_kernel(cfg, xb):
+        return sketch_encode_cuda(xb, block_ids, cfg)
+    return ref_ops.sketch_encode_ref(xb, block_ids, cfg)
+
+
+def sketch_peel(sketch: torch.Tensor, bits: torch.Tensor,
+                block_ids: torch.Tensor, cfg: CompressionConfig):
+    """(nb, rows, c) sketch + (nb, G, c) bits -> (values f32, residual
+    int8), both (nb, G, c)."""
+    if _use_kernel(cfg, sketch):
+        return sketch_peel_cuda(sketch, bits, block_ids, cfg)
+    return ref_ops.sketch_peel_ref(sketch, bits, block_ids, cfg)
 
 
 def fused_wire_supported(cfg: CompressionConfig) -> bool:

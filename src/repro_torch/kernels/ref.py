@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the two wire-codec kernels.
+"""Plain PyTorch versions of the codec kernels.
 
-Composed exactly as the reference's ``kernels/ref.py``: encode + pack
-(+ quantize) on the producer side, unpack (+ dequant) + peel on the
-consumer side, from the block-layout functions of
-:mod:`repro_torch.core.sketch` and :mod:`repro_torch.core.peeling`.
+As the reference's ``kernels/ref.py``: the standalone encode and peel
+are :mod:`repro_torch.core.sketch`'s and :mod:`repro_torch.core.peeling`'s
+block-layout functions in the kernels' calling convention; the fused
+wire kernels are composed from them, encode + pack (+ quantize) on the
+producer side, unpack (+ dequant) + peel on the consumer side.
 :mod:`repro_torch.kernels.ops` takes these for tensors on the CPU, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
@@ -17,6 +18,22 @@ from repro_torch.core.sketch import encode_blocks, estimate_blocks
 from repro_torch.core.peeling import peel_blocks
 from repro_torch.core import index as index_lib
 from repro_torch.net.fixedpoint import pow2
+
+
+def sketch_encode_ref(xb: torch.Tensor, block_ids: torch.Tensor,
+                      cfg: CompressionConfig) -> torch.Tensor:
+    """(nb, G, c) values (any float type) -> (nb, rows, c) f32 sketch."""
+    return encode_blocks(xb, block_ids, cfg)
+
+
+def sketch_peel_ref(sketch: torch.Tensor, bits: torch.Tensor,
+                    block_ids: torch.Tensor, cfg: CompressionConfig):
+    """(nb, rows, c) sketch + (nb, G, c) bits (non-zero = set) ->
+    (values (nb, G, c) f32, residual (nb, G, c) int8). The plain peel
+    stops at its fixpoint, the kernel always runs ``cfg.rounds`` rounds:
+    rounds after the fixpoint peel nothing."""
+    r = peel_blocks(sketch, bits != 0, block_ids, cfg)
+    return r.values, r.residual.to(torch.int8)
 
 
 def sketch_estimate_ref(sketch: torch.Tensor, block_ids: torch.Tensor,

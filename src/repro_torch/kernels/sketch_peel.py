@@ -1,0 +1,74 @@
+"""PyTorch wrapper of the standalone peel CUDA kernel.
+
+The kernel (``csrc/sketch_codec.cu:sketch_peel_kernel``) replaces the
+reference's Pallas ``sketch_peel_pallas``: (nb, rows, c) f32 sketch +
+(nb, G, c) index bits (one byte a coordinate: bool, uint8 or int8,
+non-zero = set) + (nb,) int32 block ids -> (values (nb, G, c) f32,
+residual (nb, G, c) int8). It runs the fused consumer's rounds and
+median, so on an aligned geometry it equals that kernel on the
+``pack_bits`` of the same bits, bit for bit; it serves the Bloom index's
+candidates and ``block_elems % 32 != 0``.
+
+The wrapper hands the bits' bytes to the kernel as they lie (no
+conversion copy), allocates the outputs (and, where the peel state does
+not fit shared memory, its device-memory scratch) with ``torch.empty``,
+launches on PyTorch's current stream, raises if the launch reports an
+error, and adds one to ``LAUNCHES["sketch_peel"]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.config import CompressionConfig
+from repro_torch.core import hashing
+from . import build
+from .cuda_common import I, LAUNCHES, P, check, resident, stream, tables
+
+BIT_DTYPES = (torch.bool, torch.uint8, torch.int8)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("sketch_codec")
+    lib.sketch_codec_peel.argtypes = [P] * 12 + [I] * 6 + [ctypes.c_uint, P]
+    lib.sketch_codec_peel.restype = I
+    lib.sketch_codec_peel_smem.argtypes = [I, I, I, I]
+    lib.sketch_codec_peel_smem.restype = ctypes.c_size_t
+    lib.sketch_codec_max_smem.argtypes = [I]
+    lib.sketch_codec_max_smem.restype = I
+    return lib
+
+
+def sketch_peel_cuda(sketch: torch.Tensor, bits: torch.Tensor,
+                     block_ids: torch.Tensor, cfg: CompressionConfig):
+    """(nb, rows, c) f32 sketch + (nb, G, c) one-byte bits + (nb,) int32
+    ids on a CUDA device -> (values (nb, G, c) f32, residual (nb, G, c)
+    int8)."""
+    dev = sketch.device
+    nb, G, c, R = sketch.shape[0], cfg.group, cfg.lanes, cfg.rows
+    check(sketch, "sketch", torch.float32, (nb, R, c), dev)
+    check(bits, "bits", BIT_DTYPES, (nb, G, c), dev)
+    check(block_ids, "block_ids", torch.int32, (nb,), dev)
+    lib = _lib()
+    res = resident(cfg, lambda r: lib.sketch_codec_peel_smem(G, c, R, r),
+                   lib.sketch_codec_max_smem, dev)
+    row_ptr, ent, ent_sign, hrow, sign = tables(cfg, dev)
+    values = torch.empty((nb, G, c), dtype=torch.float32, device=dev)
+    residual = torch.empty((nb, G, c), dtype=torch.int8, device=dev)
+    # y and the degrees, where they do not fit shared memory
+    y_dev = torch.empty((0 if res else nb, R, c), dtype=torch.float32, device=dev)
+    d_dev = torch.empty((0 if res else nb, R, c), dtype=torch.int32, device=dev)
+    err = lib.sketch_codec_peel(
+        sketch.data_ptr(), bits.data_ptr(), block_ids.data_ptr(),
+        row_ptr.data_ptr(), ent.data_ptr(), ent_sign.data_ptr(),
+        hrow.data_ptr(), sign.data_ptr(), values.data_ptr(),
+        residual.data_ptr(), y_dev.data_ptr(), d_dev.data_ptr(), nb, G, c, R,
+        cfg.rounds, int(res), hashing.rotation_salt(cfg.seed), stream(dev))
+    if err:
+        raise RuntimeError(f"sketch_codec_peel launch failed: cudaError {err}")
+    LAUNCHES["sketch_peel"] += 1
+    return values, residual

@@ -9,7 +9,10 @@ the depth; ``--smoke`` takes the reduced same-family config instead) with
 ``--workers`` data-parallel workers emulated on one device, and prints a
 JSON summary. ``--aggregator`` picks the strategy and ``--wire`` the
 in-network tier's wire (``f32``, or ``fxp32``: the sketch quantized to
-shared-exponent int32 for the switch). ``--accum-steps`` defaults to 1:
+shared-exponent int32 for the switch). ``--index bloom`` swaps the
+bitmap for the Bloom-filter index (the standalone encode and peel
+kernels), best with a small ``--topk-ratio`` such as 0.001, the extreme
+sparsity the filter is sized for. ``--accum-steps`` defaults to 1:
 the config's microbatch count is sized for the reference's pod-scale
 global batch, and a small batch split over the workers cannot take it.
 ``--device cpu`` runs the plain PyTorch versions of the codec kernels.
@@ -38,6 +41,10 @@ def main(argv=None):
                     default=None)
     ap.add_argument("--wire", choices=["f32", "fxp32"], default=None,
                     help="the in-network tier's sketch wire")
+    ap.add_argument("--index", choices=["bitmap", "bloom"], default=None,
+                    help="the non-zero index of the compressed wire")
+    ap.add_argument("--topk-ratio", type=float, default=None,
+                    help="share of each leaf a worker sends")
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--device", default="cuda")
@@ -54,9 +61,11 @@ def main(argv=None):
     tc = dataclasses.replace(arch.train, workers=args.workers)
     if args.aggregator:
         tc = dataclasses.replace(tc, aggregator=args.aggregator)
-    if args.wire:
-        tc = dataclasses.replace(tc, compression=dataclasses.replace(
-            tc.compression, wire_dtype=args.wire))
+    fields = {k: v for k, v in (("wire_dtype", args.wire),
+                                ("index", args.index),
+                                ("topk_ratio", args.topk_ratio)) if v}
+    tc = dataclasses.replace(tc, compression=dataclasses.replace(
+        tc.compression, **fields))
     tc = dataclasses.replace(tc, accum_steps=args.accum_steps)
     if args.lr:
         tc = dataclasses.replace(tc, optimizer=dataclasses.replace(
@@ -67,6 +76,8 @@ def main(argv=None):
     summary = {
         "arch": args.arch, "layers": cfg.n_layers, "workers": tc.workers,
         "aggregator": tc.aggregator, "wire": tc.compression.wire_dtype,
+        "index": tc.compression.index,
+        "topk_ratio": tc.compression.topk_ratio,
         "device": args.device,
         "first_loss": res.losses[0], "last_loss": res.losses[-1],
         "steps": res.final_step,

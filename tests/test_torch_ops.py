@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import index as index_lib
 from repro_torch.core.compressor import HomomorphicCompressor
 from repro_torch.core.config import CompressionConfig
 from repro_torch.kernels import ops, ref
@@ -35,6 +36,10 @@ CFGS = [
     CompressionConfig(ratio=0.05, rows=6),   # G=120: producer and consumer
 ]
 IDS = [f"l{c.lanes}r{c.rows}g{c.group}" for c in CFGS]
+# the standalone encode and peel also take block_elems % 32 != 0
+STD_CFGS = CFGS + [CompressionConfig(ratio=0.2, lanes=100, rows=6, rounds=8),
+                   CompressionConfig(ratio=0.1, lanes=500, rows=6)]
+STD_IDS = [f"l{c.lanes}r{c.rows}g{c.group}" for c in STD_CFGS]
 
 
 def blocks(cfg, nb, frac, seed, kind="dyadic"):
@@ -154,13 +159,20 @@ def test_exponents_need_mantissa_bits():
     (CompressionConfig(ratio=2.0, rows=60), True),             # lossless profile
 ])
 def test_fused_wire_guard(cfg, supported):
+    """The fused ops refuse the geometries they do not cover; the
+    compressor takes the composed path (standalone encode and peel) for
+    those, and recovers a sparse stream exactly."""
     assert ops.fused_wire_supported(cfg) is supported
     if not supported:
         xb = torch.zeros((1, cfg.group, cfg.lanes))
         with pytest.raises(ValueError, match="unsupported"):
             ops.encode_pack_quantize(xb, ids_for(1), cfg)
-        with pytest.raises(NotImplementedError):
-            HomomorphicCompressor(cfg).compress(torch.zeros(cfg.block_elems))
+        x = torch.zeros(4 * cfg.block_elems)   # whole words on the unaligned bitmap
+        x[5], x[-3] = 1.0, -2.0
+        comp = HomomorphicCompressor(cfg)
+        before = dict(ops.LAUNCHES)
+        assert torch.equal(comp.recover(comp.compress(x), x.numel()), x)
+        assert ops.LAUNCHES == before
 
 
 def test_wire_codec_passes():
@@ -179,6 +191,103 @@ def test_sketch_estimate_is_the_plain_median():
     sk, _, _ = ref.encode_pack_quantize_ref(xb, ids, cfg)
     assert torch.equal(ops.sketch_estimate(sk, ids, cfg),
                        ref.sketch_estimate_ref(sk, ids, cfg))
+
+
+def candidate_bits(xb, seed):
+    """The non-zeros plus ~1% extra candidates, as a Bloom query gives."""
+    r = np.random.default_rng(seed)
+    extra = torch.from_numpy(r.random(tuple(xb.shape)) < 0.01).to(xb.device)
+    return (xb != 0) | extra
+
+
+@pytest.mark.parametrize("policy", ["auto", "never"])
+def test_standalone_ops_on_cpu_take_the_plain_version(policy):
+    cfg = dataclasses.replace(STD_CFGS[-2], use_pallas=policy)
+    xb, ids = blocks(cfg, 3, 0.05, 11), ids_for(3)
+    before = dict(ops.LAUNCHES)
+    y = ops.sketch_encode(xb, ids, cfg)
+    assert torch.equal(y, ref.sketch_encode_ref(xb, ids, cfg))
+    bits = candidate_bits(xb, 11)
+    got = ops.sketch_peel(y, bits, ids, cfg)
+    want = ref.sketch_peel_ref(y, bits, ids, cfg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ops.LAUNCHES == before
+
+
+def test_standalone_always_on_cpu_raises():
+    cfg = dataclasses.replace(STD_CFGS[-2], use_pallas="always")
+    xb, ids = blocks(cfg, 1, 0.05, 12), ids_for(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.sketch_encode(xb, ids, cfg)
+    y = ref.sketch_encode_ref(xb, ids, cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.sketch_peel(y, xb != 0, ids, cfg)
+
+
+def test_standalone_wrappers_check_inputs_before_launch(monkeypatch):
+    """On the kernel path, inputs the kernels do not take raise in the
+    wrapper before anything is built or launched."""
+    monkeypatch.setattr(ops, "_use_kernel", lambda cfg, t: True)
+    cfg = STD_CFGS[-2]
+    xb, ids = blocks(cfg, 2, 0.05, 13), ids_for(2)
+    y = ref.sketch_encode_ref(xb, ids, cfg)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(TypeError, match="float"):
+        ops.sketch_encode(xb.double(), ids, cfg)
+    with pytest.raises(TypeError, match="int32"):
+        ops.sketch_encode(xb, ids.long(), cfg)
+    with pytest.raises(ValueError, match="shape"):
+        ops.sketch_encode(xb[:, :-1], ids, cfg)
+    with pytest.raises(TypeError, match="bool"):
+        ops.sketch_peel(y, (xb != 0).int(), ids, cfg)
+    with pytest.raises(TypeError, match="float32"):
+        ops.sketch_peel(y.double(), xb != 0, ids, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sketch_peel(y, (xb != 0).transpose(1, 2).contiguous().transpose(1, 2),
+                        ids, cfg)
+    assert ops.LAUNCHES == before
+
+
+def test_standalone_ops_reach_the_kernel_wrappers(monkeypatch):
+    monkeypatch.setattr(ops, "_use_kernel", lambda cfg, t: True)
+    monkeypatch.setattr(ops, "sketch_encode_cuda", lambda *a: ("encode", a))
+    monkeypatch.setattr(ops, "sketch_peel_cuda", lambda *a: ("peel", a))
+    cfg = STD_CFGS[-1]
+    xb, ids = blocks(cfg, 1, 0.05, 14), ids_for(1)
+    name, args = ops.sketch_encode(xb, ids, cfg)
+    assert name == "encode" and args[0] is xb and args[-1] is cfg
+    bits = xb != 0
+    name, args = ops.sketch_peel(xb, bits, ids, cfg)
+    assert name == "peel" and args[1] is bits and args[-1] is cfg
+
+
+def test_build_lists_every_source():
+    from repro_torch.kernels import build
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == \
+        sorted(p.name for p in build.SOURCES.values())
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """Editing a header that a source includes changes the library's
+    name (so the next use rebuilds it); a file it does not include does
+    not."""
+    import shutil
+    from repro_torch.kernels import build
+    for f in build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    (tmp_path / "unrelated.cuh").write_text("// not included\n")
+    monkeypatch.setattr(build, "SOURCES", {
+        k: tmp_path / v.name for k, v in build.SOURCES.items()})
+    before = {k: build._library_path(k) for k in build.SOURCES}
+    assert all(p.parent == build.BUILD_DIR for p in before.values())
+    assert [p.name for p in build._included(tmp_path / "sketch_codec.cu")] == \
+        ["sketch_codec.cu", "sketch_tile.cuh"]
+    (tmp_path / "unrelated.cuh").write_text("// edited\n")
+    assert {k: build._library_path(k) for k in build.SOURCES} == before
+    header = tmp_path / "sketch_tile.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {k: build._library_path(k) for k in build.SOURCES}
+    assert all(after[k] != before[k] for k in ("sketch_wire", "sketch_codec"))
 
 
 def test_compressor_roundtrip_and_stats_on_cpu():
@@ -364,4 +473,100 @@ def test_quantized_legs_count_their_own_launches(cuda_dev):
     after = dict(ops.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "encode_pack_quantize": 0, "dequant_peel_unpack": 0,
-        "encode_pack_quantize_q": 1, "dequant_peel_unpack_dq": 1}
+        "encode_pack_quantize_q": 1, "dequant_peel_unpack_dq": 1,
+        "sketch_encode": 0, "sketch_peel": 0}
+
+
+# ----------------------------------------------------------------------
+# the standalone encode and peel on the card (Bloom / unaligned geometries)
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", STD_CFGS, ids=STD_IDS)
+@pytest.mark.parametrize("frac", [0.04, 0.4])
+def test_standalone_kernels_match_plain_dyadic(cuda_dev, cfg, frac):
+    xb = blocks(cfg, 5, frac, 50).to(cuda_dev)
+    ids = ids_for(5, 7000, cuda_dev)
+    y = ops.sketch_encode(xb, ids, cfg)
+    assert torch.equal(y, ref.sketch_encode_ref(xb, ids, cfg))
+    bits = candidate_bits(xb, 50)
+    want = ref.sketch_peel_ref(y, bits, ids, cfg)
+    for b in (bits, bits.to(torch.uint8)):
+        got = ops.sketch_peel(y, b, ids, cfg)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", STD_CFGS, ids=STD_IDS)
+def test_standalone_kernels_match_plain_gaussian(cuda_dev, cfg):
+    xb = blocks(cfg, 5, 0.04, 51, kind="gauss").to(cuda_dev)
+    ids = ids_for(5, 37, cuda_dev)
+    y = ops.sketch_encode(xb, ids, cfg)
+    torch.testing.assert_close(y, ref.sketch_encode_ref(xb, ids, cfg),
+                               rtol=1e-5, atol=1e-6)
+    bits = candidate_bits(xb, 51)
+    v, r = ops.sketch_peel(y, bits, ids, cfg)
+    v2, r2 = ref.sketch_peel_ref(y, bits, ids, cfg)
+    torch.testing.assert_close(v, v2, rtol=1e-5, atol=1e-6)
+    assert torch.equal(r, r2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CFGS, ids=IDS)
+def test_standalone_kernels_equal_fused_bit_for_bit(cuda_dev, cfg):
+    """Gaussian inputs (sums not exact): the standalone encode equals the
+    fused producer's sketch, and the standalone peel the fused consumer on
+    the packed words of the same bits, bit for bit."""
+    xb = blocks(cfg, 5, 0.04, 52, kind="gauss").to(cuda_dev)
+    ids = ids_for(5, 37, cuda_dev)
+    sk, _, _ = ops.encode_pack_quantize(xb, ids, cfg)
+    assert torch.equal(ops.sketch_encode(xb, ids, cfg), sk)
+    bits = candidate_bits(xb, 52)
+    words = index_lib.pack_bits(bits).reshape(5, -1)
+    got = ops.sketch_peel(sk, bits, ids, cfg)
+    want = ops.dequant_peel_unpack(sk, words, ids, cfg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_standalone_kernels_repeat_and_count_launches(cuda_dev):
+    cfg = STD_CFGS[-1]
+    xb = blocks(cfg, 9, 0.04, 53, kind="gauss").to(cuda_dev)
+    ids = ids_for(9, 0, cuda_dev)
+    bits = candidate_bits(xb, 53)
+    before = dict(ops.LAUNCHES)
+    a, b = (ops.sketch_encode(xb, ids, cfg) for _ in range(2))
+    assert torch.equal(a, b)
+    c, d = (ops.sketch_peel(a, bits, ids, cfg) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(c, d))
+    after = dict(ops.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "encode_pack_quantize": 0, "dequant_peel_unpack": 0,
+        "encode_pack_quantize_q": 0, "dequant_peel_unpack_dq": 0,
+        "sketch_encode": 2, "sketch_peel": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_standalone_encode_takes_half_precision(cuda_dev, dtype):
+    cfg = STD_CFGS[-2]
+    xb = blocks(cfg, 3, 0.05, 54).to(cuda_dev)     # dyadic: exact in both
+    ids = ids_for(3, 0, cuda_dev)
+    assert torch.equal(ops.sketch_encode(xb.to(dtype), ids, cfg),
+                       ops.sketch_encode(xb, ids, cfg))
+
+
+@pytest.mark.cuda
+def test_standalone_cuda_dispatch_rules(cuda_dev):
+    cfg = dataclasses.replace(STD_CFGS[-2], use_pallas="never")
+    xb, ids = blocks(cfg, 1, 0.05, 55).to(cuda_dev), ids_for(1, 0, cuda_dev)
+    with pytest.raises(ValueError, match="never"):
+        ops.sketch_encode(xb, ids, cfg)
+    with pytest.raises(ValueError, match="never"):
+        ops.sketch_peel(torch.zeros((1, cfg.rows, cfg.lanes), device=cuda_dev),
+                        xb != 0, ids, cfg)
+    huge = CompressionConfig(ratio=0.001, rows=6)   # bits alone > shared memory
+    sk = torch.zeros((1, huge.rows, huge.lanes), device=cuda_dev)
+    bits = torch.zeros((1, huge.group, huge.lanes), dtype=torch.bool, device=cuda_dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.sketch_peel(sk, bits, ids, huge)

@@ -133,9 +133,10 @@ MOMENTUM = dict(kind="momentum", lr=1e-2, warmup_steps=0, total_steps=100,
                 grad_clip=0.0)
 
 
-def jax_w2_compressed_losses(jparams, steps):
-    """The reference's W=2 compressed zero1=False step, composed."""
-    jc = JaxCompression(**LOSSLESS)
+def jax_w2_compressed_losses(jparams, steps, compression=LOSSLESS):
+    """The reference's W=2 compressed zero1=False step, composed, with
+    the ``CompressionConfig`` fields ``compression``."""
+    jc = JaxCompression(**compression)
     ocfg = JOpt(**MOMENTUM)
     params = jax.tree.map(jnp.asarray, jparams)
     leaves, treedef = jax.tree.flatten(params)
