@@ -27,8 +27,15 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
 6. main stream — both kernels against their plain versions at the main
    path's shapes: one worker's whole 14,525-block stream into the
    producer, the sum/OR of two workers' payloads at 4% each into the
-   consumer (Gaussian to rtol=1e-5, dyadic bit for bit); the kernel and
-   plain times of the kernels line are taken here.
+   consumer (Gaussian to rtol=1e-5, dyadic bit for bit); the sha256 of the
+   consumer's values and residual bytes on both inputs; a histogram of
+   the consumer's per-block rounds to the fixpoint (its counter, which
+   the training path leaves NULL), whose largest entry must be the plain
+   peel's rounds; the consumer's time with the rounds capped at 0, 1, 2
+   and ``cfg.rounds`` (cap 0: loads, initial degrees and output pass
+   alone); per round of the plain peel, a block's mean peels and cells
+   taking one and several contributions; the kernel and plain times of
+   the kernels line are taken here.
 7. lossless — the compressed aggregate of dyadic gradients of the same
    model, through the kernels, equals the dense mean bit for bit at
    every coordinate the peel recovers.
@@ -53,7 +60,8 @@ The in-network slice (``aggregator="compressed_innet"``, fxp32 wire):
     per-bucket exponents agreed over both, each quantized through the
     quantize leg (bit for bit with its plain version), the windowed tree
     (equal to the flat sum/OR), the dequant consumer on the aggregate
-    (bit for bit); the kernel and plain times of both legs.
+    (bit for bit), its output digest and per-block rounds histogram as in
+    phase 6; the kernel and plain times of both legs.
 11. switch — the same two int32 sketches and word streams through the
     numpy ``SwitchModel`` (ports W, 8 slots): its sums equal the on-card
     tree bit for bit and its window report equals
@@ -84,17 +92,25 @@ kernels):
     sum/OR, ``bloom_query`` and peel kernel in place of the fused
     producer and consumer.
 16. bloom_stream — both standalone kernels against their plain versions
-    at the full stream (encode on one worker's 0.1% stream, peel on the
-    aggregate of two with Bloom candidates, dyadic bit for bit); their
-    kernel and plain times; and the standalone peel on the bitmap bits of
-    two 4% payloads beside the fused consumer, equal bit for bit.
+    at the full stream (encode and peel on one worker's Gaussian 0.1%
+    stream with its Bloom candidates to rtol=1e-5; encode on one worker's
+    dyadic 0.1% stream, peel on the aggregate of two with Bloom
+    candidates, bit for bit); their kernel and plain times; and the
+    standalone peel on the bitmap bits of two 4% payloads beside the fused
+    consumer, equal bit for bit. The sha256 of the peel's values and
+    residual bytes on all three inputs, its per-block rounds histogram,
+    its time at caps 0, 1 and ``cfg.rounds`` and the per-round counts,
+    as in phase 6.
 17. bloom_lossless — 1%-dense dyadic gradients per worker in the
     lossless profile (rows 60, ratio 2) with the Bloom index: the
     aggregate equals the dense mean bit for bit at every coordinate, the
     filter's false positives peeling to exactly 0.
 
-Then the ``{"kernels": [...]}`` line (all six kernel rows), the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
+Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
+its resident blocks an SM and shared-memory bytes from the occupancy
+query, and for the three peel kernels the rounds histogram; a peel
+kernel below 48 resident warps an SM fails the run), the nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``. There is no
 CPU fallback: without a CUDA device the script exits non-zero before
 printing a result.
 """
@@ -103,6 +119,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import json
 import pathlib
 import statistics
@@ -148,6 +165,16 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def digest(values, residual, chunk=1024):
+    """sha256 of a peel's output bytes: the f32 values, then the int8
+    residual, each in block order (copied to the host a chunk at a time)."""
+    h = hashlib.sha256()
+    for t in (values, residual):
+        for i in range(0, t.shape[0], chunk):
+            h.update(t[i:i + chunk].contiguous().cpu().numpy())
+    return h.hexdigest()
+
+
 def make_blocks(cfg, nb, frac, kind, gen):
     import torch
     shape = (nb, cfg.group, cfg.lanes)
@@ -186,23 +213,25 @@ class Checker:
                                  f"version ({'exact' if exact else 'rtol=1e-5'})")
 
     def producer(self, xb, ids, cfg, exact):
-        """Producer kernel vs plain on ``xb``; returns the plain outputs."""
+        """Producer kernel vs plain on ``xb``; returns the kernel's outputs
+        (the plain version's Gaussian sketch sums in atomic order, so only
+        the kernel's repeats bit for bit from run to run)."""
         from repro_torch.kernels import ops, ref
         want = ref.encode_pack_quantize_ref(xb, ids, cfg)
         got = ops.encode_pack_quantize(xb, ids, cfg)
         for g, w, ex in zip(got, want, (exact, True, exact)):
             self("encode_pack_quantize", g, w, ex)
-        return want
+        return got
 
     def consumer(self, sk, w, ids, cfg, exact):
-        """Consumer kernel vs plain on one payload; returns the plain
+        """Consumer kernel vs plain on one payload; returns the kernel's
         outputs."""
         from repro_torch.kernels import ops, ref
         want = ref.dequant_peel_unpack_ref(sk, w, ids, cfg)
         got = ops.dequant_peel_unpack(sk, w, ids, cfg)
         self("dequant_peel_unpack", got[0], want[0], exact)
         self("dequant_peel_unpack", got[1], want[1], True)
-        return want
+        return got
 
     def producer_q(self, xb, ids, cfg, f32, wire, e, exact):
         """Quantize leg vs plain on ``xb``, and vs the f32 kernel's outputs
@@ -429,6 +458,73 @@ def bound(nbytes, nops):
     return (max(tb, to), "bytes" if tb >= to else "operations")
 
 
+def block_rounds(peel, nb, dev, plain_rounds):
+    """Each block's rounds to its fixpoint in one run of ``peel(counter)``
+    (a peel kernel's wrapper writing its per-block counter), as a
+    histogram: entry k counts the blocks that ran k rounds. The most any
+    block ran must be the plain peel's rounds over the whole stream."""
+    import torch
+    counter = torch.full((nb,), -1, dtype=torch.int32, device=dev)
+    peel(counter)
+    if int(counter.max()) != plain_rounds or int(counter.min()) < 0:
+        raise AssertionError(f"blocks ran {int(counter.min())}..{int(counter.max())}"
+                             f" rounds, the plain peel {plain_rounds}")
+    return torch.bincount(counter.long()).tolist()
+
+
+def ms_by_rounds(peel, cfg, caps):
+    """A peel kernel's time with ``cfg.rounds`` capped at each of ``caps``
+    (``peel(cfg)`` launches it): cap 0 is the load, initial degrees and
+    output pass alone; the rest is the rounds'."""
+    return {str(k): cuda_ms(lambda: peel(dataclasses.replace(cfg, rounds=k)), 10)
+            for k in caps}
+
+
+def round_stats(bits, ids, cfg):
+    """Per round of the plain peel over the whole stream until its
+    fixpoint, a block's mean peels, cells taking one contribution and
+    cells taking several: the work the peel kernels' gather and scatter
+    see. The peel decisions need the degrees only, not the values."""
+    import torch
+    from repro_torch.core import hashing
+    from repro_torch.core.sketch import (device_tables, gather_rows,
+                                         roll_from_sketch, roll_to_sketch,
+                                         scatter_rows)
+    rows_flat, _ = device_tables(cfg, bits.device)
+    rot = hashing.block_rotations(ids, cfg.group, cfg.lanes, cfg.seed)
+
+    def to_cells(mask):
+        return scatter_rows(roll_to_sketch(mask.to(torch.int32), rot, cfg.lanes),
+                            rows_flat, cfg.rows)
+
+    deg, b, nb, out = to_cells(bits), bits.clone(), bits.shape[0], []
+    for _ in range(cfg.rounds):
+        d_at = roll_from_sketch(gather_rows(deg, rows_flat), rot, cfg.lanes)
+        peel = ((d_at == 1) & b[:, :, None, :]).any(dim=2)
+        del d_at
+        if not bool(peel.any()):
+            break
+        cnt = to_cells(peel)
+        out.append({"peels": int(peel.sum()) / nb,
+                    "cells_one": int((cnt == 1).sum()) / nb,
+                    "cells_several": int((cnt >= 2).sum()) / nb})
+        deg -= cnt
+        b &= ~peel
+    return out
+
+
+def occupancy_fields(name, cfg, dev, hist=None):
+    """A kernel row's resident blocks an SM and shared-memory bytes (the
+    occupancy query at the geometry it ran), and, for a peel kernel, its
+    per-block rounds histogram; a peel kernel must hold 48 warps an SM."""
+    from repro_torch.kernels import ops
+    blocks, smem = ops.kernel_occupancy(name, cfg, dev)
+    if hist is not None and blocks * 512 // 32 < 48:
+        raise AssertionError(f"{name}: {blocks} blocks of 512 threads an SM")
+    return {"blocks_per_sm": blocks, "smem_bytes": smem,
+            "block_rounds_hist": hist}
+
+
 def phase_main_stream(cfg, dev, n_blocks, check):
     """Both kernels against their plain versions at the main path's shapes:
     one worker's whole granite-3-2b stream (``n_blocks`` blocks) into the
@@ -442,6 +538,7 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     from repro_torch.core.collectives import LocalWorkers
     from repro_torch.core.peeling import peel_blocks
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sketch_wire import dequant_peel_unpack_cuda
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
@@ -449,7 +546,7 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     ids = torch.arange(nb, dtype=torch.int32, device=dev)
     xb = make_blocks(cfg, nb, 0.04, "gauss", gen)
     sk, w, _ = check.producer(xb, ids, cfg, False)
-    check.consumer(sk, w, ids, cfg, False)
+    digests = {"gauss@0.04": digest(*check.consumer(sk, w, ids, cfg, False))}
     del xb, sk, w
     torch.cuda.empty_cache()
 
@@ -459,7 +556,10 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     sk = group.sum([e[0] for e in enc])
     w = group.bor([e[1] for e in enc])
     del enc
-    _, res = check.consumer(sk, w, ids, cfg, True)
+    out = check.consumer(sk, w, ids, cfg, True)
+    digests["dyadic@0.04x2"] = digest(*out)
+    res = out[1]
+    del out
     x0 = xs[0]
     del xs
     torch.cuda.empty_cache()
@@ -469,12 +569,22 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     nnz0 = int((x0 != 0).sum())
     nnz = int(index_lib.popcount(w))
     n_res = int(res.sum())
-    rounds = peel_blocks(sk, index_lib.unpack_bits(w.reshape(-1), (nb, G, c)),
-                         ids, cfg).rounds_used
+    bits = index_lib.unpack_bits(w.reshape(-1), (nb, G, c))
+    rounds = peel_blocks(sk, bits, ids, cfg).rounds_used
+    per_round = round_stats(bits, ids, cfg)
+    del bits
+    hist = block_rounds(lambda r: dequant_peel_unpack_cuda(
+        sk, w, ids, cfg, block_rounds=r), nb, dev, rounds)
+    by_rounds = ms_by_rounds(lambda k: ops.dequant_peel_unpack(sk, w, ids, k),
+                             cfg, (0, 1, 2, cfg.rounds))
     emit({"phase": "main_stream", "blocks": nb, "workers": WORKERS,
           "agree": True, "worker0_nnz": nnz0, "aggregate_nnz": nnz,
           "aggregate_density": nnz / n_el, "peeled": nnz - n_res,
-          "estimated": n_res, "plain_rounds_to_fixpoint": rounds})
+          "estimated": n_res, "plain_rounds_to_fixpoint": rounds,
+          "consumer_block_rounds_hist": hist,
+          "consumer_ms_by_rounds_cap": by_rounds,
+          "plain_per_round_per_block": per_round,
+          "sha256_values_residual": digests})
     enc_bytes = n_el * 4 + nb * 4 + nb * R * c * 4 + n_el // 8 + nb * 4
     dec_bytes = nb * R * c * 4 + n_el // 8 + nb * 4 + n_el * 4 + n_el
     # data-dependent work: sign x value + add per (non-zero, hash), the
@@ -485,6 +595,7 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     enc_ops = 6 * nnz0 + nb * R * c + n_el
     dec_ops = 3 * nnz + 3 * nnz * rounds + 9 * (nnz - n_res) + 10 * n_res
 
+    hists = {"encode_pack_quantize": None, "dequant_peel_unpack": hist}
     recs = []
     for name, kfn, pfn, nbytes, nops, replaces in [
         ("encode_pack_quantize",
@@ -503,7 +614,8 @@ def phase_main_stream(cfg, dev, n_blocks, check):
                      "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, 5, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
-                     "bytes": nbytes, "ops": nops})
+                     "bytes": nbytes, "ops": nops,
+                     **occupancy_fields(name, cfg, dev, hists[name])})
     del x0, sk, w
     torch.cuda.empty_cache()
     return recs
@@ -848,6 +960,7 @@ def phase_innet_stream(cfg, dev, n_params, check):
     from repro_torch.core.collectives import LocalWorkers
     from repro_torch.core.peeling import peel_blocks
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sketch_wire import dequant_peel_unpack_cuda
     from repro_torch.net.fixedpoint import FixedPointWire
     from repro_torch.net.topology import make_topology, tree_all_reduce
 
@@ -876,9 +989,11 @@ def phase_innet_stream(cfg, dev, n_params, check):
     if not (torch.equal(q, group.sum([g[0] for g in qw]))
             and torch.equal(w, group.bor([g[1] for g in qw]))):
         raise AssertionError("windowed tree differs from the flat sum/OR")
-    _, res = check.consumer_dq(q, w, ids, cfg, wire, e, True)
+    out = check.consumer_dq(q, w, ids, cfg, wire, e, True)
+    digests = {"dyadic@0.04x2": digest(*out)}
+    res = out[1]
     x0 = xs[0]
-    del xs
+    del xs, out
     torch.cuda.empty_cache()
 
     n_el = nb * G * c
@@ -889,6 +1004,9 @@ def phase_innet_stream(cfg, dev, n_params, check):
     rounds = peel_blocks(y, index_lib.unpack_bits(w.reshape(-1), (nb, G, c)),
                          ids, cfg).rounds_used
     del y
+    hist = block_rounds(lambda r: dequant_peel_unpack_cuda(
+        q, w, ids, cfg, exponents=e, mantissa_bits=M, block_rounds=r),
+        nb, dev, rounds)
     emit({"phase": "innet_stream", "blocks": nb, "buckets": nbk,
           "blocks_per_bucket": nbpb, "workers": WORKERS, "mantissa_bits": M,
           "switch_slots": cfg.switch_slots,
@@ -896,7 +1014,10 @@ def phase_innet_stream(cfg, dev, n_params, check):
           "int32_sketch_bytes_per_worker": nb * R * c * 4,
           "exponent_range": [int(e_bucket.min()), int(e_bucket.max())],
           "aggregate_nnz": nnz, "peeled": nnz - n_res, "estimated": n_res,
-          "plain_rounds_to_fixpoint": rounds})
+          "plain_rounds_to_fixpoint": rounds,
+          "consumer_block_rounds_hist": hist,
+          "sha256_values_residual": digests})
+    hists = {"encode_pack_quantize_q": None, "dequant_peel_unpack_dq": hist}
     # the f32 legs' bytes and operations (phase 6), plus the (nb,) int32
     # exponents read and, per sketch cell, one multiply and one conversion
     enc_bytes = n_el * 4 + nb * 4 + nb * R * c * 4 + n_el // 8 + nb * 4 + nb * 4
@@ -926,7 +1047,8 @@ def phase_innet_stream(cfg, dev, n_params, check):
                      "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, pit, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
-                     "bytes": nbytes, "ops": nops})
+                     "bytes": nbytes, "ops": nops,
+                     **occupancy_fields(name, cfg, dev, hists[name])})
     payload = ([g[0].reshape(nbk, -1) for g in qw],
                [g[1].reshape(nbk, -1) for g in qw],
                q.reshape(nbk, -1), w.reshape(nbk, -1))
@@ -1059,6 +1181,7 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
     from repro_torch.core.collectives import LocalWorkers
     from repro_torch.core.peeling import peel_blocks
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sketch_peel import sketch_peel_cuda
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
@@ -1067,7 +1190,11 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
     ids = torch.arange(nb, dtype=torch.int32, device=dev)
     group = LocalWorkers(WORKERS)
     density = cfg.topk_ratio
-    check.encode_std(make_blocks(cfg, nb, density, "gauss", gen), ids, cfg, False)
+    xg = make_blocks(cfg, nb, density, "gauss", gen)
+    skg = check.encode_std(xg, ids, cfg, False)
+    bits = index_lib.bloom_query((nb, G, c), cfg, index_lib.bloom_build(xg, cfg))
+    digests = {"gauss@0.001": digest(*check.peel_std(skg, bits, ids, cfg, False))}
+    del xg, skg, bits
     xs = [make_blocks(cfg, nb, density, "dyadic", gen) for _ in range(WORKERS)]
     sk = group.sum([check.encode_std(x, ids, cfg, True) for x in xs])
     filt = group.bor([index_lib.bloom_build(x, cfg) for x in xs])
@@ -1075,13 +1202,20 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
     union = functools.reduce(torch.logical_or, [x != 0 for x in xs])
     if not bool(bits[union].all()):
         raise AssertionError("the Bloom query missed a non-zero of the union")
-    _, res = check.peel_std(sk, bits, ids, cfg, True)
+    out = check.peel_std(sk, bits, ids, cfg, True)
+    digests["dyadic@0.001x2"] = digest(*out)
+    res = out[1]
     x0 = xs[0]
     nnz0, n_union = int((x0 != 0).sum()), int(union.sum())
-    del xs, union
+    del xs, union, out
     torch.cuda.empty_cache()
     cand, n_res = int(bits.sum()), int(res.sum())
     rounds = peel_blocks(sk, bits, ids, cfg).rounds_used
+    per_round = round_stats(bits, ids, cfg)
+    hist = block_rounds(lambda r: sketch_peel_cuda(sk, bits, ids, cfg,
+                                                   block_rounds=r), nb, dev, rounds)
+    by_rounds = ms_by_rounds(lambda k: ops.sketch_peel(sk, bits, ids, k),
+                             cfg, (0, 1, cfg.rounds))
 
     # the standalone peel on the bitmap bits of two 4% payloads, beside the
     # fused consumer on their words (the main path's consumer, row 2)
@@ -1097,6 +1231,7 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
                zip(std4, ops.dequant_peel_unpack(sk4, words4, ids, twin))):
         raise AssertionError("standalone peel differs from the fused consumer")
     n4, n4_res = int(bits4.sum()), int(std4[1].sum())
+    digests["bitmap_dyadic@0.04x2"] = digest(*std4)
     del std4
     peel4_ms = cuda_ms(lambda: ops.sketch_peel(sk4, bits4, ids, cfg), 5)
     fused4_ms = cuda_ms(lambda: ops.dequant_peel_unpack(sk4, words4, ids, twin), 5)
@@ -1109,11 +1244,14 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
           "filter_fill": int(index_lib.popcount(filt)) / (filt.numel() * 32),
           "candidates": cand, "false_positives": cand - n_union,
           "peeled": cand - n_res, "estimated": n_res,
-          "plain_rounds_to_fixpoint": rounds,
+          "plain_rounds_to_fixpoint": rounds, "peel_block_rounds_hist": hist,
+          "peel_ms_by_rounds_cap": by_rounds,
+          "plain_per_round_per_block": per_round,
           "bitmap_4pct": {"aggregate_nnz": n4, "estimated": n4_res,
                           "standalone_peel_ms": peel4_ms,
                           "fused_consumer_ms": fused4_ms,
-                          "equal_bit_for_bit": True}})
+                          "equal_bit_for_bit": True},
+          "sha256_values_residual": digests})
     # bytes: each input read once, each output written once (ids included);
     # operations as phase 6's: sign x value + add per (non-zero, hash) and
     # the store of each cell; the peel's initial degrees, a degree test per
@@ -1123,6 +1261,7 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
     dec_bytes = nb * R * c * 4 + n_el + nb * 4 + n_el * 4 + n_el
     enc_ops = 6 * nnz0 + nb * R * c
     dec_ops = 3 * cand + 3 * cand * rounds + 9 * (cand - n_res) + 10 * n_res
+    hists = {"sketch_encode": None, "sketch_peel": hist}
     recs = []
     for name, kfn, pfn, nbytes, nops, replaces, pit in [
         ("sketch_encode", lambda: ops.sketch_encode(x0, ids, cfg),
@@ -1139,7 +1278,8 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
                      "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, pit, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
-                     "bytes": nbytes, "ops": nops})
+                     "bytes": nbytes, "ops": nops,
+                     **occupancy_fields(name, cfg, dev, hists[name])})
     del x0, sk, bits
     torch.cuda.empty_cache()
     return recs

@@ -12,9 +12,10 @@ blocks, each round:
 
 Coordinates still indexed after the last round fall back to the
 median-of-3 estimate. The loop exits at the fixpoint, after at most
-``cfg.rounds`` rounds; the CUDA kernel always runs ``cfg.rounds`` rounds,
-and both give the same result because rounds after the fixpoint peel
-nothing.
+``cfg.rounds`` rounds; the CUDA kernels stop each block at its own
+fixpoint (blocks do not interact), and the reference's Pallas kernel
+always runs ``cfg.rounds`` rounds. All give the same result because a
+round that peels nothing changes nothing.
 """
 
 from __future__ import annotations

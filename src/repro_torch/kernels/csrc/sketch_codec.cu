@@ -13,8 +13,9 @@
 // sketch_peel_pallas (body _peel_kernel, core peel_tile): the fused
 // consumer fed one byte per coordinate (a bool or uint8 tensor, read as
 // it lies) instead of packed words. The block packs its bytes into
-// shared-memory words once, with a ballot per warp over n rounded up to
-// 32 (the bits past n stay clear), then runs the same rounds and median.
+// shared-memory words once, from two 16-byte loads a word where n % 32 ==
+// 0 and otherwise with a ballot per warp over n rounded up to 32 (the
+// bits past n stay clear), then runs the same rounds and median.
 //
 // Both run the code of sketch_tile.cuh that the fused kernels run, so the
 // standalone sketch equals the fused producer's, and the standalone peel
@@ -26,9 +27,11 @@
 // 135 KB at G=60, c=512, rows=6. The peel reads the sketch and one byte a
 // coordinate and writes values and an int8 residual (4*rows*c + 6Gc
 // bytes): 197 KB. Design as sketch_wire.cu: the encode stages the x block
-// in shared memory where it fits; the peel keeps y, the degrees, the bits
-// and the peeled values there, or y and the degrees in device-memory
-// scratch where they do not (the lossless profile, rows=60 at ratio 2).
+// in shared memory where it fits; the peel keeps its per-cell state there
+// (three blocks an SM at the default geometry), or in device-memory
+// scratch where it does not fit (the lossless profile, rows=60 at ratio
+// 2), and stops each block at its own fixpoint: at the Bloom index's
+// 0.2% of candidates that is two or three rounds, not `rounds`.
 //
 // Interface: plain C, loaded with ctypes; each function returns the
 // cudaError_t of the launch (0 on success).
@@ -70,41 +73,56 @@ sketch_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
                1.0f, lanes, rows);
 }
 
+// The input bits' nonzero bytes as a mask: bit k for byte k of x.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  const uint32_t hi = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  return ((hi >> 7) & 1u) | ((hi >> 14) & 2u) | ((hi >> 21) & 4u) |
+         ((hi >> 28) & 8u);
+}
+
 template <bool kResident>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPeelThreads, kPeelBlocksPerSM)
 sketch_peel_kernel(const float* __restrict__ sketch,
                    const uint8_t* __restrict__ bits,
                    const int* __restrict__ ids,
                    const int* __restrict__ row_ptr,
-                   const int* __restrict__ ent,
-                   const float* __restrict__ ent_sign,
-                   const int* __restrict__ hrow,
+                   const int* __restrict__ ent, const int* __restrict__ hrow,
                    const float* __restrict__ sign, float* __restrict__ values,
-                   int8_t* __restrict__ residual, float* y_dev, int* d_dev,
-                   int group, int lanes, int rows, int rounds,
-                   uint32_t salt) {
+                   int8_t* __restrict__ residual,
+                   int* __restrict__ block_rounds, float* state, int group,
+                   int lanes, int rows, int rounds, uint32_t salt) {
   extern __shared__ float smem[];
   const int n = group * lanes, nw = (n + 31) / 32, ns = rows * lanes;
   const long long blk = blockIdx.x;
   const uint8_t* bg = bits + blk * n;
-  float* vout = values + blk * n;
   const PeelPlanes p =
-      peel_planes<kResident>(smem, y_dev, d_dev, vout, blk, n, ns, nw);
-
-  block_rotations(p.rot, (uint32_t)ids[blk], group, lanes, salt);
-  for (int e = threadIdx.x; e < ns; e += blockDim.x)
-    p.y[e] = sketch[blk * ns + e];
-  // blockDim % 32 == 0 and the loop runs to a multiple of 32: every lane
-  // of a warp takes part in each ballot.
-  for (int e = threadIdx.x; e < nw * 32; e += blockDim.x) {
-    const unsigned w = __ballot_sync(0xffffffffu, e < n && bg[e] != 0);
-    if ((threadIdx.x & 31) == 0) p.bw[e >> 5] = w;
+      peel_setup<kResident>(smem, state, blk, (uint32_t)ids[blk], row_ptr,
+                            ent, hrow, sign, group, lanes, rows, salt);
+  load_sketch(p.y, sketch + blk * ns, ns, 1.0f);
+  if ((n & 31) == 0 && (reinterpret_cast<uintptr_t>(bg) & 15) == 0) {
+    // a word from 32 bytes, two 16-byte loads
+    for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+      const uint4 a = reinterpret_cast<const uint4*>(bg)[2 * w];
+      const uint4 b = reinterpret_cast<const uint4*>(bg)[2 * w + 1];
+      p.org[w] = p.bw[w] =
+          nonzero_bytes(a.x) | nonzero_bytes(a.y) << 4 |
+          nonzero_bytes(a.z) << 8 | nonzero_bytes(a.w) << 12 |
+          nonzero_bytes(b.x) << 16 | nonzero_bytes(b.y) << 20 |
+          nonzero_bytes(b.z) << 24 | nonzero_bytes(b.w) << 28;
+    }
+  } else {
+    // blockDim % 32 == 0 and the loop runs to a multiple of 32: every lane
+    // of a warp takes part in each ballot.
+    for (int e = threadIdx.x; e < nw * 32; e += blockDim.x) {
+      const unsigned w = __ballot_sync(0xffffffffu, e < n && bg[e] != 0);
+      if ((threadIdx.x & 31) == 0) p.org[e >> 5] = p.bw[e >> 5] = w;
+    }
   }
   __syncthreads();
 
-  peel_block<kResident>(p, row_ptr, ent, ent_sign, hrow, sign, vout,
-                        residual + blk * n, ByteBits{bg}, n, lanes, rows,
-                        rounds);
+  const int done =
+      peel_block(p, values + blk * n, residual + blk * n, n, lanes, rows, rounds);
+  if (block_rounds != nullptr && threadIdx.x == 0) block_rounds[blk] = done;
 }
 
 }  // namespace
@@ -116,13 +134,26 @@ extern "C" {
 int sketch_codec_max_smem(int device) { return max_smem_optin(device); }
 
 // Dynamic shared memory of each kernel; `resident` keeps the x block (the
-// encode) or y, d and the peeled values (the peel) there too.
+// encode) or y, the degrees and the contributions (the peel) there too.
 size_t sketch_codec_encode_smem(int group, int lanes, int resident) {
   return encode_smem(group, lanes, resident);
 }
 
 size_t sketch_codec_peel_smem(int group, int lanes, int rows, int resident) {
   return peel_smem(group, lanes, rows, resident);
+}
+
+// Blocks of kernel `kind` (0 the encode, 1 the peel) that one SM of the
+// current device holds at once at this geometry, or a negative cudaError_t.
+int sketch_codec_occupancy(int kind, int group, int lanes, int rows,
+                           int resident) {
+  if (kind == 0)
+    return occupancy(resident ? (const void*)sketch_encode_kernel<true>
+                              : (const void*)sketch_encode_kernel<false>,
+                     kThreads, encode_smem(group, lanes, resident));
+  return occupancy(resident ? (const void*)sketch_peel_kernel<true>
+                            : (const void*)sketch_peel_kernel<false>,
+                   kPeelThreads, peel_smem(group, lanes, rows, resident));
 }
 
 // x (nb, group, lanes) f32 -> sketch (nb, rows, lanes) f32.
@@ -148,16 +179,15 @@ int sketch_codec_encode(const float* x, const int* ids, const int* row_ptr,
 }
 
 // sketch (nb, rows, lanes) f32 + bits (nb, group, lanes), one byte each,
-// non-zero = set -> values (nb, group, lanes) f32, residual int8. y_dev
-// (nb, rows, lanes) f32 and d_dev (nb, rows, lanes) int32 are scratch for
-// resident == 0 and unused otherwise.
+// non-zero = set -> values (nb, group, lanes) f32, residual int8. state
+// (nb, 4, rows, lanes) f32 is scratch for resident == 0 and unused
+// otherwise; block_rounds is NULL or (nb,) int32, each block's rounds run.
 int sketch_codec_peel(const float* sketch, const unsigned char* bits,
                       const int* ids, const int* row_ptr, const int* ent,
-                      const float* ent_sign, const int* hrow,
-                      const float* sign, float* values, signed char* residual,
-                      float* y_dev, int* d_dev, int nb, int group, int lanes,
-                      int rows, int rounds, int resident, unsigned salt,
-                      void* stream) {
+                      const int* hrow, const float* sign, float* values,
+                      signed char* residual, int* block_rounds, float* state,
+                      int nb, int group, int lanes, int rows, int rounds,
+                      int resident, unsigned salt, void* stream) {
   const size_t smem = peel_smem(group, lanes, rows, resident);
   const void* fn = resident ? (const void*)sketch_peel_kernel<true>
                             : (const void*)sketch_peel_kernel<false>;
@@ -167,13 +197,13 @@ int sketch_codec_peel(const float* sketch, const unsigned char* bits,
   cudaStream_t st = (cudaStream_t)stream;
   if (nb > 0) {
     if (resident)
-      sketch_peel_kernel<true><<<nb, kThreads, smem, st>>>(
-          sketch, bits, ids, row_ptr, ent, ent_sign, hrow, sign, values, res,
-          y_dev, d_dev, group, lanes, rows, rounds, salt);
+      sketch_peel_kernel<true><<<nb, kPeelThreads, smem, st>>>(
+          sketch, bits, ids, row_ptr, ent, hrow, sign, values, res,
+          block_rounds, state, group, lanes, rows, rounds, salt);
     else
-      sketch_peel_kernel<false><<<nb, kThreads, smem, st>>>(
-          sketch, bits, ids, row_ptr, ent, ent_sign, hrow, sign, values, res,
-          y_dev, d_dev, group, lanes, rows, rounds, salt);
+      sketch_peel_kernel<false><<<nb, kPeelThreads, smem, st>>>(
+          sketch, bits, ids, row_ptr, ent, hrow, sign, values, res,
+          block_rounds, state, group, lanes, rows, rounds, salt);
   }
   return (int)cudaGetLastError();
 }

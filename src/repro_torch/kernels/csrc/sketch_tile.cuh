@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace sketch_tile {
 
 constexpr int kThreads = 512;
@@ -53,11 +55,9 @@ __device__ __forceinline__ void store_cell(float* p, float acc, float) {
 __device__ __forceinline__ void store_cell(int* p, float acc, float s) {
   *p = __float2int_rn(acc * s);
 }
-__device__ __forceinline__ float load_cell(const float* p, float) {
-  return *p;
-}
-__device__ __forceinline__ float load_cell(const int* p, float s) {
-  return __int2float_rn(*p) * s;
+__device__ __forceinline__ float cell_value(float v, float) { return v; }
+__device__ __forceinline__ float cell_value(int q, float s) {
+  return __int2float_rn(q) * s;
 }
 
 __device__ __forceinline__ float block_max(float v, float* scratch) {
@@ -109,176 +109,285 @@ inline size_t encode_smem(int group, int lanes, int resident) {
          sizeof(int) * 3 * (size_t)group;
 }
 
-// Where a peel keeps its state: y, val, d in shared memory (kResident) or
-// in the block's device-memory planes (y_dev, d_dev; val is the output),
-// then the current bits, the bits peeled this round and the rotations in
-// shared memory. nw = ceil(n / 32) words of bits.
+// Threads of a peel block, and the peel blocks one SM holds at once:
+// three blocks of 512 (48 warps) at 63,580 B of shared memory each.
+constexpr int kPeelThreads = 512;
+constexpr int kPeelBlocksPerSM = 3;
+
+// Where a peel keeps its state. Four planes of one 32-bit value a sketch
+// cell: y (the sketch), d (the degrees), and this round's contributions
+// to each cell, hit (how many) and hv (the value of a single one). They
+// lie in shared memory (kResident) or in the block's slice of a
+// device-memory scratch of 4 * rows * lanes floats a block, in the same
+// order. Shared memory always holds the input
+// bits org, the current bits bw and the bits peeled this round pk (nw =
+// ceil(n / 32) words each), the block's rotations, and the hash tables
+// staged once a block: hrow[t] = h_j(i), sign[t] = g_j(i) (t = 3i + j),
+// and per sketch row r the t hashing to it in (i, j) order,
+// ent[row_ptr[r] .. row_ptr[r + 1]).
 struct PeelPlanes {
   float* y;
-  float* val;
   int* d;
+  uint32_t* hit;
+  float* hv;
+  uint32_t* org;
   uint32_t* bw;
   uint32_t* pk;
   int* rot;
+  int* hrow;
+  float* sign;
+  int* ent;
+  int* row_ptr;
 };
 
+// Bytes of dynamic shared memory a peel needs (the layout above): 16 per
+// cell when resident, then 12 per word of bits, 16 per (i, j) pair and the
+// row offsets. 63,580 B at G = 60, c = 512, rows = 6.
+inline size_t peel_smem(int group, int lanes, int rows, int resident) {
+  const size_t n = (size_t)group * lanes, ns = (size_t)rows * lanes;
+  return (resident ? 16 * ns : 0) + 12 * ((n + 31) / 32) +
+         16 * 3 * (size_t)group + 4 * ((size_t)rows + 1);
+}
+
+// Lays the planes out, computes the block's rotations, stages the hash
+// tables and zeroes d and hit. The caller loads y, org and bw (the same
+// words), then syncs.
 template <bool kResident>
-__device__ __forceinline__ PeelPlanes peel_planes(float* smem, float* y_dev,
-                                                  int* d_dev, float* vout,
-                                                  long long blk, int n, int ns,
-                                                  int nw) {
+__device__ __forceinline__ PeelPlanes peel_setup(
+    float* smem, float* state, long long blk, uint32_t id,
+    const int* __restrict__ row_ptr, const int* __restrict__ ent,
+    const int* __restrict__ hrow, const float* __restrict__ sign, int group,
+    int lanes, int rows, uint32_t salt) {
+  const int n = group * lanes, ns = rows * lanes, nw = (n + 31) / 32;
+  const int g3 = 3 * group;
+  // Barriers order device-memory accesses within a block as they do
+  // shared ones, atomics included, so the rounds hold as written in
+  // either place.
+  float* cells = kResident ? smem : state + blk * 4 * ns;
   PeelPlanes p;
-  if constexpr (kResident) {
-    p.y = smem;
-    p.val = p.y + ns;
-    p.d = reinterpret_cast<int*>(p.val + n);
-    p.bw = reinterpret_cast<uint32_t*>(p.d + ns);
-  } else {
-    // Barriers order device-memory accesses within a block as they do
-    // shared ones, so the rounds below hold as written.
-    p.y = y_dev + blk * ns;
-    p.d = d_dev + blk * ns;
-    p.val = vout;
-    p.bw = reinterpret_cast<uint32_t*>(smem);
-  }
+  p.y = cells;
+  p.d = reinterpret_cast<int*>(p.y + ns);
+  p.hit = reinterpret_cast<uint32_t*>(p.d + ns);
+  p.hv = reinterpret_cast<float*>(p.hit + ns);
+  p.org = reinterpret_cast<uint32_t*>(kResident ? p.hv + ns : smem);
+  p.bw = p.org + nw;
   p.pk = p.bw + nw;
   p.rot = reinterpret_cast<int*>(p.pk + nw);
+  p.hrow = p.rot + g3;
+  p.sign = reinterpret_cast<float*>(p.hrow + g3);
+  p.ent = reinterpret_cast<int*>(p.sign + g3);
+  p.row_ptr = p.ent + g3;
+  block_rotations(p.rot, id, group, lanes, salt);
+  for (int t = threadIdx.x; t < g3; t += blockDim.x) {
+    p.hrow[t] = hrow[t];
+    p.sign[t] = sign[t];
+    p.ent[t] = ent[t];
+  }
+  for (int r = threadIdx.x; r <= rows; r += blockDim.x) p.row_ptr[r] = row_ptr[r];
+  for (int c = threadIdx.x; c < ns; c += blockDim.x) {
+    p.d[c] = 0;
+    p.hit[c] = 0u;
+  }
   return p;
 }
 
-// Bytes of dynamic shared memory a peel needs (the layout above).
-inline size_t peel_smem(int group, int lanes, int rows, int resident) {
-  const size_t n = (size_t)group * lanes, ns = (size_t)rows * lanes;
-  return (resident ? sizeof(float) * (ns + n) + sizeof(int) * ns : 0) +
-         sizeof(uint32_t) * 2 * ((n + 31) / 32) + sizeof(int) * 3 * (size_t)group;
+// y[0 .. ns) = the block's sketch cells as floats, 16 bytes a load where
+// both sides allow it.
+template <typename TS>
+__device__ __forceinline__ void load_sketch(float* y, const TS* src, int ns,
+                                            float s) {
+  if ((ns & 3) == 0 && ((reinterpret_cast<uintptr_t>(src) |
+                         reinterpret_cast<uintptr_t>(y)) & 15) == 0) {
+    using V = typename std::conditional<std::is_same<TS, int>::value, int4,
+                                        float4>::type;
+    const V* sv = reinterpret_cast<const V*>(src);
+    float4* yv = reinterpret_cast<float4*>(y);
+    for (int k = threadIdx.x; k < ns / 4; k += blockDim.x) {
+      const V v = sv[k];
+      yv[k] = make_float4(cell_value(v.x, s), cell_value(v.y, s),
+                          cell_value(v.z, s), cell_value(v.w, s));
+    }
+  } else {
+    for (int k = threadIdx.x; k < ns; k += blockDim.x)
+      y[k] = cell_value(src[k], s);
+  }
 }
 
-// The peel of one block, after y and the bits bw are loaded and the
-// rotations computed (a barrier since): initial degrees, exactly `rounds`
-// synchronous peel rounds, and the median-of-3 estimate for bits still
-// set. `orig(e)` is element e's input bit: an element whose input bit is
-// clear gets 0. Writes vout (n) and rout (n).
-template <bool kResident, typename OrigBit>
-__device__ __forceinline__ void peel_block(
-    const PeelPlanes& p, const int* __restrict__ row_ptr,
-    const int* __restrict__ ent, const float* __restrict__ ent_sign,
-    const int* __restrict__ hrow, const float* __restrict__ sign,
-    float* vout, int8_t* rout, OrigBit orig, int n, int lanes, int rows,
-    int rounds) {
-  float* y = p.y;
-  float* val = p.val;
-  int* d = p.d;
-  uint32_t* bw = p.bw;
-  uint32_t* pk = p.pk;
-  const int* rot = p.rot;
-  // Every warp covers whole words: the element loop with a ballot runs to
-  // n rounded up to 32, and bits past n are clear, so those are no-ops.
-  const int n_up = (n + 31) & ~31;
+// Sketch cell of pair t = 3i + j for lane l of batch i.
+__device__ __forceinline__ int pair_cell(const PeelPlanes& p, int t, int l,
+                                         int lanes) {
+  int col = l + p.rot[t];
+  if (col >= lanes) col -= lanes;
+  return p.hrow[t] * lanes + col;
+}
 
-  // Initial degrees: cell (r, m) counts the indexed coordinates hashing to it.
-  for (int m = threadIdx.x; m < lanes; m += blockDim.x) {
-    for (int r = 0; r < rows; ++r) {
-      int cnt = 0;
-      for (int q = row_ptr[r]; q < row_ptr[r + 1]; ++q) {
-        const int t = ent[q];
-        int src = m - rot[t];
-        if (src < 0) src += lanes;
-        const int e = (t / 3) * lanes + src;
-        cnt += (bw[e >> 5] >> (e & 31)) & 1u;
-      }
-      d[r * lanes + m] = cnt;
+// The peel of one block, after peel_setup, the loads of y, org and bw and
+// a barrier: initial degrees, synchronous peel rounds until the block's
+// fixpoint or `rounds`, and the median-of-3 estimate for bits still set;
+// an element whose input bit is clear gets 0. Writes vout (n) and rout
+// (n), 16 and 4 bytes a store where n % 4 == 0; returns the rounds run
+// (gathers, the last of which peeled nothing where the fixpoint came
+// first).
+//
+// Each round is a gather and a scatter. The gather peels every set bit
+// with a singleton cell on the round-start y and d, takes its value v from
+// the first such hash j, writes it to vout, and for each of its three
+// cells (pair t = 3i + j) counts one in hit and stores sign[t] * v into
+// hv. The scatter visits only the cells that took a contribution: the
+// owner of a cell of one subtracts 0.0 + hv, the owner-sum of a single
+// term (hv holds the last store where there were several, and is not read
+// then); a warp sums a cell of several in the
+// reference's (i, j) order, as the owner-sum does, from the bits peeled
+// this round (pk) and the values in vout. No float is summed by atomics.
+// A round that peels nothing changes nothing, so a block that reaches its
+// fixpoint leaves the loop: every output bit is what all `rounds` rounds
+// would give.
+__device__ __forceinline__ int peel_block(const PeelPlanes& p, float* vout,
+                                          int8_t* rout, int n, int lanes,
+                                          int rows, int rounds) {
+  const int nw = (n + 31) >> 5, ns = rows * lanes, lane = threadIdx.x & 31;
+
+  // Initial degrees: each set bit adds one to its three cells (integer
+  // atomics: the same counts in any order).
+  for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+    for (uint32_t b = p.bw[w]; b; b &= b - 1) {
+      const int e = (w << 5) + __ffs(b) - 1, i = e / lanes, l = e - i * lanes;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        atomicAdd(&p.d[pair_cell(p, 3 * i + j, l, lanes)], 1);
     }
   }
   __syncthreads();
 
-  for (int round = 0; round < rounds; ++round) {
-    // Gather on the round-start y and d: a set bit with a singleton cell
-    // is peeled, its value taken from the first such hash j.
-    for (int e = threadIdx.x; e < n_up; e += blockDim.x) {
-      bool peel = false;
-      float v = 0.0f;
-      if ((bw[e >> 5] >> (e & 31)) & 1u) {
+  int done = 0;
+  while (done < rounds) {
+    // Gather on the round-start y and d.
+    bool any = false;
+    for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+      const uint32_t b = p.bw[w];
+      uint32_t pw = 0;
+      for (uint32_t rest = b; rest; rest &= rest - 1) {
+        const int k = __ffs(rest) - 1, e = (w << 5) + k;
         const int i = e / lanes, l = e - i * lanes;
+        int c[3], jp = -1, cp = 0;
+#pragma unroll
         for (int j = 0; j < 3; ++j) {
-          const int t = 3 * i + j;
-          int col = l + rot[t];
-          if (col >= lanes) col -= lanes;
-          const int c = hrow[t] * lanes + col;
-          if (d[c] == 1) {
-            v = sign[t] * y[c];
-            peel = true;
-            break;
+          c[j] = pair_cell(p, 3 * i + j, l, lanes);
+          if (jp < 0 && p.d[c[j]] == 1) {
+            jp = j;
+            cp = c[j];
           }
         }
+        if (jp < 0) continue;
+        pw |= 1u << k;
+        const float v = 0.0f + p.sign[3 * i + jp] * p.y[cp];
+        vout[e] = v;  // each element is peeled at most once
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          atomicAdd(&p.hit[c[j]], 1u);
+          atomicExch(&p.hv[c[j]], p.sign[3 * i + j] * v);
+        }
       }
-      const unsigned pw = __ballot_sync(0xffffffffu, peel);
-      if (peel) {
-        if constexpr (kResident) val[e] = v;
-        vout[e] = 0.0f + v;  // each element is peeled at most once
-      }
-      if ((threadIdx.x & 31) == 0) {
-        pk[e >> 5] = pw;
-        bw[e >> 5] &= ~pw;
+      p.pk[w] = pw;
+      if (pw) {
+        p.bw[w] = b & ~pw;
+        any = true;
       }
     }
-    __syncthreads();
-    // Scatter: subtract this round's peeled values and degrees from every
-    // cell they hash to, each cell summed by its owner in (i, j) order.
-    for (int m = threadIdx.x; m < lanes; m += blockDim.x) {
-      for (int r = 0; r < rows; ++r) {
+    ++done;
+    if (!__syncthreads_or(any)) break;
+
+    // Scatter: subtract this round's values and degrees from the cells
+    // they hash to. Warps take 32 consecutive cells at a time.
+    for (int base = threadIdx.x & ~31; base < ns; base += blockDim.x) {
+      const int c = base + lane;
+      uint32_t h = 0;
+      if (c < ns) {
+        h = p.hit[c];
+        if (h) p.hit[c] = 0u;
+      }
+      if (h == 1u) {
+        p.y[c] -= 0.0f + p.hv[c];
+        p.d[c] -= 1;
+      }
+      for (uint32_t multi = __ballot_sync(0xffffffffu, h >= 2u); multi;
+           multi &= multi - 1) {
+        const int owner = __ffs(multi) - 1, cc = base + owner;
+        const int r = cc / lanes, m = cc - r * lanes, q1 = p.row_ptr[r + 1];
         float dy = 0.0f;
         int dd = 0;
-        for (int q = row_ptr[r]; q < row_ptr[r + 1]; ++q) {
-          const int t = ent[q];
-          int src = m - rot[t];
-          if (src < 0) src += lanes;
-          const int e = (t / 3) * lanes + src;
-          if ((pk[e >> 5] >> (e & 31)) & 1u) {
-            dy += ent_sign[q] * val[e];
+        for (int q0 = p.row_ptr[r]; q0 < q1; q0 += 32) {
+          const int q = q0 + lane;
+          float term = 0.0f;
+          bool on = false;
+          if (q < q1) {
+            const int t = p.ent[q];
+            int src = m - p.rot[t];
+            if (src < 0) src += lanes;
+            const int e = (t / 3) * lanes + src;
+            if ((p.pk[e >> 5] >> (e & 31)) & 1u) {
+              on = true;
+              term = p.sign[t] * vout[e];
+            }
+          }
+          for (uint32_t bal = __ballot_sync(0xffffffffu, on); bal; bal &= bal - 1) {
+            dy += __shfl_sync(0xffffffffu, term, __ffs(bal) - 1);
             ++dd;
           }
         }
-        y[r * lanes + m] -= dy;
-        d[r * lanes + m] -= dd;
+        if (lane == owner) {
+          p.y[cc] -= dy;
+          p.d[cc] -= dd;
+        }
       }
     }
     __syncthreads();
   }
 
-  // Bits still set take the median-of-3 estimate, sum - max - min.
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    int8_t res = 0;
-    if ((bw[e >> 5] >> (e & 31)) & 1u) {
+  // Output: bits still set take the median-of-3 estimate, sum - max -
+  // min; peeled elements keep the value their gather wrote; the rest 0.
+  auto out = [&](int e, uint32_t cur, uint32_t org) -> float {
+    if (cur) {
       const int i = e / lanes, l = e - i * lanes;
       float v[3];
-      for (int j = 0; j < 3; ++j) {
-        const int t = 3 * i + j;
-        int col = l + rot[t];
-        if (col >= lanes) col -= lanes;
-        v[j] = sign[t] * y[hrow[t] * lanes + col];
-      }
-      const float med = v[0] + v[1] + v[2] - fmaxf(fmaxf(v[0], v[1]), v[2]) -
-                        fminf(fminf(v[0], v[1]), v[2]);
-      vout[e] = 0.0f + med;
-      res = 1;
-    } else if (!orig(e)) {
-      vout[e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        v[j] = p.sign[3 * i + j] * p.y[pair_cell(p, 3 * i + j, l, lanes)];
+      return 0.0f + (v[0] + v[1] + v[2] - fmaxf(fmaxf(v[0], v[1]), v[2]) -
+                     fminf(fminf(v[0], v[1]), v[2]));
     }
-    rout[e] = res;
+    return org ? vout[e] : 0.0f;
+  };
+  if ((n & 3) == 0 && ((reinterpret_cast<uintptr_t>(vout) & 15) |
+                       (reinterpret_cast<uintptr_t>(rout) & 3)) == 0) {
+    for (int k = threadIdx.x; k < n / 4; k += blockDim.x) {
+      const int e = 4 * k, w = e >> 5, sh = e & 31;
+      const uint32_t cur = (p.bw[w] >> sh) & 0xfu, org = (p.org[w] >> sh) & 0xfu;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      // one copy of the median's code for the four lanes of the vector
+#pragma unroll 1
+      for (uint32_t rest = org; rest; rest &= rest - 1) {  // cur within org
+        const int q = __ffs(rest) - 1;
+        const float x = out(e + q, cur & (1u << q), 1u);
+        v.x = q == 0 ? x : v.x;
+        v.y = q == 1 ? x : v.y;
+        v.z = q == 2 ? x : v.z;
+        v.w = q == 3 ? x : v.w;
+      }
+      reinterpret_cast<float4*>(vout)[k] = v;
+      reinterpret_cast<char4*>(rout)[k] =
+          make_char4(cur & 1u, (cur >> 1) & 1u, (cur >> 2) & 1u, cur >> 3);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      const uint32_t bit = 1u << (e & 31);
+      const uint32_t cur = p.bw[e >> 5] & bit, org = p.org[e >> 5] & bit;
+      vout[e] = out(e, cur, org);
+      rout[e] = cur ? 1 : 0;
+    }
   }
+  return done;
 }
-
-// The input bit of element e: from packed words, or from one byte each.
-struct WordBits {
-  const uint32_t* w;
-  __device__ __forceinline__ bool operator()(int e) const {
-    return (w[e >> 5] >> (e & 31)) & 1u;
-  }
-};
-struct ByteBits {
-  const uint8_t* b;
-  __device__ __forceinline__ bool operator()(int e) const { return b[e] != 0; }
-};
 
 // The most dynamic shared memory a block may opt in to on `device`, or a
 // negative cudaError_t.
@@ -294,6 +403,22 @@ inline int set_smem(const void* fn, size_t smem) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) cudaGetLastError();  // clear it; report it below
   return (int)err;
+}
+
+// Blocks of kernel `fn` at `threads` a block and `smem` bytes of dynamic
+// shared memory that one SM of the current device holds at once, or a
+// negative cudaError_t.
+inline int occupancy(const void* fn, int threads, size_t smem) {
+  int err = set_smem(fn, smem);
+  if (err) return -err;
+  int blocks = 0;
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  return blocks;
 }
 
 }  // namespace sketch_tile

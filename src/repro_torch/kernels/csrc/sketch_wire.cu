@@ -13,8 +13,10 @@
 // Consumer, wire_peel_kernel, replaces
 // src/repro/kernels/sketch_wire.py:dequant_peel_unpack_pallas (body
 // _wire_peel_kernel). One pass over the aggregated wire payload: bitmap
-// unpack, initial degrees, exactly `rounds` synchronous peel rounds, and
-// the median-of-3 estimate for bits still set. Its dequant leg (TS = int,
+// unpack, initial degrees, synchronous peel rounds until the block's
+// fixpoint (at most `rounds`; the reference always runs `rounds`, and
+// rounds after the fixpoint change nothing), and the median-of-3
+// estimate for bits still set. Its dequant leg (TS = int,
 // body _wire_peel_dq_kernel) loads the int32 aggregate as
 // float(q) * 2^(e - M) where the f32 leg loads y.
 //
@@ -33,19 +35,26 @@
 // and an int8 residual (5Gc bytes): 170 KB. The arithmetic is ~3Gc adds
 // per pass, about 100 times below the bytes at the card's rates.
 //
-// Design. Each block keeps everything it touches more than once in shared
-// memory, so device memory sees each input byte once and each output byte
-// once: the producer stages the x block (120 KiB) and reads it three
-// times from there; the consumer keeps y, the degrees, the bits and the
-// plane of peeled values (~152 KiB) resident across all rounds. A
-// geometry whose state does not fit the card's shared memory (the
-// lossless profile, rows=60 at ratio 2: ~311 KiB for the consumer) runs
-// the same code with that state in device memory instead: x read where it
-// lies, y and the degrees in scratch planes, peeled values read back from
-// the output. Only the bits and rotations stay in shared memory. Every
-// sketch cell (r, m) is owned by one thread, which sums its contributions
-// in the reference's (i, j) order from 0.0 using a per-row list of the
-// (i, j) pairs that hash to row r. There are no float atomics, so a run
+// Design. The producer stages the x block (120 KiB) in shared memory and
+// reads it three times from there, so device memory sees each input byte
+// once. The consumer keeps what its rounds touch in shared memory, 63,580
+// B a block at G=60, c=512, rows=6, so three 512-thread blocks (48 warps)
+// share an SM and one block's loads and stores overlap another's rounds:
+// y, the degrees, this round's per-cell contribution count and single
+// value, the input, current and just-peeled bits, the rotations and the
+// hash tables. Peeled values go straight to the output plane, where the
+// rounds read them back (L2), instead of a 120 KiB shared plane. Its work
+// follows the set bits, not the block: degrees start from integer atomics
+// over the set bits, the gather walks words and their set bits, the
+// scatter visits only the cells a peel touched, and each block stops at
+// its own fixpoint (sketch_tile.cuh:peel_block). A geometry whose state
+// does not fit shared memory (the lossless profile, rows=60 at ratio 2:
+// ~487 KiB for the consumer) runs the same code with the per-cell planes
+// in device-memory scratch and x read where it lies. Every sketch cell
+// (r, m) sums its contributions in the reference's (i, j) order from 0.0
+// (the producer's owner thread over a per-row list of the (i, j) pairs
+// hashing to row r; the consumer's owner where one value arrives, a warp
+// over that list where several do). There are no float atomics, so a run
 // repeats bit for bit, and on dyadic inputs the result equals the plain
 // version's exactly. The bitmap word w, bit k is element 32w+k of the
 // block: one __ballot_sync per warp over 32 consecutive elements.
@@ -54,7 +63,8 @@
 // with the standalone encode and peel of sketch_codec.cu. The TPU kernels'
 // one-hot plan-matrix contraction, VMEM budgets and multi-block grid cells
 // are not carried over. Several blocks per CUDA block, cp.async/TMA
-// staging and a warp-specialised peel are later work.
+// staging and the producer's occupancy (one 512-thread block an SM) are
+// later work.
 //
 // Interface: plain C, loaded with ctypes. Each function returns the
 // cudaError_t of the launch (0 on success). Words are uint32 bits (the
@@ -118,39 +128,45 @@ wire_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
   if (threadIdx.x == 0) maxabs[blk] = mx;
 }
 
-// The consumer: its state as sketch_tile::peel_planes lays it out (y then
+// The consumer: its state as sketch_tile::peel_setup lays it out (y then
 // holds the dequantized floats on the int leg). TS as in the producer.
+// block_rounds, where not NULL, takes each block's rounds run.
 template <bool kResident, typename TS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPeelThreads, kPeelBlocksPerSM)
 wire_peel_kernel(const TS* __restrict__ sketch,
                  const uint32_t* __restrict__ words,
                  const int* __restrict__ ids, const int* __restrict__ row_ptr,
-                 const int* __restrict__ ent,
-                 const float* __restrict__ ent_sign,
-                 const int* __restrict__ hrow, const float* __restrict__ sign,
+                 const int* __restrict__ ent, const int* __restrict__ hrow,
+                 const float* __restrict__ sign,
                  const int* __restrict__ exps, int mbits,
                  float* __restrict__ values, int8_t* __restrict__ residual,
-                 float* y_dev, int* d_dev, int group, int lanes, int rows,
-                 int rounds, uint32_t salt) {
+                 int* __restrict__ block_rounds, float* state, int group,
+                 int lanes, int rows, int rounds, uint32_t salt) {
   extern __shared__ float smem[];
   const int n = group * lanes, nw = n / 32, ns = rows * lanes;
   const long long blk = blockIdx.x;
-  const uint32_t* wg = words + blk * nw;
-  float* vout = values + blk * n;
   const PeelPlanes p =
-      peel_planes<kResident>(smem, y_dev, d_dev, vout, blk, n, ns, nw);
-
-  block_rotations(p.rot, (uint32_t)ids[blk], group, lanes, salt);
+      peel_setup<kResident>(smem, state, blk, (uint32_t)ids[blk], row_ptr,
+                            ent, hrow, sign, group, lanes, rows, salt);
   float s = 1.0f;
   if constexpr (std::is_same<TS, int>::value) s = pow2f(exps[blk] - mbits);
-  for (int e = threadIdx.x; e < ns; e += blockDim.x)
-    p.y[e] = load_cell(sketch + blk * ns + e, s);
-  for (int w = threadIdx.x; w < nw; w += blockDim.x) p.bw[w] = wg[w];
+  load_sketch(p.y, sketch + blk * ns, ns, s);
+  const uint32_t* wg = words + blk * nw;
+  if ((nw & 3) == 0 && ((reinterpret_cast<uintptr_t>(wg) |
+                         reinterpret_cast<uintptr_t>(p.org)) & 15) == 0) {
+    for (int k = threadIdx.x; k < nw / 4; k += blockDim.x) {
+      const uint4 v = reinterpret_cast<const uint4*>(wg)[k];
+      reinterpret_cast<uint4*>(p.org)[k] = v;
+      reinterpret_cast<uint4*>(p.bw)[k] = v;
+    }
+  } else {
+    for (int w = threadIdx.x; w < nw; w += blockDim.x) p.org[w] = p.bw[w] = wg[w];
+  }
   __syncthreads();
 
-  peel_block<kResident>(p, row_ptr, ent, ent_sign, hrow, sign, vout,
-                        residual + blk * n, WordBits{wg}, n, lanes, rows,
-                        rounds);
+  const int done =
+      peel_block(p, values + blk * n, residual + blk * n, n, lanes, rows, rounds);
+  if (block_rounds != nullptr && threadIdx.x == 0) block_rounds[blk] = done;
 }
 
 template <bool kResident, typename TS>
@@ -170,18 +186,35 @@ int launch_encode(const float* x, const int* ids, const int* row_ptr,
 
 template <bool kResident, typename TS>
 int launch_peel(const TS* sketch, const uint32_t* words, const int* ids,
-                const int* row_ptr, const int* ent, const float* ent_sign,
-                const int* hrow, const float* sign, const int* exps,
-                int mbits, float* values, int8_t* residual, float* y_dev,
-                int* d_dev, int nb, int group, int lanes, int rows,
-                int rounds, uint32_t salt, size_t smem, cudaStream_t stream) {
+                const int* row_ptr, const int* ent, const int* hrow,
+                const float* sign, const int* exps, int mbits, float* values,
+                int8_t* residual, int* block_rounds, float* state, int nb,
+                int group, int lanes, int rows, int rounds, uint32_t salt,
+                size_t smem, cudaStream_t stream) {
   int err = set_smem((const void*)wire_peel_kernel<kResident, TS>, smem);
   if (err) return err;
   if (nb > 0)
-    wire_peel_kernel<kResident, TS><<<nb, kThreads, smem, stream>>>(
-        sketch, words, ids, row_ptr, ent, ent_sign, hrow, sign, exps, mbits,
-        values, residual, y_dev, d_dev, group, lanes, rows, rounds, salt);
+    wire_peel_kernel<kResident, TS><<<nb, kPeelThreads, smem, stream>>>(
+        sketch, words, ids, row_ptr, ent, hrow, sign, exps, mbits, values,
+        residual, block_rounds, state, group, lanes, rows, rounds, salt);
   return (int)cudaGetLastError();
+}
+
+// Each kernel of this file with its block size: 0/1 the producer's f32 and
+// quantize legs, 2/3 the consumer's f32 and dequant legs.
+const void* kernel_of(int kind, int resident, int* threads) {
+  *threads = kind < 2 ? kThreads : kPeelThreads;
+  switch (kind * 2 + (resident ? 1 : 0)) {
+    case 0: return (const void*)wire_encode_kernel<false, float>;
+    case 1: return (const void*)wire_encode_kernel<true, float>;
+    case 2: return (const void*)wire_encode_kernel<false, int>;
+    case 3: return (const void*)wire_encode_kernel<true, int>;
+    case 4: return (const void*)wire_peel_kernel<false, float>;
+    case 5: return (const void*)wire_peel_kernel<true, float>;
+    case 6: return (const void*)wire_peel_kernel<false, int>;
+    case 7: return (const void*)wire_peel_kernel<true, int>;
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -193,13 +226,25 @@ extern "C" {
 int sketch_wire_max_smem(int device) { return max_smem_optin(device); }
 
 // Dynamic shared memory of each kernel; `resident` keeps the x block (the
-// producer) or y, d and the peeled values (the consumer) there too.
+// producer) or y, the degrees and the contributions (the consumer) there too.
 size_t sketch_wire_encode_smem(int group, int lanes, int resident) {
   return encode_smem(group, lanes, resident);
 }
 
 size_t sketch_wire_peel_smem(int group, int lanes, int rows, int resident) {
   return peel_smem(group, lanes, rows, resident);
+}
+
+// Blocks of kernel `kind` (see kernel_of) that one SM of the current
+// device holds at once at this geometry, or a negative cudaError_t.
+int sketch_wire_occupancy(int kind, int group, int lanes, int rows,
+                          int resident) {
+  int threads = 0;
+  const void* fn = kernel_of(kind, resident, &threads);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  const size_t smem = kind < 2 ? encode_smem(group, lanes, resident)
+                               : peel_smem(group, lanes, rows, resident);
+  return occupancy(fn, threads, smem);
 }
 
 // exps == NULL: the f32 wire, `sketch` is float. Otherwise the quantize
@@ -232,17 +277,17 @@ int sketch_wire_encode(const float* x, const int* ids, const int* row_ptr,
                                     rows, salt, smem, st);
 }
 
-// y_dev (nb, rows, lanes) f32 and d_dev (nb, rows, lanes) int32 are
-// scratch for resident == 0 and unused otherwise. exps == NULL: `sketch`
-// is the f32 aggregate; otherwise the int32 fxp32 aggregate, dequantized
-// with (nb,) int32 exponents and mantissa bits `mbits`.
+// state (nb, 4, rows, lanes) f32 is scratch for resident == 0 and unused
+// otherwise; block_rounds is NULL or (nb,) int32, each block's rounds run.
+// exps == NULL: `sketch` is the f32 aggregate; otherwise the int32 fxp32
+// aggregate, dequantized with (nb,) int32 exponents and mantissa bits
+// `mbits`.
 int sketch_wire_peel(const void* sketch, const int* words, const int* ids,
-                     const int* row_ptr, const int* ent,
-                     const float* ent_sign, const int* hrow,
+                     const int* row_ptr, const int* ent, const int* hrow,
                      const float* sign, const int* exps, float* values,
-                     signed char* residual, float* y_dev, int* d_dev, int nb,
-                     int group, int lanes, int rows, int rounds, int mbits,
-                     int resident, unsigned salt, void* stream) {
+                     signed char* residual, int* block_rounds, float* state,
+                     int nb, int group, int lanes, int rows, int rounds,
+                     int mbits, int resident, unsigned salt, void* stream) {
   const size_t smem = sketch_wire_peel_smem(group, lanes, rows, resident);
   const uint32_t* w = reinterpret_cast<const uint32_t*>(words);
   int8_t* res = reinterpret_cast<int8_t*>(residual);
@@ -250,25 +295,21 @@ int sketch_wire_peel(const void* sketch, const int* words, const int* ids,
   if (exps == nullptr) {
     const float* sk = static_cast<const float*>(sketch);
     return resident
-               ? launch_peel<true>(sk, w, ids, row_ptr, ent, ent_sign, hrow,
-                                   sign, exps, mbits, values, res, y_dev,
-                                   d_dev, nb, group, lanes, rows, rounds,
-                                   salt, smem, st)
-               : launch_peel<false>(sk, w, ids, row_ptr, ent, ent_sign, hrow,
-                                    sign, exps, mbits, values, res, y_dev,
-                                    d_dev, nb, group, lanes, rows, rounds,
-                                    salt, smem, st);
+               ? launch_peel<true>(sk, w, ids, row_ptr, ent, hrow, sign, exps,
+                                   mbits, values, res, block_rounds, state, nb,
+                                   group, lanes, rows, rounds, salt, smem, st)
+               : launch_peel<false>(sk, w, ids, row_ptr, ent, hrow, sign, exps,
+                                    mbits, values, res, block_rounds, state, nb,
+                                    group, lanes, rows, rounds, salt, smem, st);
   }
   const int* sk = static_cast<const int*>(sketch);
   return resident
-             ? launch_peel<true>(sk, w, ids, row_ptr, ent, ent_sign, hrow,
-                                 sign, exps, mbits, values, res, y_dev, d_dev,
-                                 nb, group, lanes, rows, rounds, salt, smem,
-                                 st)
-             : launch_peel<false>(sk, w, ids, row_ptr, ent, ent_sign, hrow,
-                                  sign, exps, mbits, values, res, y_dev,
-                                  d_dev, nb, group, lanes, rows, rounds, salt,
-                                  smem, st);
+             ? launch_peel<true>(sk, w, ids, row_ptr, ent, hrow, sign, exps,
+                                 mbits, values, res, block_rounds, state, nb,
+                                 group, lanes, rows, rounds, salt, smem, st)
+             : launch_peel<false>(sk, w, ids, row_ptr, ent, hrow, sign, exps,
+                                  mbits, values, res, block_rounds, state, nb,
+                                  group, lanes, rows, rounds, salt, smem, st);
 }
 
 }  // extern "C"

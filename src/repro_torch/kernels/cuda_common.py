@@ -1,7 +1,7 @@
 """What every CUDA kernel wrapper of this package shares: the launch
 counters, the hash tables the kernels read, the input checks, the choice
-between a kernel's shared-memory and device-memory variants, and the
-stream.
+between a kernel's shared-memory and device-memory variants, the peel
+kernels' scratch, the occupancy query, and the stream.
 
 The hash tables reach the kernels as small device arrays, cached per
 config and device: for every sketch row ``r`` the list of ``(i, j)``
@@ -82,6 +82,38 @@ def resident(cfg: CompressionConfig, smem_of, max_smem,
             f"needs {smem_of(0)} B of shared memory per block, the card "
             f"allows {limit}")
     return smem_of(1) <= limit
+
+
+def peel_scratch(cfg: CompressionConfig, nb: int, res: bool,
+                 device: torch.device) -> torch.Tensor:
+    """The device-memory scratch a peel kernel keeps its per-cell state
+    in (y, the degrees and the round's contributions: 4 planes of (rows,
+    lanes) a block) where it does not fit shared memory (``res`` False);
+    empty otherwise."""
+    return torch.empty((0 if res else nb, 4, cfg.rows, cfg.lanes),
+                       dtype=torch.float32, device=device)
+
+
+def rounds_ptr(block_rounds, nb: int, device: torch.device):
+    """The pointer a peel kernel writes each block's rounds to: NULL
+    (None) without ``block_rounds``, else its (nb,) int32 data."""
+    if block_rounds is None:
+        return None
+    check(block_rounds, "block_rounds", torch.int32, (nb,), device)
+    return block_rounds.data_ptr()
+
+
+def occupancy(query, kind: int, cfg: CompressionConfig, smem_of, max_smem,
+              device: torch.device):
+    """(blocks of kernel ``kind`` one SM of ``device`` holds at once, its
+    dynamic shared memory bytes) at ``cfg``'s geometry, in the variant the
+    wrappers launch there; ``query`` is the library's occupancy export."""
+    res = int(resident(cfg, smem_of, max_smem, device))
+    with torch.cuda.device(device):
+        blocks = query(kind, cfg.group, cfg.lanes, cfg.rows, res)
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {-blocks}")
+    return blocks, int(smem_of(res))
 
 
 def stream(device: torch.device):

@@ -29,13 +29,14 @@ import torch
 from repro_torch.core.config import CompressionConfig
 from . import ref as ref_ops
 from .cuda_common import LAUNCHES
-from .sketch_encode import sketch_encode_cuda
-from .sketch_peel import sketch_peel_cuda
-from .sketch_wire import dequant_peel_unpack_cuda, encode_pack_quantize_cuda
+from .sketch_encode import encode_occupancy, sketch_encode_cuda
+from .sketch_peel import peel_occupancy, sketch_peel_cuda
+from .sketch_wire import (dequant_peel_unpack_cuda, encode_pack_quantize_cuda,
+                          wire_occupancy)
 
 __all__ = ["LAUNCHES", "sketch_encode", "sketch_peel", "encode_pack_quantize",
            "dequant_peel_unpack", "fused_wire_supported", "wire_codec_passes",
-           "sketch_estimate"]
+           "sketch_estimate", "kernel_occupancy"]
 
 
 def _use_kernel(cfg: CompressionConfig, t: torch.Tensor) -> bool:
@@ -144,3 +145,19 @@ def sketch_estimate(sketch: torch.Tensor, block_ids: torch.Tensor,
     training path, and the peel kernel computes the same median in-kernel
     for its residue."""
     return ref_ops.sketch_estimate_ref(sketch, block_ids, cfg)
+
+
+def kernel_occupancy(name: str, cfg: CompressionConfig,
+                     device: str | torch.device = "cuda"):
+    """(blocks one SM holds at once, dynamic shared memory bytes) of the
+    CUDA kernel behind launch counter ``name`` at ``cfg``'s geometry on
+    ``device``: the variant (state in shared or device memory) that the
+    wrappers launch there."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if name == "sketch_encode":
+        return encode_occupancy(cfg, device)
+    if name == "sketch_peel":
+        return peel_occupancy(cfg, device)
+    return wire_occupancy(name, cfg, device)

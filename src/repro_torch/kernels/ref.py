@@ -30,8 +30,8 @@ def sketch_peel_ref(sketch: torch.Tensor, bits: torch.Tensor,
                     block_ids: torch.Tensor, cfg: CompressionConfig):
     """(nb, rows, c) sketch + (nb, G, c) bits (non-zero = set) ->
     (values (nb, G, c) f32, residual (nb, G, c) int8). The plain peel
-    stops at its fixpoint, the kernel always runs ``cfg.rounds`` rounds:
-    rounds after the fixpoint peel nothing."""
+    stops at the whole batch's fixpoint, the kernel at each block's:
+    rounds after a fixpoint peel nothing."""
     r = peel_blocks(sketch, bits != 0, block_ids, cfg)
     return r.values, r.residual.to(torch.int8)
 

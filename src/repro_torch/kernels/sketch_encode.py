@@ -23,7 +23,8 @@ import torch
 from repro_torch.core.config import CompressionConfig
 from repro_torch.core import hashing
 from . import build
-from .cuda_common import I, LAUNCHES, P, check, resident, stream, tables
+from .cuda_common import (I, LAUNCHES, P, check, occupancy, resident, stream,
+                          tables)
 
 VALUE_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 
@@ -37,7 +38,18 @@ def _lib():
     lib.sketch_codec_encode_smem.restype = ctypes.c_size_t
     lib.sketch_codec_max_smem.argtypes = [I]
     lib.sketch_codec_max_smem.restype = I
+    lib.sketch_codec_occupancy.argtypes = [I] * 5
+    lib.sketch_codec_occupancy.restype = I
     return lib
+
+
+def encode_occupancy(cfg: CompressionConfig, device: torch.device):
+    """(blocks one SM holds at once, dynamic shared memory bytes) of the
+    encode kernel at ``cfg``'s geometry."""
+    lib, G, c = _lib(), cfg.group, cfg.lanes
+    return occupancy(lib.sketch_codec_occupancy, 0, cfg,
+                     lambda r: lib.sketch_codec_encode_smem(G, c, r),
+                     lib.sketch_codec_max_smem, device)
 
 
 def sketch_encode_cuda(xb: torch.Tensor, block_ids: torch.Tensor,

@@ -26,7 +26,8 @@ import torch
 from repro_torch.core.config import CompressionConfig
 from repro_torch.core import hashing
 from . import build
-from .cuda_common import I, LAUNCHES, P, check, resident, stream, tables
+from .cuda_common import (I, LAUNCHES, P, check, occupancy, peel_scratch,
+                          resident, rounds_ptr, stream, tables)
 
 BIT_DTYPES = (torch.bool, torch.uint8, torch.int8)
 
@@ -34,20 +35,33 @@ BIT_DTYPES = (torch.bool, torch.uint8, torch.int8)
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("sketch_codec")
-    lib.sketch_codec_peel.argtypes = [P] * 12 + [I] * 6 + [ctypes.c_uint, P]
+    lib.sketch_codec_peel.argtypes = [P] * 11 + [I] * 6 + [ctypes.c_uint, P]
     lib.sketch_codec_peel.restype = I
     lib.sketch_codec_peel_smem.argtypes = [I, I, I, I]
     lib.sketch_codec_peel_smem.restype = ctypes.c_size_t
     lib.sketch_codec_max_smem.argtypes = [I]
     lib.sketch_codec_max_smem.restype = I
+    lib.sketch_codec_occupancy.argtypes = [I] * 5
+    lib.sketch_codec_occupancy.restype = I
     return lib
 
 
+def peel_occupancy(cfg: CompressionConfig, device: torch.device):
+    """(blocks one SM holds at once, dynamic shared memory bytes) of the
+    peel kernel at ``cfg``'s geometry."""
+    lib, G, c, R = _lib(), cfg.group, cfg.lanes, cfg.rows
+    return occupancy(lib.sketch_codec_occupancy, 1, cfg,
+                     lambda r: lib.sketch_codec_peel_smem(G, c, R, r),
+                     lib.sketch_codec_max_smem, device)
+
+
 def sketch_peel_cuda(sketch: torch.Tensor, bits: torch.Tensor,
-                     block_ids: torch.Tensor, cfg: CompressionConfig):
+                     block_ids: torch.Tensor, cfg: CompressionConfig,
+                     block_rounds: torch.Tensor | None = None):
     """(nb, rows, c) f32 sketch + (nb, G, c) one-byte bits + (nb,) int32
     ids on a CUDA device -> (values (nb, G, c) f32, residual (nb, G, c)
-    int8)."""
+    int8). ``block_rounds``, a (nb,) int32 tensor where given, takes each
+    block's rounds run (the training path passes none)."""
     dev = sketch.device
     nb, G, c, R = sketch.shape[0], cfg.group, cfg.lanes, cfg.rows
     check(sketch, "sketch", torch.float32, (nb, R, c), dev)
@@ -56,17 +70,15 @@ def sketch_peel_cuda(sketch: torch.Tensor, bits: torch.Tensor,
     lib = _lib()
     res = resident(cfg, lambda r: lib.sketch_codec_peel_smem(G, c, R, r),
                    lib.sketch_codec_max_smem, dev)
-    row_ptr, ent, ent_sign, hrow, sign = tables(cfg, dev)
+    row_ptr, ent, _, hrow, sign = tables(cfg, dev)
     values = torch.empty((nb, G, c), dtype=torch.float32, device=dev)
     residual = torch.empty((nb, G, c), dtype=torch.int8, device=dev)
-    # y and the degrees, where they do not fit shared memory
-    y_dev = torch.empty((0 if res else nb, R, c), dtype=torch.float32, device=dev)
-    d_dev = torch.empty((0 if res else nb, R, c), dtype=torch.int32, device=dev)
+    state = peel_scratch(cfg, nb, res, dev)
     err = lib.sketch_codec_peel(
         sketch.data_ptr(), bits.data_ptr(), block_ids.data_ptr(),
-        row_ptr.data_ptr(), ent.data_ptr(), ent_sign.data_ptr(),
-        hrow.data_ptr(), sign.data_ptr(), values.data_ptr(),
-        residual.data_ptr(), y_dev.data_ptr(), d_dev.data_ptr(), nb, G, c, R,
+        row_ptr.data_ptr(), ent.data_ptr(), hrow.data_ptr(), sign.data_ptr(),
+        values.data_ptr(), residual.data_ptr(),
+        rounds_ptr(block_rounds, nb, dev), state.data_ptr(), nb, G, c, R,
         cfg.rounds, int(res), hashing.rotation_salt(cfg.seed), stream(dev))
     if err:
         raise RuntimeError(f"sketch_codec_peel launch failed: cudaError {err}")

@@ -13,7 +13,10 @@ adds one to its leg's count in :data:`LAUNCHES`.
 A geometry whose per-block state fits the card's shared memory keeps it
 there (every config with ``rows * lanes`` and ``block_elems`` near the
 defaults); a larger one, such as the lossless profile ``ratio=2.0,
-rows=60``, runs the same kernels with that state in device memory.
+rows=60``, runs the same kernels with that state in device memory. The
+consumer runs each block's peel rounds until that block's fixpoint, at
+most ``cfg.rounds``: rounds after it peel nothing, so the result is that
+of all ``cfg.rounds`` rounds.
 
 The hash tables, input checks and launch counters are
 :mod:`repro_torch.kernels.cuda_common`'s.
@@ -29,7 +32,12 @@ import torch
 from repro_torch.core.config import CompressionConfig
 from repro_torch.core import hashing
 from . import build
-from .cuda_common import I, LAUNCHES, P, check, resident, stream, tables
+from .cuda_common import (I, LAUNCHES, P, check, occupancy, peel_scratch,
+                          resident, rounds_ptr, stream, tables)
+
+# the occupancy export's kernel numbers, by launch counter
+_KINDS = {"encode_pack_quantize": 0, "encode_pack_quantize_q": 1,
+          "dequant_peel_unpack": 2, "dequant_peel_unpack_dq": 3}
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,7 +45,7 @@ def _lib():
     lib = build.load("sketch_wire")
     lib.sketch_wire_encode.argtypes = [P] * 9 + [I] * 6 + [ctypes.c_uint, P]
     lib.sketch_wire_encode.restype = I
-    lib.sketch_wire_peel.argtypes = [P] * 13 + [I] * 7 + [ctypes.c_uint, P]
+    lib.sketch_wire_peel.argtypes = [P] * 12 + [I] * 7 + [ctypes.c_uint, P]
     lib.sketch_wire_peel.restype = I
     lib.sketch_wire_encode_smem.argtypes = [I, I, I]
     lib.sketch_wire_encode_smem.restype = ctypes.c_size_t
@@ -45,6 +53,8 @@ def _lib():
     lib.sketch_wire_peel_smem.restype = ctypes.c_size_t
     lib.sketch_wire_max_smem.argtypes = [I]
     lib.sketch_wire_max_smem.restype = I
+    lib.sketch_wire_occupancy.argtypes = [I] * 5
+    lib.sketch_wire_occupancy.restype = I
     return lib
 
 
@@ -52,6 +62,19 @@ def _resident(cfg: CompressionConfig, smem_of, device: torch.device) -> bool:
     if cfg.block_elems % 32:
         raise ValueError(f"block_elems={cfg.block_elems} is not a multiple of 32")
     return resident(cfg, smem_of, _lib().sketch_wire_max_smem, device)
+
+
+def wire_occupancy(name: str, cfg: CompressionConfig, device: torch.device):
+    """(blocks one SM holds at once, dynamic shared memory bytes) of the
+    kernel behind launch counter ``name`` at ``cfg``'s geometry."""
+    lib, G, c, R = _lib(), cfg.group, cfg.lanes, cfg.rows
+    kind = _KINDS[name]
+    if kind < 2:
+        smem_of = lambda r: lib.sketch_wire_encode_smem(G, c, r)
+    else:
+        smem_of = lambda r: lib.sketch_wire_peel_smem(G, c, R, r)
+    return occupancy(lib.sketch_wire_occupancy, kind, cfg, smem_of,
+                     lib.sketch_wire_max_smem, device)
 
 
 def _quant_leg(exponents, mantissa_bits, nb: int, device):
@@ -104,12 +127,15 @@ def encode_pack_quantize_cuda(xb: torch.Tensor, block_ids: torch.Tensor,
 def dequant_peel_unpack_cuda(sketch: torch.Tensor, words: torch.Tensor,
                              block_ids: torch.Tensor, cfg: CompressionConfig,
                              exponents: torch.Tensor | None = None,
-                             mantissa_bits: int | None = None):
+                             mantissa_bits: int | None = None,
+                             block_rounds: torch.Tensor | None = None):
     """(nb, rows, c) sketch + (nb, G*c/32) int32 words + (nb,) int32 ids
     on a CUDA device -> (values (nb, G, c) f32, residual (nb, G, c)
     int8). The sketch is the f32 aggregate, or with ``exponents`` ((nb,)
     int32) and ``mantissa_bits`` the fxp32 int32 aggregate, dequantized
-    where the kernel loads it."""
+    where the kernel loads it. ``block_rounds``, a (nb,) int32 tensor
+    where given, takes each block's rounds run (the training path passes
+    none)."""
     dev = sketch.device
     nb, G, c, R = sketch.shape[0], cfg.group, cfg.lanes, cfg.rows
     exps, mbits = _quant_leg(exponents, mantissa_bits, nb, dev)
@@ -119,17 +145,15 @@ def dequant_peel_unpack_cuda(sketch: torch.Tensor, words: torch.Tensor,
     check(block_ids, "block_ids", torch.int32, (nb,), dev)
     lib = _lib()
     res = _resident(cfg, lambda r: lib.sketch_wire_peel_smem(G, c, R, r), dev)
-    row_ptr, ent, ent_sign, hrow, sign = tables(cfg, dev)
+    row_ptr, ent, _, hrow, sign = tables(cfg, dev)
     values = torch.empty((nb, G, c), dtype=torch.float32, device=dev)
     residual = torch.empty((nb, G, c), dtype=torch.int8, device=dev)
-    # y and the degrees, where they do not fit shared memory
-    y_dev = torch.empty((0 if res else nb, R, c), dtype=torch.float32, device=dev)
-    d_dev = torch.empty((0 if res else nb, R, c), dtype=torch.int32, device=dev)
+    state = peel_scratch(cfg, nb, res, dev)
     err = lib.sketch_wire_peel(
         sketch.data_ptr(), words.data_ptr(), block_ids.data_ptr(),
-        row_ptr.data_ptr(), ent.data_ptr(), ent_sign.data_ptr(),
-        hrow.data_ptr(), sign.data_ptr(), exps, values.data_ptr(),
-        residual.data_ptr(), y_dev.data_ptr(), d_dev.data_ptr(), nb, G, c, R,
+        row_ptr.data_ptr(), ent.data_ptr(), hrow.data_ptr(), sign.data_ptr(),
+        exps, values.data_ptr(), residual.data_ptr(),
+        rounds_ptr(block_rounds, nb, dev), state.data_ptr(), nb, G, c, R,
         cfg.rounds, mbits, int(res), hashing.rotation_salt(cfg.seed),
         stream(dev))
     if err:

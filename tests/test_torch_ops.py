@@ -570,3 +570,131 @@ def test_standalone_cuda_dispatch_rules(cuda_dev):
     bits = torch.zeros((1, huge.group, huge.lanes), dtype=torch.bool, device=cuda_dev)
     with pytest.raises(ValueError, match="shared memory"):
         ops.sketch_peel(sk, bits, ids, huge)
+
+
+# ----------------------------------------------------------------------
+# the peel kernels stop each block at its own fixpoint
+# ----------------------------------------------------------------------
+
+# per-block densities of one launch whose blocks reach their fixpoints at
+# different rounds: empty, sparse (lossless), near the peeling threshold,
+# overfull, every bit set
+MIX = (0.0, 0.01, 0.1, 0.2, 0.4, 1.0)
+
+
+def mixed_blocks(cfg, seed, kind="dyadic", densities=MIX):
+    r = np.random.default_rng(seed)
+    shape = (len(densities), cfg.group, cfg.lanes)
+    if kind == "dyadic":
+        vals = r.choice([-1.0, 1.0], size=shape) * np.exp2(r.integers(-2, 3, size=shape))
+    else:
+        vals = r.normal(size=shape)
+    mask = r.random(shape) < np.asarray(densities)[:, None, None]
+    return torch.from_numpy(np.where(mask, vals, 0.0).astype(np.float32))
+
+
+def _plain_rounds(sk, bits, ids, cfg):
+    """Each block's rounds to its fixpoint (at most cfg.rounds), peeled
+    alone by the plain version."""
+    from repro_torch.core.peeling import peel_blocks
+    return [peel_blocks(sk[k:k + 1], bits[k:k + 1], ids[k:k + 1], cfg).rounds_used
+            for k in range(sk.shape[0])]
+
+
+def _check_peels(cfg, xb, ids, exact):
+    """The f32 consumer, the dequant consumer and the standalone peel on
+    one launch of ``xb``'s blocks: each against its plain version, each
+    block's rounds against the plain peel of that block alone, the
+    dequant leg against ``decode`` + the f32 kernel and the standalone
+    peel against the fused consumer bit for bit, and a second run of each
+    bit-identical. Returns the blocks' rounds."""
+    from repro_torch.kernels.sketch_peel import sketch_peel_cuda
+    from repro_torch.kernels.sketch_wire import dequant_peel_unpack_cuda
+    nb, dev = xb.shape[0], xb.device
+
+    def same(got, want):
+        if exact:
+            assert torch.equal(got[0], want[0])
+        else:
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        assert torch.equal(got[1], want[1])
+
+    def counter():
+        return torch.full((nb,), -1, dtype=torch.int32, device=dev)
+
+    sk, w, mx = ops.encode_pack_quantize(xb, ids, cfg)
+    bits = xb != 0
+    want_rounds = _plain_rounds(sk, bits, ids, cfg)
+    rounds = counter()
+    got = dequant_peel_unpack_cuda(sk, w, ids, cfg, block_rounds=rounds)
+    same(got, ref.dequant_peel_unpack_ref(sk, w, ids, cfg))
+    assert rounds.tolist() == want_rounds
+    again = ops.dequant_peel_unpack(sk, w, ids, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+    std_rounds = counter()
+    std = sketch_peel_cuda(sk, bits, ids, cfg, block_rounds=std_rounds)
+    same(std, ref.sketch_peel_ref(sk, bits, ids, cfg))
+    assert all(torch.equal(a, b) for a, b in zip(std, got))
+    assert torch.equal(std_rounds, rounds)
+
+    wire = FixedPointWire(2)
+    e, M = wire.exponents_from_maxabs(mx), wire.mantissa_bits
+    q = ops.encode_pack_quantize(xb, ids, cfg, exponents=e, mantissa_bits=M)[0]
+    dq_rounds = counter()
+    dq = dequant_peel_unpack_cuda(q, w, ids, cfg, exponents=e, mantissa_bits=M,
+                                  block_rounds=dq_rounds)
+    same(dq, ref.dequant_peel_unpack_ref(q, w, ids, cfg, exponents=e,
+                                         mantissa_bits=M))
+    y = wire.decode(q.reshape(nb, -1), e).reshape(q.shape)
+    assert all(torch.equal(a, b) for a, b in
+               zip(dq, ops.dequant_peel_unpack(y, w, ids, cfg)))
+    assert dq_rounds.tolist() == _plain_rounds(y, bits, ids, cfg)
+    return want_rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CFGS, ids=IDS)
+@pytest.mark.parametrize("kind", ["dyadic", "gauss"])
+def test_peel_kernels_stop_each_block_at_its_fixpoint(cuda_dev, cfg, kind):
+    """One launch whose blocks reach their fixpoints at different rounds,
+    in every geometry (the last two keep the peel state in device memory):
+    dyadic bit for bit, Gaussian to rtol=1e-5, atol=1e-6."""
+    xb = mixed_blocks(cfg, 3, kind).to(cuda_dev)
+    rounds = _check_peels(cfg, xb, ids_for(len(MIX), 7000, cuda_dev),
+                          kind == "dyadic")
+    assert len(set(rounds)) > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [CFGS[3], CFGS[4]], ids=[IDS[3], IDS[4]])
+@pytest.mark.parametrize("rounds", [0, 1])
+def test_peel_kernels_take_short_caps(cuda_dev, cfg, rounds):
+    """``rounds=0`` (the median estimate for every set bit) and
+    ``rounds=1``: every block runs exactly that many rounds; each wrapper
+    call counts one launch of its own kernel."""
+    cfg = dataclasses.replace(cfg, rounds=rounds)
+    xb = mixed_blocks(cfg, 4).to(cuda_dev)
+    before = dict(ops.LAUNCHES)
+    got = _check_peels(cfg, xb, ids_for(len(MIX), 37, cuda_dev), True)
+    assert got == [rounds] * len(MIX)
+    after = dict(ops.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "encode_pack_quantize": 1, "dequant_peel_unpack": 3,
+        "encode_pack_quantize_q": 1, "dequant_peel_unpack_dq": 1,
+        "sketch_encode": 0, "sketch_peel": 1}
+
+
+@pytest.mark.cuda
+def test_peel_kernels_report_their_occupancy(cuda_dev):
+    """At the main path's geometry three 512-thread peel blocks (48 warps)
+    share an SM; the geometries whose state lives in device memory keep
+    only the bits, rotations and tables in shared memory."""
+    main, lossless = CFGS[3], CFGS[4]
+    for name in ("dequant_peel_unpack", "dequant_peel_unpack_dq", "sketch_peel"):
+        blocks, smem = ops.kernel_occupancy(name, main, cuda_dev)
+        assert blocks >= 3 and smem == 63_580
+        blocks, smem = ops.kernel_occupancy(name, lossless, cuda_dev)
+        assert blocks >= 3 and smem < 4 * lossless.rows * lossless.lanes
+    for name in ("encode_pack_quantize", "sketch_encode"):
+        assert ops.kernel_occupancy(name, main, cuda_dev)[0] >= 1
