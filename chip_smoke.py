@@ -28,7 +28,11 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    path's shapes: one worker's whole 14,525-block stream into the
    producer, the sum/OR of two workers' payloads at 4% each into the
    consumer (Gaussian to rtol=1e-5, dyadic bit for bit); the sha256 of the
-   consumer's values and residual bytes on both inputs; a histogram of
+   producer's sketch, words and maxabs bytes (Gaussian, and each dyadic
+   worker) and of the consumer's values and residual bytes on both
+   inputs; the producer's per-block phase stamps (clock64 cycles waiting
+   on loads, summing, in all: medians) and its time at 0.1%, 4% and 40%
+   density; a histogram of
    the consumer's per-block rounds to the fixpoint (its counter, which
    the training path leaves NULL), whose largest entry must be the plain
    peel's rounds; the consumer's time with the rounds capped at 0, 1, 2
@@ -60,8 +64,10 @@ The in-network slice (``aggregator="compressed_innet"``, fxp32 wire):
     per-bucket exponents agreed over both, each quantized through the
     quantize leg (bit for bit with its plain version), the windowed tree
     (equal to the flat sum/OR), the dequant consumer on the aggregate
-    (bit for bit), its output digest and per-block rounds histogram as in
-    phase 6; the kernel and plain times of both legs.
+    (bit for bit), the digests of each worker's quantize-leg output
+    (int32 sketch, words, maxabs) and of the consumer's output, its
+    per-block rounds histogram as in phase 6; the quantize leg's phase
+    stamps; the kernel and plain times of both legs.
 11. switch — the same two int32 sketches and word streams through the
     numpy ``SwitchModel`` (ports W, 8 slots): its sums equal the on-card
     tree bit for bit and its window report equals
@@ -97,20 +103,23 @@ kernels):
     dyadic 0.1% stream, peel on the aggregate of two with Bloom
     candidates, bit for bit); their kernel and plain times; and the
     standalone peel on the bitmap bits of two 4% payloads beside the fused
-    consumer, equal bit for bit. The sha256 of the peel's values and
-    residual bytes on all three inputs, its per-block rounds histogram,
-    its time at caps 0, 1 and ``cfg.rounds`` and the per-round counts,
-    as in phase 6.
+    consumer, equal bit for bit. The sha256 of the encode's sketch
+    (Gaussian, and each dyadic worker) and of the peel's values and
+    residual bytes on all three inputs, the peel's per-block rounds
+    histogram, its time at caps 0, 1 and ``cfg.rounds`` and the
+    per-round counts, as in phase 6; the encode's phase stamps and its
+    time at 0.1%, 4% and 40% density.
 17. bloom_lossless — 1%-dense dyadic gradients per worker in the
     lossless profile (rows 60, ratio 2) with the Bloom index: the
     aggregate equals the dense mean bit for bit at every coordinate, the
     filter's false positives peeling to exactly 0.
 
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
-its resident blocks an SM and shared-memory bytes from the occupancy
-query, and for the three peel kernels the rounds histogram; a peel
-kernel below 48 resident warps an SM fails the run), the nvidia-smi
-line, and last ``{"ok": true, "device": {...}}``. There is no
+its resident blocks an SM, threads a block and shared-memory bytes from
+the occupancy query, for the three peel kernels the rounds histogram,
+for the three encode kernels the phase stamps; a peel kernel below 48
+resident warps an SM, or an encode kernel below 32, fails the run), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
 CPU fallback: without a CUDA device the script exits non-zero before
 printing a result.
 """
@@ -165,14 +174,43 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def digest(values, residual, chunk=1024):
-    """sha256 of a peel's output bytes: the f32 values, then the int8
-    residual, each in block order (copied to the host a chunk at a time)."""
+def digest(*tensors, chunk=1024):
+    """sha256 of a kernel's output bytes: each tensor in turn (a peel's
+    f32 values then its int8 residual; a producer's sketch, words and
+    maxabs), each in block order (copied to the host a chunk at a time)."""
     h = hashlib.sha256()
-    for t in (values, residual):
+    for t in tensors:
         for i in range(0, t.shape[0], chunk):
             h.update(t[i:i + chunk].contiguous().cpu().numpy())
     return h.hexdigest()
+
+
+def phase_medians(run, nb, dev):
+    """Median over the blocks of one run of an encode kernel's per-block
+    ``clock64`` stamps (``run(phase_cycles)`` launches it): cycles waiting
+    on the block's loads, summing, and in all."""
+    import torch
+    pc = torch.full((nb, 3), -1, dtype=torch.int64, device=dev)
+    run(pc)
+    if int(pc.min()) < 0:
+        raise AssertionError("a block wrote no phase stamps")
+    med = pc.median(dim=0).values.tolist()
+    return dict(zip(("load_wait", "sum", "total"), med))
+
+
+DENSITIES = (0.001, 0.04, 0.4)
+
+
+def ms_by_density(run, cfg, nb, gen):
+    """An encode kernel's time (``run(xb)`` launches it) on Gaussian
+    streams of ``nb`` blocks at each of ``DENSITIES`` (the kernels sum
+    every term, so the time should not move with the density)."""
+    out = {}
+    for frac in DENSITIES:
+        xb = make_blocks(cfg, nb, frac, "gauss", gen)
+        out[str(frac)] = cuda_ms(lambda: run(xb), 10)
+        del xb
+    return out
 
 
 def make_blocks(cfg, nb, frac, kind, gen):
@@ -514,14 +552,19 @@ def round_stats(bits, ids, cfg):
 
 
 def occupancy_fields(name, cfg, dev, hist=None):
-    """A kernel row's resident blocks an SM and shared-memory bytes (the
-    occupancy query at the geometry it ran), and, for a peel kernel, its
-    per-block rounds histogram; a peel kernel must hold 48 warps an SM."""
+    """A kernel row's resident blocks an SM, threads a block and
+    shared-memory bytes (the occupancy query at the geometry it ran), and,
+    for a peel kernel, its per-block rounds histogram. A peel kernel must
+    hold 48 warps an SM, a producer or encode kernel 32."""
     from repro_torch.kernels import ops
     blocks, smem = ops.kernel_occupancy(name, cfg, dev)
-    if hist is not None and blocks * 512 // 32 < 48:
-        raise AssertionError(f"{name}: {blocks} blocks of 512 threads an SM")
-    return {"blocks_per_sm": blocks, "smem_bytes": smem,
+    threads = ops.kernel_threads(name, cfg)
+    warps, need = blocks * threads // 32, 48 if hist is not None else 32
+    if warps < need:
+        raise AssertionError(f"{name}: {blocks} blocks of {threads} threads an "
+                             f"SM, {warps} warps < {need}")
+    return {"blocks_per_sm": blocks, "threads_per_block": threads,
+            "warps_per_sm": warps, "smem_bytes": smem,
             "block_rounds_hist": hist}
 
 
@@ -538,21 +581,25 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     from repro_torch.core.collectives import LocalWorkers
     from repro_torch.core.peeling import peel_blocks
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.sketch_wire import dequant_peel_unpack_cuda
+    from repro_torch.kernels.sketch_wire import (dequant_peel_unpack_cuda,
+                                                 encode_pack_quantize_cuda)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
     nb = n_blocks
     ids = torch.arange(nb, dtype=torch.int32, device=dev)
     xb = make_blocks(cfg, nb, 0.04, "gauss", gen)
-    sk, w, _ = check.producer(xb, ids, cfg, False)
+    sk, w, mx = check.producer(xb, ids, cfg, False)
+    enc_digests = {"gauss@0.04": digest(sk, w, mx)}
     digests = {"gauss@0.04": digest(*check.consumer(sk, w, ids, cfg, False))}
-    del xb, sk, w
+    del xb, sk, w, mx
     torch.cuda.empty_cache()
 
     group = LocalWorkers(WORKERS)
     xs = [make_blocks(cfg, nb, 0.04, "dyadic", gen) for _ in range(WORKERS)]
     enc = [check.producer(x, ids, cfg, True) for x in xs]
+    for k, e in enumerate(enc):
+        enc_digests[f"dyadic@0.04 worker{k}"] = digest(*e)
     sk = group.sum([e[0] for e in enc])
     w = group.bor([e[1] for e in enc])
     del enc
@@ -584,6 +631,7 @@ def phase_main_stream(cfg, dev, n_blocks, check):
           "consumer_block_rounds_hist": hist,
           "consumer_ms_by_rounds_cap": by_rounds,
           "plain_per_round_per_block": per_round,
+          "sha256_sketch_words_maxabs": enc_digests,
           "sha256_values_residual": digests})
     enc_bytes = n_el * 4 + nb * 4 + nb * R * c * 4 + n_el // 8 + nb * 4
     dec_bytes = nb * R * c * 4 + n_el // 8 + nb * 4 + n_el * 4 + n_el
@@ -596,6 +644,12 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     dec_ops = 3 * nnz + 3 * nnz * rounds + 9 * (nnz - n_res) + 10 * n_res
 
     hists = {"encode_pack_quantize": None, "dequant_peel_unpack": hist}
+    extra = {"encode_pack_quantize": {
+        "phase_cycles_median": phase_medians(lambda pc: encode_pack_quantize_cuda(
+            x0, ids, cfg, phase_cycles=pc), nb, dev),
+        "ms_by_density": ms_by_density(
+            lambda x: ops.encode_pack_quantize(x, ids, cfg), cfg, nb, gen)},
+        "dequant_peel_unpack": {}}
     recs = []
     for name, kfn, pfn, nbytes, nops, replaces in [
         ("encode_pack_quantize",
@@ -614,7 +668,7 @@ def phase_main_stream(cfg, dev, n_blocks, check):
                      "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, 5, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
-                     "bytes": nbytes, "ops": nops,
+                     "bytes": nbytes, "ops": nops, **extra[name],
                      **occupancy_fields(name, cfg, dev, hists[name])})
     del x0, sk, w
     torch.cuda.empty_cache()
@@ -960,7 +1014,8 @@ def phase_innet_stream(cfg, dev, n_params, check):
     from repro_torch.core.collectives import LocalWorkers
     from repro_torch.core.peeling import peel_blocks
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.sketch_wire import dequant_peel_unpack_cuda
+    from repro_torch.kernels.sketch_wire import (dequant_peel_unpack_cuda,
+                                                 encode_pack_quantize_cuda)
     from repro_torch.net.fixedpoint import FixedPointWire
     from repro_torch.net.topology import make_topology, tree_all_reduce
 
@@ -980,6 +1035,7 @@ def phase_innet_stream(cfg, dev, n_params, check):
     e = e_bucket.repeat_interleave(nbpb)
     qw = [check.producer_q(x, ids, cfg, f, wire, e, True)
           for x, f in zip(xs, f32)]
+    enc_digests = {f"dyadic@0.04 worker{k}": digest(*g) for k, g in enumerate(qw)}
     del f32
     topo = make_topology("flat", group)
     q = tree_all_reduce([g[0].reshape(nbk, -1) for g in qw], topo, "add",
@@ -1016,8 +1072,13 @@ def phase_innet_stream(cfg, dev, n_params, check):
           "aggregate_nnz": nnz, "peeled": nnz - n_res, "estimated": n_res,
           "plain_rounds_to_fixpoint": rounds,
           "consumer_block_rounds_hist": hist,
+          "sha256_sketch_words_maxabs": enc_digests,
           "sha256_values_residual": digests})
     hists = {"encode_pack_quantize_q": None, "dequant_peel_unpack_dq": hist}
+    extra = {"encode_pack_quantize_q": {
+        "phase_cycles_median": phase_medians(lambda pc: encode_pack_quantize_cuda(
+            x0, ids, cfg, exponents=e, mantissa_bits=M, phase_cycles=pc), nb, dev)},
+        "dequant_peel_unpack_dq": {}}
     # the f32 legs' bytes and operations (phase 6), plus the (nb,) int32
     # exponents read and, per sketch cell, one multiply and one conversion
     enc_bytes = n_el * 4 + nb * 4 + nb * R * c * 4 + n_el // 8 + nb * 4 + nb * 4
@@ -1047,7 +1108,7 @@ def phase_innet_stream(cfg, dev, n_params, check):
                      "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, pit, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
-                     "bytes": nbytes, "ops": nops,
+                     "bytes": nbytes, "ops": nops, **extra[name],
                      **occupancy_fields(name, cfg, dev, hists[name])})
     payload = ([g[0].reshape(nbk, -1) for g in qw],
                [g[1].reshape(nbk, -1) for g in qw],
@@ -1181,6 +1242,7 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
     from repro_torch.core.collectives import LocalWorkers
     from repro_torch.core.peeling import peel_blocks
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sketch_encode import sketch_encode_cuda
     from repro_torch.kernels.sketch_peel import sketch_peel_cuda
 
     gen = torch.Generator(device=dev)
@@ -1192,11 +1254,16 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
     density = cfg.topk_ratio
     xg = make_blocks(cfg, nb, density, "gauss", gen)
     skg = check.encode_std(xg, ids, cfg, False)
+    enc_digests = {"gauss@0.001": digest(skg)}
     bits = index_lib.bloom_query((nb, G, c), cfg, index_lib.bloom_build(xg, cfg))
     digests = {"gauss@0.001": digest(*check.peel_std(skg, bits, ids, cfg, False))}
     del xg, skg, bits
     xs = [make_blocks(cfg, nb, density, "dyadic", gen) for _ in range(WORKERS)]
-    sk = group.sum([check.encode_std(x, ids, cfg, True) for x in xs])
+    enc = [check.encode_std(x, ids, cfg, True) for x in xs]
+    for k, y in enumerate(enc):
+        enc_digests[f"dyadic@0.001 worker{k}"] = digest(y)
+    sk = group.sum(enc)
+    del enc
     filt = group.bor([index_lib.bloom_build(x, cfg) for x in xs])
     bits = index_lib.bloom_query((nb, G, c), cfg, filt)
     union = functools.reduce(torch.logical_or, [x != 0 for x in xs])
@@ -1251,6 +1318,7 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
                           "standalone_peel_ms": peel4_ms,
                           "fused_consumer_ms": fused4_ms,
                           "equal_bit_for_bit": True},
+          "sha256_sketch": enc_digests,
           "sha256_values_residual": digests})
     # bytes: each input read once, each output written once (ids included);
     # operations as phase 6's: sign x value + add per (non-zero, hash) and
@@ -1262,6 +1330,12 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
     enc_ops = 6 * nnz0 + nb * R * c
     dec_ops = 3 * cand + 3 * cand * rounds + 9 * (cand - n_res) + 10 * n_res
     hists = {"sketch_encode": None, "sketch_peel": hist}
+    extra = {"sketch_encode": {
+        "phase_cycles_median": phase_medians(lambda pc: sketch_encode_cuda(
+            x0, ids, cfg, phase_cycles=pc), nb, dev),
+        "ms_by_density": ms_by_density(
+            lambda x: ops.sketch_encode(x, ids, cfg), cfg, nb, gen)},
+        "sketch_peel": {}}
     recs = []
     for name, kfn, pfn, nbytes, nops, replaces, pit in [
         ("sketch_encode", lambda: ops.sketch_encode(x0, ids, cfg),
@@ -1278,7 +1352,7 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
                      "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, pit, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
-                     "bytes": nbytes, "ops": nops,
+                     "bytes": nbytes, "ops": nops, **extra[name],
                      **occupancy_fields(name, cfg, dev, hists[name])})
     del x0, sk, bits
     torch.cuda.empty_cache()

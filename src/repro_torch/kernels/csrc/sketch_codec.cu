@@ -26,12 +26,15 @@
 // encode reads the block (4Gc bytes) and writes the sketch (4*rows*c):
 // 135 KB at G=60, c=512, rows=6. The peel reads the sketch and one byte a
 // coordinate and writes values and an int8 residual (4*rows*c + 6Gc
-// bytes): 197 KB. Design as sketch_wire.cu: the encode stages the x block
-// in shared memory where it fits; the peel keeps its per-cell state there
-// (three blocks an SM at the default geometry), or in device-memory
-// scratch where it does not fit (the lossless profile, rows=60 at ratio
-// 2), and stops each block at its own fixpoint: at the Bloom index's
-// 0.2% of candidates that is two or three rounds, not `rounds`.
+// bytes): 197 KB. Design as sketch_wire.cu: the encode streams the x
+// block through the shared-memory ring of sketch_tile.cuh:encode_block
+// (50,924 B a block at the default geometry, four 256-thread blocks an
+// SM); the peel keeps its per-cell state in
+// shared memory (three blocks an SM at the default geometry), or in
+// device-memory scratch where it does not fit (the lossless profile,
+// rows=60 at ratio 2), and stops each block at its own fixpoint: at the
+// Bloom index's 0.2% of candidates that is two or three rounds, not
+// `rounds`.
 //
 // Interface: plain C, loaded with ctypes; each function returns the
 // cudaError_t of the launch (0 on success).
@@ -45,32 +48,28 @@ using namespace sketch_tile;
 
 namespace {
 
-template <bool kResident>
-__global__ void __launch_bounds__(kThreads)
+// The encode: the fused producer's streamed owner-sum
+// (sketch_tile::encode_block) without the words and the max.
+template <int kRegRows>
+__global__ void __launch_bounds__(kEncMaxThreads, kEncMinBlocks)
 sketch_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
-                     const int* __restrict__ row_ptr,
-                     const int* __restrict__ ent,
+                     const int* __restrict__ cptr, const int* __restrict__ ent,
                      const float* __restrict__ ent_sign,
-                     float* __restrict__ sketch, int group, int lanes,
-                     int rows, uint32_t salt) {
-  extern __shared__ float smem[];
-  const int n = group * lanes;
+                     float* __restrict__ sketch,
+                     long long* __restrict__ phase, float* plane, int group,
+                     int lanes, int rows, int chunk_rows, uint32_t salt) {
+  extern __shared__ __align__(16) unsigned char enc_smem[];
   const long long blk = blockIdx.x;
-  const float* xb = x + blk * n;
-  const float* xs;
-  int* rot;
-  if constexpr (kResident) {
-    xs = smem;
-    rot = reinterpret_cast<int*>(smem + n);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) smem[e] = xb[e];
-  } else {
-    xs = xb;
-    rot = reinterpret_cast<int*>(smem);
-  }
-  block_rotations(rot, (uint32_t)ids[blk], group, lanes, salt);
-  __syncthreads();
-  encode_cells(xs, rot, row_ptr, ent, ent_sign, sketch + blk * rows * lanes,
-               1.0f, lanes, rows);
+  encode_block<kRegRows>(enc_smem, x, blk, (uint32_t)ids[blk], cptr, ent,
+                         ent_sign, sketch, nullptr, nullptr, 1.0f, plane,
+                         phase, EncodeShape(group, lanes, rows, chunk_rows,
+                                            false),
+                         salt);
+}
+
+const void* encode_kernel_of(int lanes, int rows) {
+  return encode_reg_rows(lanes, rows) ? (const void*)sketch_encode_kernel<8>
+                                      : (const void*)sketch_encode_kernel<0>;
 }
 
 // The input bits' nonzero bytes as a mask: bit k for byte k of x.
@@ -133,47 +132,60 @@ extern "C" {
 // negative cudaError_t.
 int sketch_codec_max_smem(int device) { return max_smem_optin(device); }
 
-// Dynamic shared memory of each kernel; `resident` keeps the x block (the
-// encode) or y, the degrees and the contributions (the peel) there too.
-size_t sketch_codec_encode_smem(int group, int lanes, int resident) {
-  return encode_smem(group, lanes, resident);
+// Dynamic shared memory of each kernel; `resident` keeps the encode's
+// accumulator plane (its plane variant, many rows or lanes) or the peel's
+// y, degrees and contributions there too.
+size_t sketch_codec_encode_smem(int group, int lanes, int rows, int chunk_rows,
+                                int resident) {
+  return encode_smem(group, lanes, rows, chunk_rows, resident);
 }
 
 size_t sketch_codec_peel_smem(int group, int lanes, int rows, int resident) {
   return peel_smem(group, lanes, rows, resident);
 }
 
+// Threads of a block of kernel `kind` (0 the encode, 1 the peel) at
+// `lanes`.
+int sketch_codec_threads(int kind, int lanes) {
+  return kind == 0 ? encode_threads(lanes) : kPeelThreads;
+}
+
 // Blocks of kernel `kind` (0 the encode, 1 the peel) that one SM of the
 // current device holds at once at this geometry, or a negative cudaError_t.
 int sketch_codec_occupancy(int kind, int group, int lanes, int rows,
-                           int resident) {
+                           int chunk_rows, int resident) {
   if (kind == 0)
-    return occupancy(resident ? (const void*)sketch_encode_kernel<true>
-                              : (const void*)sketch_encode_kernel<false>,
-                     kThreads, encode_smem(group, lanes, resident));
+    return occupancy(encode_kernel_of(lanes, rows), encode_threads(lanes),
+                     encode_smem(group, lanes, rows, chunk_rows, resident));
   return occupancy(resident ? (const void*)sketch_peel_kernel<true>
                             : (const void*)sketch_peel_kernel<false>,
                    kPeelThreads, peel_smem(group, lanes, rows, resident));
 }
 
-// x (nb, group, lanes) f32 -> sketch (nb, rows, lanes) f32.
-int sketch_codec_encode(const float* x, const int* ids, const int* row_ptr,
+// x (nb, group, lanes) f32 -> sketch (nb, rows, lanes) f32. cptr/ent/
+// ent_sign list the pairs per (chunk of chunk_rows batch rows, sketch
+// row); phase is NULL or (nb, 3) int64; plane is NULL or, where the plane
+// variant's plane does not fit shared memory, (nb, rows, lanes) f32
+// scratch.
+int sketch_codec_encode(const float* x, const int* ids, const int* cptr,
                         const int* ent, const float* ent_sign, float* sketch,
-                        int nb, int group, int lanes, int rows, int resident,
-                        unsigned salt, void* stream) {
-  const size_t smem = encode_smem(group, lanes, resident);
-  const void* fn = resident ? (const void*)sketch_encode_kernel<true>
-                            : (const void*)sketch_encode_kernel<false>;
-  int err = set_smem(fn, smem);
+                        long long* phase, float* plane, int nb, int group,
+                        int lanes, int rows, int chunk_rows, unsigned salt,
+                        void* stream) {
+  const size_t smem =
+      encode_smem(group, lanes, rows, chunk_rows, plane == nullptr);
+  int err = set_smem(encode_kernel_of(lanes, rows), smem);
   if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
   if (nb > 0) {
-    if (resident)
-      sketch_encode_kernel<true><<<nb, kThreads, smem, st>>>(
-          x, ids, row_ptr, ent, ent_sign, sketch, group, lanes, rows, salt);
-    else
-      sketch_encode_kernel<false><<<nb, kThreads, smem, st>>>(
-          x, ids, row_ptr, ent, ent_sign, sketch, group, lanes, rows, salt);
+    const int threads = encode_threads(lanes);
+#define SKETCH_CODEC_ENCODE(R)                                           \
+  sketch_encode_kernel<R><<<nb, threads, smem, st>>>(                    \
+      x, ids, cptr, ent, ent_sign, sketch, phase, plane, group, lanes,   \
+      rows, chunk_rows, salt)
+    if (encode_reg_rows(lanes, rows)) SKETCH_CODEC_ENCODE(8);
+    else SKETCH_CODEC_ENCODE(0);
+#undef SKETCH_CODEC_ENCODE
   }
   return (int)cudaGetLastError();
 }

@@ -35,9 +35,21 @@
 // and an int8 residual (5Gc bytes): 170 KB. The arithmetic is ~3Gc adds
 // per pass, about 100 times below the bytes at the card's rates.
 //
-// Design. The producer stages the x block (120 KiB) in shared memory and
-// reads it three times from there, so device memory sees each input byte
-// once. The consumer keeps what its rounds touch in shared memory, 63,580
+// Design. The producer (sketch_tile.cuh:encode_block) streams the x
+// block through a ring of three shared-memory stages of chunk_rows batch
+// rows (8 rows, 16 KiB at c=512), filled by 16-byte cp.async, two chunks
+// in flight while one is summed, so device memory sees each input byte
+// once and the shared memory a block needs no longer grows with G:
+// 50,924 B at G=60, c=512, rows=6, four 256-thread blocks (32 warps) an
+// SM. Each landed chunk gives its words by ballots, a warp four words at
+// a time, stored to device memory as they complete; each owner thread
+// keeps two columns of every sketch row in registers and adds the
+// chunk's terms row by row from per-(chunk, row) lists of the (i, j)
+// pairs, staged once a block with their rotations and signs, 8 bytes a
+// pair. More than 8 rows (the lossless profile, rows=60) take a second
+// instance that keeps the cells in a plane, one column an owner thread:
+// in shared memory where it fits, else in device-memory scratch.
+// The consumer keeps what its rounds touch in shared memory, 63,580
 // B a block at G=60, c=512, rows=6, so three 512-thread blocks (48 warps)
 // share an SM and one block's loads and stores overlap another's rounds:
 // y, the degrees, this round's per-cell contribution count and single
@@ -50,21 +62,19 @@
 // its own fixpoint (sketch_tile.cuh:peel_block). A geometry whose state
 // does not fit shared memory (the lossless profile, rows=60 at ratio 2:
 // ~487 KiB for the consumer) runs the same code with the per-cell planes
-// in device-memory scratch and x read where it lies. Every sketch cell
-// (r, m) sums its contributions in the reference's (i, j) order from 0.0
-// (the producer's owner thread over a per-row list of the (i, j) pairs
-// hashing to row r; the consumer's owner where one value arrives, a warp
-// over that list where several do). There are no float atomics, so a run
-// repeats bit for bit, and on dyadic inputs the result equals the plain
-// version's exactly. The bitmap word w, bit k is element 32w+k of the
-// block: one __ballot_sync per warp over 32 consecutive elements.
+// in device-memory scratch. Every sketch cell (r, m) sums its
+// contributions in the reference's (i, j) order from 0.0 (the producer's
+// owner thread over a row's lists, chunk after chunk; the consumer's
+// owner where one value arrives, a warp over the row's list where several
+// do). There are no float atomics, so a run repeats bit for bit, and on
+// dyadic inputs the result equals the plain version's exactly. The
+// bitmap word w, bit k is element 32w+k of the block: one __ballot_sync
+// per warp over 32 consecutive elements.
 //
 // The owner-sum encode and the peel rounds live in sketch_tile.cuh, shared
 // with the standalone encode and peel of sketch_codec.cu. The TPU kernels'
 // one-hot plan-matrix contraction, VMEM budgets and multi-block grid cells
-// are not carried over. Several blocks per CUDA block, cp.async/TMA
-// staging and the producer's occupancy (one 512-thread block an SM) are
-// later work.
+// are not carried over.
 //
 // Interface: plain C, loaded with ctypes. Each function returns the
 // cudaError_t of the launch (0 on success). Words are uint32 bits (the
@@ -81,51 +91,29 @@ using namespace sketch_tile;
 
 namespace {
 
-// Shared-memory layout of the producer: x block (when kResident), then
-// rotations. TS is the sketch's wire type: float, or int for the
-// quantize leg (exps and mbits are read only then).
-template <bool kResident, typename TS>
-__global__ void __launch_bounds__(kThreads)
+// The producer: one block a sketch block, encode_threads(lanes) threads,
+// the streamed owner-sum of sketch_tile::encode_block with the words and
+// the max. TS is the sketch's wire type: float, or int for the quantize
+// leg (exps and mbits are read only then, once a block). kRegRows as in
+// encode_block; plane is NULL or the plane variant's device scratch.
+template <int kRegRows, typename TS>
+__global__ void __launch_bounds__(kEncMaxThreads, kEncMinBlocks)
 wire_encode_kernel(const float* __restrict__ x, const int* __restrict__ ids,
-                   const int* __restrict__ row_ptr,
-                   const int* __restrict__ ent,
+                   const int* __restrict__ cptr, const int* __restrict__ ent,
                    const float* __restrict__ ent_sign,
                    TS* __restrict__ sketch, uint32_t* __restrict__ words,
-                   float* __restrict__ maxabs,
-                   const int* __restrict__ exps, int mbits, int group,
-                   int lanes, int rows, uint32_t salt) {
-  extern __shared__ float smem[];
-  __shared__ float warp_max[kThreads / 32];
-  const int n = group * lanes;
+                   float* __restrict__ maxabs, const int* __restrict__ exps,
+                   long long* __restrict__ phase, float* plane, int mbits,
+                   int group, int lanes, int rows, int chunk_rows,
+                   uint32_t salt) {
+  extern __shared__ __align__(16) unsigned char enc_smem[];
   const long long blk = blockIdx.x;
-  const float* xb = x + blk * n;
-  const float* xs;
-  int* rot;
-  if constexpr (kResident) {
-    xs = smem;
-    rot = reinterpret_cast<int*>(smem + n);
-  } else {
-    xs = xb;
-    rot = reinterpret_cast<int*>(smem);
-  }
-
-  block_rotations(rot, (uint32_t)ids[blk], group, lanes, salt);
-  uint32_t* wb = words + blk * (n / 32);
-  // n % 32 == 0 and blockDim % 32 == 0: each warp covers whole words.
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const float v = xb[e];
-    if constexpr (kResident) smem[e] = v;
-    const unsigned bits = __ballot_sync(0xffffffffu, v != 0.0f);
-    if ((threadIdx.x & 31) == 0) wb[e >> 5] = bits;
-  }
-  __syncthreads();
-
   float s = 1.0f;
   if constexpr (std::is_same<TS, int>::value) s = pow2f(mbits - exps[blk]);
-  float mx = encode_cells(xs, rot, row_ptr, ent, ent_sign,
-                          sketch + blk * rows * lanes, s, lanes, rows);
-  mx = block_max(mx, warp_max);
-  if (threadIdx.x == 0) maxabs[blk] = mx;
+  encode_block<kRegRows>(enc_smem, x, blk, (uint32_t)ids[blk], cptr, ent,
+                         ent_sign, sketch, words, maxabs, s, plane, phase,
+                         EncodeShape(group, lanes, rows, chunk_rows, true),
+                         salt);
 }
 
 // The consumer: its state as sketch_tile::peel_setup lays it out (y then
@@ -169,18 +157,35 @@ wire_peel_kernel(const TS* __restrict__ sketch,
   if (block_rounds != nullptr && threadIdx.x == 0) block_rounds[blk] = done;
 }
 
-template <bool kResident, typename TS>
-int launch_encode(const float* x, const int* ids, const int* row_ptr,
+// The producer's instance for this geometry: kRegRows 8 or 0.
+template <typename TS>
+const void* encode_kernel_of(int lanes, int rows) {
+  return encode_reg_rows(lanes, rows)
+             ? (const void*)wire_encode_kernel<8, TS>
+             : (const void*)wire_encode_kernel<0, TS>;
+}
+
+template <typename TS>
+int launch_encode(const float* x, const int* ids, const int* cptr,
                   const int* ent, const float* ent_sign, TS* sketch,
-                  uint32_t* words, float* maxabs, const int* exps, int mbits,
-                  int nb, int group, int lanes, int rows, uint32_t salt,
-                  size_t smem, cudaStream_t stream) {
-  int err = set_smem((const void*)wire_encode_kernel<kResident, TS>, smem);
+                  uint32_t* words, float* maxabs, const int* exps,
+                  long long* phase, float* plane, int mbits, int nb,
+                  int group, int lanes, int rows, int chunk_rows,
+                  uint32_t salt, cudaStream_t stream) {
+  const size_t smem =
+      encode_smem(group, lanes, rows, chunk_rows, plane == nullptr);
+  int err = set_smem(encode_kernel_of<TS>(lanes, rows), smem);
   if (err) return err;
-  if (nb > 0)
-    wire_encode_kernel<kResident, TS><<<nb, kThreads, smem, stream>>>(
-        x, ids, row_ptr, ent, ent_sign, sketch, words, maxabs, exps, mbits,
-        group, lanes, rows, salt);
+  if (nb > 0) {
+    const int threads = encode_threads(lanes);
+#define SKETCH_WIRE_ENCODE(R)                                              \
+  wire_encode_kernel<R, TS><<<nb, threads, smem, stream>>>(                \
+      x, ids, cptr, ent, ent_sign, sketch, words, maxabs, exps, phase,     \
+      plane, mbits, group, lanes, rows, chunk_rows, salt)
+    if (encode_reg_rows(lanes, rows)) SKETCH_WIRE_ENCODE(8);
+    else SKETCH_WIRE_ENCODE(0);
+#undef SKETCH_WIRE_ENCODE
+  }
   return (int)cudaGetLastError();
 }
 
@@ -200,19 +205,19 @@ int launch_peel(const TS* sketch, const uint32_t* words, const int* ids,
   return (int)cudaGetLastError();
 }
 
-// Each kernel of this file with its block size: 0/1 the producer's f32 and
-// quantize legs, 2/3 the consumer's f32 and dequant legs.
-const void* kernel_of(int kind, int resident, int* threads) {
-  *threads = kind < 2 ? kThreads : kPeelThreads;
-  switch (kind * 2 + (resident ? 1 : 0)) {
-    case 0: return (const void*)wire_encode_kernel<false, float>;
-    case 1: return (const void*)wire_encode_kernel<true, float>;
-    case 2: return (const void*)wire_encode_kernel<false, int>;
-    case 3: return (const void*)wire_encode_kernel<true, int>;
-    case 4: return (const void*)wire_peel_kernel<false, float>;
-    case 5: return (const void*)wire_peel_kernel<true, float>;
-    case 6: return (const void*)wire_peel_kernel<false, int>;
-    case 7: return (const void*)wire_peel_kernel<true, int>;
+// Each kernel of this file with its block size at this geometry: 0/1 the
+// producer's f32 and quantize legs, 2/3 the consumer's f32 and dequant
+// legs.
+const void* kernel_of(int kind, int lanes, int rows, int resident,
+                      int* threads) {
+  *threads = kind < 2 ? encode_threads(lanes) : kPeelThreads;
+  switch (kind) {
+    case 0: return encode_kernel_of<float>(lanes, rows);
+    case 1: return encode_kernel_of<int>(lanes, rows);
+    case 2: return resident ? (const void*)wire_peel_kernel<true, float>
+                            : (const void*)wire_peel_kernel<false, float>;
+    case 3: return resident ? (const void*)wire_peel_kernel<true, int>
+                            : (const void*)wire_peel_kernel<false, int>;
   }
   return nullptr;
 }
@@ -225,56 +230,58 @@ extern "C" {
 // negative cudaError_t.
 int sketch_wire_max_smem(int device) { return max_smem_optin(device); }
 
-// Dynamic shared memory of each kernel; `resident` keeps the x block (the
-// producer) or y, the degrees and the contributions (the consumer) there too.
-size_t sketch_wire_encode_smem(int group, int lanes, int resident) {
-  return encode_smem(group, lanes, resident);
+// Dynamic shared memory of each kernel; `resident` keeps the producer's
+// accumulator plane (its plane variant, many rows or lanes) or the
+// consumer's y, degrees and contributions there too.
+size_t sketch_wire_encode_smem(int group, int lanes, int rows, int chunk_rows,
+                               int resident) {
+  return encode_smem(group, lanes, rows, chunk_rows, resident);
 }
 
 size_t sketch_wire_peel_smem(int group, int lanes, int rows, int resident) {
   return peel_smem(group, lanes, rows, resident);
 }
 
+// Threads of a block of kernel `kind` (see kernel_of) at `lanes`.
+int sketch_wire_threads(int kind, int lanes) {
+  return kind < 2 ? encode_threads(lanes) : kPeelThreads;
+}
+
 // Blocks of kernel `kind` (see kernel_of) that one SM of the current
 // device holds at once at this geometry, or a negative cudaError_t.
 int sketch_wire_occupancy(int kind, int group, int lanes, int rows,
-                          int resident) {
+                          int chunk_rows, int resident) {
   int threads = 0;
-  const void* fn = kernel_of(kind, resident, &threads);
+  const void* fn = kernel_of(kind, lanes, rows, resident, &threads);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
-  const size_t smem = kind < 2 ? encode_smem(group, lanes, resident)
-                               : peel_smem(group, lanes, rows, resident);
+  const size_t smem =
+      kind < 2 ? encode_smem(group, lanes, rows, chunk_rows, resident)
+               : peel_smem(group, lanes, rows, resident);
   return occupancy(fn, threads, smem);
 }
 
 // exps == NULL: the f32 wire, `sketch` is float. Otherwise the quantize
 // leg: (nb,) int32 exponents, mantissa bits `mbits`, `sketch` is int32.
-int sketch_wire_encode(const float* x, const int* ids, const int* row_ptr,
+// cptr/ent/ent_sign list the pairs per (chunk of chunk_rows batch rows,
+// sketch row); phase is NULL or (nb, 3) int64; plane is NULL or, where the
+// plane variant's plane does not fit shared memory, (nb, rows, lanes) f32
+// scratch.
+int sketch_wire_encode(const float* x, const int* ids, const int* cptr,
                        const int* ent, const float* ent_sign, void* sketch,
-                       int* words, float* maxabs, const int* exps, int nb,
-                       int group, int lanes, int rows, int mbits,
-                       int resident, unsigned salt, void* stream) {
-  const size_t smem = sketch_wire_encode_smem(group, lanes, resident);
+                       int* words, float* maxabs, const int* exps,
+                       long long* phase, float* plane, int nb, int group,
+                       int lanes, int rows, int chunk_rows, int mbits,
+                       unsigned salt, void* stream) {
   uint32_t* w = reinterpret_cast<uint32_t*>(words);
   cudaStream_t st = (cudaStream_t)stream;
-  if (exps == nullptr) {
-    float* sk = static_cast<float*>(sketch);
-    return resident
-               ? launch_encode<true>(x, ids, row_ptr, ent, ent_sign, sk, w,
-                                     maxabs, exps, mbits, nb, group, lanes,
-                                     rows, salt, smem, st)
-               : launch_encode<false>(x, ids, row_ptr, ent, ent_sign, sk, w,
-                                      maxabs, exps, mbits, nb, group, lanes,
-                                      rows, salt, smem, st);
-  }
-  int* sk = static_cast<int*>(sketch);
-  return resident
-             ? launch_encode<true>(x, ids, row_ptr, ent, ent_sign, sk, w,
-                                   maxabs, exps, mbits, nb, group, lanes,
-                                   rows, salt, smem, st)
-             : launch_encode<false>(x, ids, row_ptr, ent, ent_sign, sk, w,
-                                    maxabs, exps, mbits, nb, group, lanes,
-                                    rows, salt, smem, st);
+  if (exps == nullptr)
+    return launch_encode(x, ids, cptr, ent, ent_sign,
+                         static_cast<float*>(sketch), w, maxabs, exps, phase,
+                         plane, mbits, nb, group, lanes, rows, chunk_rows,
+                         salt, st);
+  return launch_encode(x, ids, cptr, ent, ent_sign, static_cast<int*>(sketch),
+                       w, maxabs, exps, phase, plane, mbits, nb, group, lanes,
+                       rows, chunk_rows, salt, st);
 }
 
 // state (nb, 4, rows, lanes) f32 is scratch for resident == 0 and unused

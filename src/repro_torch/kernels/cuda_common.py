@@ -4,9 +4,12 @@ between a kernel's shared-memory and device-memory variants, the peel
 kernels' scratch, the occupancy query, and the stream.
 
 The hash tables reach the kernels as small device arrays, cached per
-config and device: for every sketch row ``r`` the list of ``(i, j)``
-pairs with ``h_j(i) == r`` in ``(i, j)`` order (``row_ptr``/``ent``, with
-their signs), plus ``h_j(i)`` and ``g_j(i)`` flat by ``3i + j``.
+config and device. The peel kernels read, for every sketch row ``r``, the
+list of ``(i, j)`` pairs with ``h_j(i) == r`` in ``(i, j)`` order
+(``row_ptr``/``ent``), plus ``h_j(i)`` and ``g_j(i)`` flat by ``3i + j``.
+The encode kernels stream a block in chunks of :func:`chunk_rows` batch
+rows and read the same lists cut per (chunk, row) (:func:`chunk_lists`),
+with their signs.
 """
 
 from __future__ import annotations
@@ -42,14 +45,64 @@ def row_lists(cfg: CompressionConfig):
     return row_ptr, ent, signs[ent].astype(np.float32)
 
 
+# Bytes of x an encode block stages a chunk: 16 KiB, 8 batch rows at c=512.
+CHUNK_BYTES = 16384
+
+
+def chunk_rows(cfg: CompressionConfig) -> int:
+    """Batch rows a chunk of the encode kernels' ring holds: about
+    ``CHUNK_BYTES`` of f32, at least 1 and at most G."""
+    return max(1, min(cfg.group, CHUNK_BYTES // (4 * cfg.lanes)))
+
+
+def chunk_lists(cfg: CompressionConfig, k: int):
+    """(chunk_ptr (nchunks * rows + 1,), ent (3G,), ent_sign (3G,)): for
+    each chunk of ``k`` batch rows (chunk ``i // k``) and each sketch row
+    ``r``, the flat indices ``3i + j`` of that chunk hashing to ``r``, in
+    ``(i, j)`` order, at ``ent[chunk_ptr[chunk * rows + r] ..
+    chunk_ptr[chunk * rows + r + 1])``. A row's lists over the chunks in
+    order are its :func:`row_lists` list."""
+    rows_tbl = hashing.batch_rows(cfg.group, cfg.rows, cfg.seed).reshape(-1)
+    signs = hashing.batch_signs(cfg.group, cfg.seed).reshape(-1)
+    nchunks = -(-cfg.group // k)
+    key = (np.arange(3 * cfg.group) // 3) // k * cfg.rows + rows_tbl
+    ent = np.argsort(key, kind="stable").astype(np.int32)
+    counts = np.bincount(key, minlength=nchunks * cfg.rows)
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return ptr, ent, signs[ent].astype(np.float32)
+
+
+def _on(device, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
+
+
 @functools.lru_cache(maxsize=64)
 def tables(cfg: CompressionConfig, device: torch.device):
-    """(row_ptr, ent, ent_sign, hrow, sign) on ``device``."""
-    row_ptr, ent, ent_sign = row_lists(cfg)
+    """The peel kernels' (row_ptr, ent, hrow, sign) on ``device``."""
+    row_ptr, ent, _ = row_lists(cfg)
     hrow = hashing.batch_rows(cfg.group, cfg.rows, cfg.seed).reshape(-1)
     sign = hashing.batch_signs(cfg.group, cfg.seed).reshape(-1)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (row_ptr, ent, ent_sign, hrow, sign))
+    return _on(device, row_ptr, ent, hrow, sign)
+
+
+@functools.lru_cache(maxsize=64)
+def encode_tables(cfg: CompressionConfig, device: torch.device):
+    """The encode kernels' (chunk_ptr, ent, ent_sign) on ``device``, for
+    chunks of :func:`chunk_rows` batch rows."""
+    return _on(device, *chunk_lists(cfg, chunk_rows(cfg)))
+
+
+def plane_scratch(cfg: CompressionConfig, nb: int, res: bool,
+                  device: torch.device):
+    """Where an encode kernel's plane variant keeps its accumulators when
+    they do not fit shared memory (``res`` False): (nb, rows, lanes) f32
+    of device memory, passed as its pointer; None (NULL) otherwise."""
+    if res:
+        return None, None
+    t = torch.empty((nb, cfg.rows, cfg.lanes), dtype=torch.float32,
+                    device=device)
+    return t, t.data_ptr()
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -69,10 +122,12 @@ def check(t: torch.Tensor, name: str, dtype, shape, device):
 
 def resident(cfg: CompressionConfig, smem_of, max_smem,
              device: torch.device) -> bool:
-    """Whether a kernel keeps its per-block state in shared memory:
-    ``smem_of(1)`` bytes fit the card's opt-in limit, which the library
-    function ``max_smem(device_index)`` reports. Raises if even the
-    device-memory variant's ``smem_of(0)`` bytes do not fit."""
+    """Whether a kernel keeps its per-block state in shared memory (a
+    peel's per-cell planes; an encode's accumulator plane, where its
+    geometry takes the plane instance): ``smem_of(1)`` bytes fit the
+    card's opt-in limit, which the library function
+    ``max_smem(device_index)`` reports. Raises if even the device-memory
+    variant's ``smem_of(0)`` bytes do not fit."""
     limit = max_smem(device.index)
     if limit < 0:
         raise RuntimeError(f"cudaDeviceGetAttribute failed: cudaError {-limit}")
@@ -94,13 +149,15 @@ def peel_scratch(cfg: CompressionConfig, nb: int, res: bool,
                        dtype=torch.float32, device=device)
 
 
-def rounds_ptr(block_rounds, nb: int, device: torch.device):
-    """The pointer a peel kernel writes each block's rounds to: NULL
-    (None) without ``block_rounds``, else its (nb,) int32 data."""
-    if block_rounds is None:
+def out_ptr(t, name: str, dtype, shape, device: torch.device):
+    """The pointer a kernel writes an optional per-block record to (a
+    peel's ``block_rounds``, an encode's ``phase_cycles``): NULL (None)
+    without ``t``, else its data, checked against ``dtype`` and
+    ``shape``. The training path passes none."""
+    if t is None:
         return None
-    check(block_rounds, "block_rounds", torch.int32, (nb,), device)
-    return block_rounds.data_ptr()
+    check(t, name, dtype, shape, device)
+    return t.data_ptr()
 
 
 def occupancy(query, kind: int, cfg: CompressionConfig, smem_of, max_smem,
@@ -110,7 +167,8 @@ def occupancy(query, kind: int, cfg: CompressionConfig, smem_of, max_smem,
     wrappers launch there; ``query`` is the library's occupancy export."""
     res = int(resident(cfg, smem_of, max_smem, device))
     with torch.cuda.device(device):
-        blocks = query(kind, cfg.group, cfg.lanes, cfg.rows, res)
+        blocks = query(kind, cfg.group, cfg.lanes, cfg.rows, chunk_rows(cfg),
+                       res)
     if blocks < 0:
         raise RuntimeError(f"occupancy query failed: cudaError {-blocks}")
     return blocks, int(smem_of(res))

@@ -29,14 +29,14 @@ import torch
 from repro_torch.core.config import CompressionConfig
 from . import ref as ref_ops
 from .cuda_common import LAUNCHES
-from .sketch_encode import encode_occupancy, sketch_encode_cuda
+from .sketch_encode import codec_threads, encode_occupancy, sketch_encode_cuda
 from .sketch_peel import peel_occupancy, sketch_peel_cuda
 from .sketch_wire import (dequant_peel_unpack_cuda, encode_pack_quantize_cuda,
-                          wire_occupancy)
+                          wire_occupancy, wire_threads)
 
 __all__ = ["LAUNCHES", "sketch_encode", "sketch_peel", "encode_pack_quantize",
            "dequant_peel_unpack", "fused_wire_supported", "wire_codec_passes",
-           "sketch_estimate", "kernel_occupancy"]
+           "sketch_estimate", "kernel_occupancy", "kernel_threads"]
 
 
 def _use_kernel(cfg: CompressionConfig, t: torch.Tensor) -> bool:
@@ -161,3 +161,11 @@ def kernel_occupancy(name: str, cfg: CompressionConfig,
     if name == "sketch_peel":
         return peel_occupancy(cfg, device)
     return wire_occupancy(name, cfg, device)
+
+
+def kernel_threads(name: str, cfg: CompressionConfig) -> int:
+    """Threads of a block of the CUDA kernel behind launch counter
+    ``name`` at ``cfg``'s geometry."""
+    if name.startswith("sketch_"):
+        return codec_threads(int(name == "sketch_peel"), cfg)
+    return wire_threads(name, cfg)

@@ -26,8 +26,8 @@ import torch
 from repro_torch.core.config import CompressionConfig
 from repro_torch.core import hashing
 from . import build
-from .cuda_common import (I, LAUNCHES, P, check, occupancy, peel_scratch,
-                          resident, rounds_ptr, stream, tables)
+from .cuda_common import (I, LAUNCHES, P, check, occupancy, out_ptr,
+                          peel_scratch, resident, stream, tables)
 
 BIT_DTYPES = (torch.bool, torch.uint8, torch.int8)
 
@@ -41,7 +41,7 @@ def _lib():
     lib.sketch_codec_peel_smem.restype = ctypes.c_size_t
     lib.sketch_codec_max_smem.argtypes = [I]
     lib.sketch_codec_max_smem.restype = I
-    lib.sketch_codec_occupancy.argtypes = [I] * 5
+    lib.sketch_codec_occupancy.argtypes = [I] * 6
     lib.sketch_codec_occupancy.restype = I
     return lib
 
@@ -70,7 +70,7 @@ def sketch_peel_cuda(sketch: torch.Tensor, bits: torch.Tensor,
     lib = _lib()
     res = resident(cfg, lambda r: lib.sketch_codec_peel_smem(G, c, R, r),
                    lib.sketch_codec_max_smem, dev)
-    row_ptr, ent, _, hrow, sign = tables(cfg, dev)
+    row_ptr, ent, hrow, sign = tables(cfg, dev)
     values = torch.empty((nb, G, c), dtype=torch.float32, device=dev)
     residual = torch.empty((nb, G, c), dtype=torch.int8, device=dev)
     state = peel_scratch(cfg, nb, res, dev)
@@ -78,7 +78,8 @@ def sketch_peel_cuda(sketch: torch.Tensor, bits: torch.Tensor,
         sketch.data_ptr(), bits.data_ptr(), block_ids.data_ptr(),
         row_ptr.data_ptr(), ent.data_ptr(), hrow.data_ptr(), sign.data_ptr(),
         values.data_ptr(), residual.data_ptr(),
-        rounds_ptr(block_rounds, nb, dev), state.data_ptr(), nb, G, c, R,
+        out_ptr(block_rounds, "block_rounds", torch.int32, (nb,), dev),
+        state.data_ptr(), nb, G, c, R,
         cfg.rounds, int(res), hashing.rotation_salt(cfg.seed), stream(dev))
     if err:
         raise RuntimeError(f"sketch_codec_peel launch failed: cudaError {err}")

@@ -10,13 +10,16 @@ checks its inputs, allocates the outputs with ``torch.empty``, launches
 on PyTorch's current stream, raises if the launch reports an error, and
 adds one to its leg's count in :data:`LAUNCHES`.
 
-A geometry whose per-block state fits the card's shared memory keeps it
-there (every config with ``rows * lanes`` and ``block_elems`` near the
-defaults); a larger one, such as the lossless profile ``ratio=2.0,
-rows=60``, runs the same kernels with that state in device memory. The
-consumer runs each block's peel rounds until that block's fixpoint, at
-most ``cfg.rounds``: rounds after it peel nothing, so the result is that
-of all ``cfg.rounds`` rounds.
+The producer streams each block's batch rows through a ring of
+shared-memory chunks (:func:`cuda_common.chunk_rows` rows each) and keeps
+its sketch cells in registers, or for many rows (the lossless profile
+``ratio=2.0, rows=60``) in a plane of shared memory, or of device memory
+where that does not fit. The consumer keeps its per-block state in shared
+memory where it fits (every config with ``rows * lanes`` and
+``block_elems`` near the defaults) and in device memory otherwise, and
+runs each block's peel rounds until that block's fixpoint, at most
+``cfg.rounds``: rounds after it peel nothing, so the result is that of
+all ``cfg.rounds`` rounds.
 
 The hash tables, input checks and launch counters are
 :mod:`repro_torch.kernels.cuda_common`'s.
@@ -32,8 +35,9 @@ import torch
 from repro_torch.core.config import CompressionConfig
 from repro_torch.core import hashing
 from . import build
-from .cuda_common import (I, LAUNCHES, P, check, occupancy, peel_scratch,
-                          resident, rounds_ptr, stream, tables)
+from .cuda_common import (I, LAUNCHES, P, check, chunk_rows, encode_tables,
+                          occupancy, out_ptr, peel_scratch, plane_scratch,
+                          resident, stream, tables)
 
 # the occupancy export's kernel numbers, by launch counter
 _KINDS = {"encode_pack_quantize": 0, "encode_pack_quantize_q": 1,
@@ -43,18 +47,20 @@ _KINDS = {"encode_pack_quantize": 0, "encode_pack_quantize_q": 1,
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("sketch_wire")
-    lib.sketch_wire_encode.argtypes = [P] * 9 + [I] * 6 + [ctypes.c_uint, P]
+    lib.sketch_wire_encode.argtypes = [P] * 11 + [I] * 6 + [ctypes.c_uint, P]
     lib.sketch_wire_encode.restype = I
     lib.sketch_wire_peel.argtypes = [P] * 12 + [I] * 7 + [ctypes.c_uint, P]
     lib.sketch_wire_peel.restype = I
-    lib.sketch_wire_encode_smem.argtypes = [I, I, I]
+    lib.sketch_wire_encode_smem.argtypes = [I] * 5
     lib.sketch_wire_encode_smem.restype = ctypes.c_size_t
     lib.sketch_wire_peel_smem.argtypes = [I, I, I, I]
     lib.sketch_wire_peel_smem.restype = ctypes.c_size_t
     lib.sketch_wire_max_smem.argtypes = [I]
     lib.sketch_wire_max_smem.restype = I
-    lib.sketch_wire_occupancy.argtypes = [I] * 5
+    lib.sketch_wire_occupancy.argtypes = [I] * 6
     lib.sketch_wire_occupancy.restype = I
+    lib.sketch_wire_threads.argtypes = [I, I]
+    lib.sketch_wire_threads.restype = I
     return lib
 
 
@@ -70,11 +76,18 @@ def wire_occupancy(name: str, cfg: CompressionConfig, device: torch.device):
     lib, G, c, R = _lib(), cfg.group, cfg.lanes, cfg.rows
     kind = _KINDS[name]
     if kind < 2:
-        smem_of = lambda r: lib.sketch_wire_encode_smem(G, c, r)
+        K = chunk_rows(cfg)
+        smem_of = lambda r: lib.sketch_wire_encode_smem(G, c, R, K, r)
     else:
         smem_of = lambda r: lib.sketch_wire_peel_smem(G, c, R, r)
     return occupancy(lib.sketch_wire_occupancy, kind, cfg, smem_of,
                      lib.sketch_wire_max_smem, device)
+
+
+def wire_threads(name: str, cfg: CompressionConfig) -> int:
+    """Threads of a block of the kernel behind launch counter ``name`` at
+    ``cfg``'s geometry."""
+    return _lib().sketch_wire_threads(_KINDS[name], cfg.lanes)
 
 
 def _quant_leg(exponents, mantissa_bits, nb: int, device):
@@ -94,29 +107,36 @@ def _quant_leg(exponents, mantissa_bits, nb: int, device):
 def encode_pack_quantize_cuda(xb: torch.Tensor, block_ids: torch.Tensor,
                               cfg: CompressionConfig,
                               exponents: torch.Tensor | None = None,
-                              mantissa_bits: int | None = None):
+                              mantissa_bits: int | None = None,
+                              phase_cycles: torch.Tensor | None = None):
     """(nb, G, c) f32 + (nb,) int32 ids on a CUDA device -> (sketch (nb,
     rows, c), words (nb, G*c/32) int32, maxabs (nb,) f32). The sketch is
     f32, or with ``exponents`` ((nb,) int32) and ``mantissa_bits`` the
     fxp32 int32 sketch of the quantize leg; maxabs is the f32 max|sketch|
-    either way."""
+    either way. ``phase_cycles``, a (nb, 3) int64 tensor where given,
+    takes each block's ``clock64`` cycles waiting on its loads, summing,
+    and in all (the training path passes none)."""
     dev = xb.device
     nb, G, c, R = xb.shape[0], cfg.group, cfg.lanes, cfg.rows
     check(xb, "xb", torch.float32, (nb, G, c), dev)
     check(block_ids, "block_ids", torch.int32, (nb,), dev)
     exps, mbits = _quant_leg(exponents, mantissa_bits, nb, dev)
-    lib = _lib()
-    res = _resident(cfg, lambda r: lib.sketch_wire_encode_smem(G, c, r), dev)
-    row_ptr, ent, ent_sign, _, _ = tables(cfg, dev)
+    lib, K = _lib(), chunk_rows(cfg)
+    res = _resident(cfg, lambda r: lib.sketch_wire_encode_smem(G, c, R, K, r),
+                    dev)
+    cptr, ent, ent_sign = encode_tables(cfg, dev)
+    plane, plane_p = plane_scratch(cfg, nb, res, dev)   # held through the launch
     sketch = torch.empty((nb, R, c), device=dev,
                          dtype=torch.float32 if exps is None else torch.int32)
     words = torch.empty((nb, G * c // 32), dtype=torch.int32, device=dev)
     maxabs = torch.empty((nb,), dtype=torch.float32, device=dev)
     err = lib.sketch_wire_encode(
-        xb.data_ptr(), block_ids.data_ptr(), row_ptr.data_ptr(),
-        ent.data_ptr(), ent_sign.data_ptr(), sketch.data_ptr(),
-        words.data_ptr(), maxabs.data_ptr(), exps, nb, G, c, R, mbits,
-        int(res), hashing.rotation_salt(cfg.seed), stream(dev))
+        xb.data_ptr(), block_ids.data_ptr(), cptr.data_ptr(), ent.data_ptr(),
+        ent_sign.data_ptr(), sketch.data_ptr(), words.data_ptr(),
+        maxabs.data_ptr(), exps,
+        out_ptr(phase_cycles, "phase_cycles", torch.int64, (nb, 3), dev),
+        plane_p, nb, G, c, R, K, mbits, hashing.rotation_salt(cfg.seed),
+        stream(dev))
     if err:
         raise RuntimeError(f"sketch_wire_encode launch failed: cudaError {err}")
     LAUNCHES["encode_pack_quantize" if exps is None
@@ -145,7 +165,7 @@ def dequant_peel_unpack_cuda(sketch: torch.Tensor, words: torch.Tensor,
     check(block_ids, "block_ids", torch.int32, (nb,), dev)
     lib = _lib()
     res = _resident(cfg, lambda r: lib.sketch_wire_peel_smem(G, c, R, r), dev)
-    row_ptr, ent, _, hrow, sign = tables(cfg, dev)
+    row_ptr, ent, hrow, sign = tables(cfg, dev)
     values = torch.empty((nb, G, c), dtype=torch.float32, device=dev)
     residual = torch.empty((nb, G, c), dtype=torch.int8, device=dev)
     state = peel_scratch(cfg, nb, res, dev)
@@ -153,7 +173,8 @@ def dequant_peel_unpack_cuda(sketch: torch.Tensor, words: torch.Tensor,
         sketch.data_ptr(), words.data_ptr(), block_ids.data_ptr(),
         row_ptr.data_ptr(), ent.data_ptr(), hrow.data_ptr(), sign.data_ptr(),
         exps, values.data_ptr(), residual.data_ptr(),
-        rounds_ptr(block_rounds, nb, dev), state.data_ptr(), nb, G, c, R,
+        out_ptr(block_rounds, "block_rounds", torch.int32, (nb,), dev),
+        state.data_ptr(), nb, G, c, R,
         cfg.rounds, mbits, int(res), hashing.rotation_salt(cfg.seed),
         stream(dev))
     if err:

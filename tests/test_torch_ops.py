@@ -698,3 +698,203 @@ def test_peel_kernels_report_their_occupancy(cuda_dev):
         assert blocks >= 3 and smem < 4 * lossless.rows * lossless.lanes
     for name in ("encode_pack_quantize", "sketch_encode"):
         assert ops.kernel_occupancy(name, main, cuda_dev)[0] >= 1
+
+
+# ----------------------------------------------------------------------
+# the streamed encode (producer legs and standalone encode) on the card
+# ----------------------------------------------------------------------
+
+# a fused geometry whose bitmap words straddle batch rows and chunks
+# (c % 32 != 0, n % 32 == 0; G = 40 in chunks of 20 rows)
+STRADDLE = CompressionConfig(ratio=0.15, lanes=100, rows=6)
+# the plane variant with its plane in device memory: 60 rows of 1024
+# lanes (240 KiB) exceed shared memory
+PLANE_DEV = CompressionConfig(ratio=2.0, rows=60, lanes=1024)
+ENC_CFGS = CFGS + [STRADDLE, PLANE_DEV]
+ENC_IDS = IDS + ["straddle", "plane_dev"]
+ENC_STD_CFGS = STD_CFGS + [PLANE_DEV]
+ENC_STD_IDS = STD_IDS + ["plane_dev"]
+# all zero, the Bloom path's 0.1% (most batch rows empty), the bitmap
+# path's 4%, every element
+ENC_DENSITIES = [0.0, 0.001, 0.04, 1.0]
+
+
+def signed_blocks(cfg, nb, density, seed, kind):
+    """Blocks at ``density`` holding -0.0 at 1% of their zeros."""
+    r = np.random.default_rng(seed)
+    shape = (nb, cfg.group, cfg.lanes)
+    if kind == "dyadic":
+        vals = r.choice([-1.0, 1.0], size=shape) * np.exp2(r.integers(-2, 3, size=shape))
+    else:
+        vals = r.normal(size=shape)
+    mask = r.random(shape) < density
+    x = np.where(mask, vals, 0.0).astype(np.float32)
+    x[(~mask) & (r.random(shape) < 0.01)] = -0.0
+    return torch.from_numpy(x)
+
+
+def _plain_in_order(fn, *args, **kw):
+    """A plain version run on the CPU, where ``index_add_`` adds a sketch
+    row's terms in index order, the (i, j) order the kernels sum in: on
+    any input its outputs equal the kernels' bit for bit. (On the card
+    the plain version sums in atomic order, so on Gaussian inputs it
+    agrees only to a tolerance, which a dense block can exceed.)"""
+    dev = args[0].device
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    out = fn(*cpu, **kw)
+    if isinstance(out, tuple):
+        return tuple(o.to(dev) for o in out)
+    return out.to(dev)
+
+
+def _check_producer(cfg, xb, ids):
+    """Both producer legs against their plain versions summed in order,
+    bit for bit on any input: the f32 leg's sketch, words and maxabs, the
+    quantize leg's int32 sketch; and the quantize leg equal to ``encode``
+    of the f32 leg. Returns the f32 leg's outputs."""
+    sk, w, mx = ops.encode_pack_quantize(xb, ids, cfg)
+    want = _plain_in_order(ref.encode_pack_quantize_ref, xb, ids, cfg)
+    for g, r in zip((sk, w, mx), want):
+        assert torch.equal(g, r)
+    wire = FixedPointWire(2)
+    e, M, nb = wire.exponents_from_maxabs(mx), wire.mantissa_bits, xb.shape[0]
+    q, wq, mxq = ops.encode_pack_quantize(xb, ids, cfg, exponents=e, mantissa_bits=M)
+    assert torch.equal(q.reshape(nb, -1), wire.encode(sk.reshape(nb, -1), e))
+    assert torch.equal(wq, w) and torch.equal(mxq, mx)
+    q_r = _plain_in_order(ref.encode_pack_quantize_ref, xb, ids, cfg,
+                          exponents=e, mantissa_bits=M)[0]
+    assert torch.equal(q, q_r)
+    return sk, w, mx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ENC_CFGS, ids=ENC_IDS)
+@pytest.mark.parametrize("density", ENC_DENSITIES)
+@pytest.mark.parametrize("kind", ["dyadic", "gauss"])
+def test_streamed_producer_matches_plain(cuda_dev, cfg, density, kind):
+    """Every geometry (incl. the plane variant, its plane in shared memory
+    for the lossless profile and in device memory for 1024 lanes, and
+    G=120) at every density, with -0.0 in the input, bit for bit with the
+    plain version summed in order."""
+    xb = signed_blocks(cfg, 7, density, 60, kind).to(cuda_dev)
+    sk, _, mx = _check_producer(cfg, xb, ids_for(7, 7000, cuda_dev))
+    if density == 0.0:
+        assert not bool(sk.any()) and not bool(torch.signbit(sk).any())
+        assert not bool(mx.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ENC_STD_CFGS, ids=ENC_STD_IDS)
+@pytest.mark.parametrize("density", ENC_DENSITIES)
+@pytest.mark.parametrize("kind", ["dyadic", "gauss"])
+def test_streamed_encode_matches_plain(cuda_dev, cfg, density, kind):
+    """The standalone encode at every geometry (odd lanes and
+    ``block_elems % 32 != 0`` included) and density, -0.0 in the input,
+    bit for bit with the plain version summed in order; on an aligned
+    geometry it equals the fused producer's sketch bit for bit."""
+    xb = signed_blocks(cfg, 7, density, 61, kind).to(cuda_dev)
+    ids = ids_for(7, 7000, cuda_dev)
+    y = ops.sketch_encode(xb, ids, cfg)
+    assert torch.equal(y, _plain_in_order(ref.sketch_encode_ref, xb, ids, cfg))
+    if ops.fused_wire_supported(cfg):
+        assert torch.equal(y, ops.encode_pack_quantize(xb, ids, cfg)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [CFGS[3], STD_CFGS[-1], STRADDLE],
+                         ids=[IDS[3], STD_IDS[-1], "straddle"])
+def test_streamed_encode_takes_unaligned_views(cuda_dev, cfg):
+    """A contiguous view whose data pointer is 4 bytes past a 16-byte
+    boundary takes the 4-byte copies: the same bits as an aligned copy."""
+    nb = 5
+    xb = signed_blocks(cfg, nb, 0.04, 62, "gauss").to(cuda_dev)
+    ids = ids_for(nb, 37, cuda_dev)
+    buf = torch.empty(xb.numel() + 4, device=cuda_dev)
+    view = buf[1:1 + xb.numel()].view(xb.shape)
+    view.copy_(xb)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    assert torch.equal(ops.sketch_encode(view, ids, cfg),
+                       ops.sketch_encode(xb, ids, cfg))
+    if ops.fused_wire_supported(cfg):
+        got = ops.encode_pack_quantize(view, ids, cfg)
+        want = _check_producer(cfg, xb, ids)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dyadic", "gauss"])
+def test_streamed_encode_takes_a_large_group(cuda_dev, kind):
+    """G = 6000 (ratio 0.001), whose peel state exceeds shared memory:
+    the encode's 3G pairs (8 bytes each) still fit, and the producer's
+    words go straight to device memory, so both producer legs and the
+    standalone encode run there (the sketch-only path, compress then
+    estimate), bit for bit with the plain version summed in order."""
+    cfg = CompressionConfig(ratio=0.001, rows=6)
+    assert cfg.group == 6000
+    xb = signed_blocks(cfg, 2, 0.04, 65, kind).to(cuda_dev)
+    ids = ids_for(2, 3, cuda_dev)
+    sk = _check_producer(cfg, xb, ids)[0]
+    assert torch.equal(ops.sketch_encode(xb, ids, cfg), sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 133])
+def test_streamed_encode_any_block_count(cuda_dev, nb):
+    """One block, and a count that is no multiple of the SMs."""
+    cfg = CFGS[3]
+    xb = signed_blocks(cfg, nb, 0.04, 63, "dyadic").to(cuda_dev)
+    ids = ids_for(nb, 11, cuda_dev)
+    _check_producer(cfg, xb, ids)
+    assert torch.equal(ops.sketch_encode(xb, ids, cfg),
+                       ref.sketch_encode_ref(xb, ids, cfg))
+
+
+@pytest.mark.cuda
+def test_streamed_encode_repeats_and_stamps_its_phases(cuda_dev):
+    """Two runs of each kernel give the same bits, with and without the
+    per-block phase stamps; each call counts one launch of its own leg;
+    the stamps are cycles (load wait + summing <= total)."""
+    from repro_torch.kernels.sketch_encode import sketch_encode_cuda
+    from repro_torch.kernels.sketch_wire import encode_pack_quantize_cuda
+    cfg, nb = CFGS[3], 9
+    xb = signed_blocks(cfg, nb, 0.04, 64, "gauss").to(cuda_dev)
+    ids = ids_for(nb, 0, cuda_dev)
+    e = torch.full((nb,), 4, dtype=torch.int32, device=cuda_dev)
+    before = dict(ops.LAUNCHES)
+    stamps = [torch.full((nb, 3), -1, dtype=torch.int64, device=cuda_dev)
+              for _ in range(3)]
+    for leg, kw in [("encode_pack_quantize", {}),
+                    ("encode_pack_quantize_q", {"exponents": e, "mantissa_bits": 29})]:
+        a = ops.encode_pack_quantize(xb, ids, cfg, **kw)
+        b = encode_pack_quantize_cuda(xb, ids, cfg, phase_cycles=stamps[len(kw) // 2],
+                                      **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    a = ops.sketch_encode(xb, ids, cfg)
+    assert torch.equal(a, sketch_encode_cuda(xb, ids, cfg, phase_cycles=stamps[2]))
+    after = dict(ops.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "encode_pack_quantize": 2, "dequant_peel_unpack": 0,
+        "encode_pack_quantize_q": 2, "dequant_peel_unpack_dq": 0,
+        "sketch_encode": 2, "sketch_peel": 0}
+    for pc in stamps:
+        assert bool((pc >= 0).all())
+        assert bool((pc[:, 0] + pc[:, 1] <= pc[:, 2]).all())
+
+
+@pytest.mark.cuda
+def test_encode_kernels_hold_32_warps_an_sm(cuda_dev):
+    """At the main path's geometry the producer legs and the encode hold
+    at least two blocks and 32 warps an SM; the lossless profile takes the
+    plane variant, its plane in shared memory, and 60 rows of 1024 lanes
+    the plane variant with its plane in device memory."""
+    main, lossless = CFGS[3], CFGS[4]
+    for name in ("encode_pack_quantize", "encode_pack_quantize_q", "sketch_encode"):
+        blocks, smem = ops.kernel_occupancy(name, main, cuda_dev)
+        threads = ops.kernel_threads(name, main)
+        assert blocks >= 2 and blocks * threads >= 32 * 32, (name, blocks, threads)
+        assert smem < 64 * 1024
+        blocks, smem = ops.kernel_occupancy(name, lossless, cuda_dev)
+        assert blocks >= 1 and smem > 4 * lossless.rows * lossless.lanes
+        blocks, smem = ops.kernel_occupancy(name, PLANE_DEV, cuda_dev)
+        assert blocks >= 1 and smem < 4 * PLANE_DEV.rows * PLANE_DEV.lanes
