@@ -114,9 +114,28 @@ kernels):
     aggregate equals the dense mean bit for bit at every coordinate, the
     filter's false positives peeling to exactly 0.
 
+The ``torch.distributed`` slice (W ranks as processes):
+
+18. dist_train — after the three emulated trains, their memory freed:
+    the train of phase 4 with W=2 ranks as spawned processes sharing
+    ``cuda:0`` over gloo (collectives staged through pinned host
+    memory), one worker a rank, the ``compressed`` arm and then the
+    ``dense`` arm on the same process group. Each rank must launch
+    exactly one producer and one consumer a step (none on the dense
+    arm); every rank's parameter sha256 must be equal after every step;
+    the OR all-reduce of the last step's real words must equal an
+    ``all_gather`` and a local OR; losses finite and within rtol 1e-3 of
+    phase 4's. Per arm: step times, the last step's collectives replayed
+    alone (sketch SUM + word OR against the dense per-leaf all-reduce,
+    host clock around a synchronise) and their payload bytes a rank,
+    peak memory per rank, backend and staging; and two probes, what NCCL
+    says to two ranks on one device and what gloo does with a CUDA
+    tensor sent point to point.
+
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
-the occupancy query, for the three peel kernels the rounds histogram,
+the occupancy query, its launches on each train path, ``dist_train``'s
+summed over the ranks, for the three peel kernels the rounds histogram,
 for the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
@@ -130,6 +149,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -1407,6 +1427,261 @@ def phase_bloom_lossless(mcfg, dev):
           "aggregate_s": agg_s})
 
 
+DIST_TIMEOUT = 600       # seconds the dist_train ranks may take in all
+PROBE_TIMEOUT = 90       # seconds a backend probe's ranks may take
+
+
+def param_digest(params):
+    """sha256 of a model's parameter bytes, leaf after leaf."""
+    import torch
+    h = hashlib.sha256()
+    for t in params.leaves():
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+class WireLog:
+    """The group a ``dist_train`` rank hands its step: each collective
+    goes on to the rank's ``ProcessGroupWorkers``; the log keeps each
+    one's op, shape and dtype (``step_calls``: the last step's) and the
+    last word OR's input and output (references to the step's own
+    tensors)."""
+
+    def __init__(self, group):
+        self.group, self.calls, self.step_calls, self.words = group, [], [], None
+
+    def __getattr__(self, name):
+        return getattr(self.group, name)
+
+    def _note(self, op, parts):
+        self.calls.append((op, tuple(parts[0].shape), parts[0].dtype))
+        return getattr(self.group, op)(parts)
+
+    def sum(self, parts):
+        return self._note("sum", parts)
+
+    def max(self, parts):
+        return self._note("max", parts)
+
+    def bor(self, parts):
+        out = self._note("bor", parts)
+        self.words = (parts[0], out)
+        return out
+
+    def end_step(self):
+        self.step_calls, self.calls = self.calls, []
+
+
+def dist_rank(group, dev):
+    """One rank of ``dist_train``: the compressed arm, then the dense arm
+    on the same process group, each a fresh train of the phase-4 setup
+    with this rank's worker. Per step the sha256 of the parameters; per
+    arm the launch counters (zeroed just before the run, read just
+    after), the peak memory, the last step's collectives replayed alone
+    (host clock, synchronised, three times) and their payload bytes; for
+    the compressed arm the OR check."""
+    import collections
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.loop import run_training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch("granite-3-2b")
+    api = model_api(dataclasses.replace(arch.model, n_layers=LAYERS))
+    out = {"rank": group.rank, "device": str(dev), "backend": group.backend,
+           "staging": group.staging, "arms": {}}
+    for aggregator in ("compressed", "dense"):
+        tc = dataclasses.replace(arch.train, workers=WORKERS, accum_steps=1,
+                                 remat="none", aggregator=aggregator)
+        log = WireLog(group)
+        params = api.init(tc.seed, dev)
+        digests = []
+
+        def after_step(_line):
+            log.end_step()
+            digests.append(param_digest(params))
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+                           steps=STEPS, device=dev, params=params,
+                           log_every=1, log_fn=after_step, group=log)
+        launches = dict(ops.LAUNCHES)
+        arm = {"losses": res.losses, "digests": digests, "launches": launches,
+               "step_ms": [t * 1e3 for t in res.step_seconds[1:]],
+               "warmup_ms": res.step_seconds[0] * 1e3,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "recovery": [{k[len("recovery_"):]: int(m[k]) for k in m
+                             if k.startswith("recovery_")} for m in res.metrics]}
+        if aggregator == "compressed":
+            w_in, w_out = log.words
+            wire = group.to_wire(w_in)
+            gathered = [torch.empty_like(wire) for _ in range(group.workers)]
+            dist.all_gather(gathered, wire)
+            ored = functools.reduce(torch.bitwise_or, gathered)
+            arm["or_check"] = {
+                "words": w_in.numel(),
+                "words_with_bit31": int((w_out < 0).sum()),
+                "equal_to_all_gather_or": bool(torch.equal(ored.cpu(), w_out.cpu()))}
+            log.words = None
+            del w_in, w_out, wire, gathered, ored
+        bufs = [(op, torch.zeros(shape, dtype=dtype, device=dev))
+                for op, shape, dtype in log.step_calls]
+        runs, by_op, staging = [], collections.defaultdict(list), []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            per = collections.Counter()
+            for op, b in bufs:
+                t = time.perf_counter()
+                getattr(group, op)([b])
+                torch.cuda.synchronize()
+                per[op] += (time.perf_counter() - t) * 1e3
+            runs.append((time.perf_counter() - t0) * 1e3)
+            for op, ms in per.items():
+                by_op[op].append(ms)
+        for _ in range(3):       # the copies to the wire's memory and back
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _, b in bufs:
+                group.to_wire(b).to(b.device)
+            torch.cuda.synchronize()
+            staging.append((time.perf_counter() - t0) * 1e3)
+        nbytes = collections.Counter()
+        for op, b in bufs:
+            nbytes[op] += b.numel() * b.element_size()
+        arm["collectives"] = {
+            "ms": runs, "ms_median": statistics.median(runs),
+            "ms_median_by_op": {op: statistics.median(v)
+                                for op, v in by_op.items()},
+            "staging_copies_ms_median": statistics.median(staging),
+            "calls": dict(collections.Counter(op for op, _ in bufs)),
+            "payload_bytes": dict(nbytes),
+            "payload_bytes_total": sum(nbytes.values())}
+        out["arms"][aggregator] = arm
+        del res, params, bufs, log
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_rank(group, dev, kind):
+    """What a backend does with two ranks on one card: ``"nccl"`` an
+    ``all_reduce``; ``"gloo_p2p"`` a send of a CUDA tensor from rank 0
+    to rank 1 with no staging. Either returns what arrived."""
+    import resource
+    import torch
+    import torch.distributed as dist
+    resource.setrlimit(resource.RLIMIT_CORE, (0, 0))   # no core file if it aborts
+    x = torch.full((4,), float(group.rank + 1), device=dev)
+    if kind == "nccl":
+        dist.all_reduce(x)
+    elif group.rank == 0:
+        dist.send(x, 1)
+    else:
+        dist.recv(x, 0)
+    torch.cuda.synchronize()
+    return x.tolist()
+
+
+def probe(kind):
+    """A backend probe's outcome: what the ranks returned, or the first
+    and last lines of the error that ended them (a rank that aborts
+    leaves its own message on stderr)."""
+    from repro_torch.launch.ranks import spawn_ranks
+    try:
+        got = spawn_ranks(probe_rank, WORKERS, (kind,), device="cuda",
+                          timeout=PROBE_TIMEOUT,
+                          backend="nccl" if kind == "nccl" else "gloo")
+        return {"ok": True, "received": got}
+    except (RuntimeError, TimeoutError) as e:
+        lines = [l for l in str(e).splitlines() if l.strip()]
+        return {"ok": False, "error": lines[:1] + lines[-2:]}
+
+
+def phase_dist_train(emulated_losses):
+    """W=2 ranks as processes sharing ``cuda:0`` over gloo (NCCL refuses
+    two ranks on one device: the probe's error is printed), the phase-4
+    train on the compressed arm and then the dense arm, one worker a
+    rank. Fails unless each rank launched exactly one producer and one
+    consumer a step (compressed; none dense), every rank's parameter
+    digest is equal after every step, the OR all-reduce of the last
+    step's real words equals an ``all_gather`` and a local OR, and the
+    losses are finite and within rtol 1e-3 of the emulated ``train``
+    phase's (backward atomics make bit equality unlikely: the first
+    step's loss is forward only and is reported apart)."""
+    from repro_torch.launch.ranks import spawn_ranks
+
+    t0 = time.perf_counter()
+    outs = spawn_ranks(dist_rank, WORKERS, device="cuda", timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    want = dict.fromkeys(outs[0]["arms"]["compressed"]["launches"], 0)
+    want.update(encode_pack_quantize=STEPS, dequant_peel_unpack=STEPS)
+    arms = {}
+    for name in ("compressed", "dense"):
+        per = [o["arms"][name] for o in outs]
+        for r, a in enumerate(per):
+            expect = want if name == "compressed" else dict.fromkeys(want, 0)
+            if a["launches"] != expect:
+                raise AssertionError(f"rank {r} {name}: launch counts "
+                                     f"{a['launches']}, expected {expect}")
+            if not all(map(math.isfinite, a["losses"])):
+                raise AssertionError(f"rank {r} {name}: non-finite loss")
+        if any(a["digests"] != per[0]["digests"] for a in per) or \
+                len(per[0]["digests"]) != STEPS:
+            raise AssertionError(f"{name}: parameter digests differ across ranks")
+        if any(a["losses"] != per[0]["losses"] for a in per):
+            raise AssertionError(f"{name}: ranks report different losses")
+        arms[name] = {
+            "losses": per[0]["losses"],
+            "step_ms_by_rank": [a["step_ms"] for a in per],
+            "warmup_ms_by_rank": [a["warmup_ms"] for a in per],
+            "collectives_ms_by_rank": [a["collectives"]["ms"] for a in per],
+            "collectives_ms_median_by_rank": [a["collectives"]["ms_median"]
+                                              for a in per],
+            "collectives_ms_median_by_op_by_rank": [
+                a["collectives"]["ms_median_by_op"] for a in per],
+            "staging_copies_ms_median_by_rank": [
+                a["collectives"]["staging_copies_ms_median"] for a in per],
+            "collective_calls": per[0]["collectives"]["calls"],
+            "payload_bytes_per_rank_step": per[0]["collectives"]["payload_bytes"],
+            "payload_bytes_total_per_rank_step":
+                per[0]["collectives"]["payload_bytes_total"],
+            "peak_mem_bytes_by_rank": [a["peak_mem_bytes"] for a in per],
+            "launches_by_rank": [a["launches"] for a in per],
+            "param_sha256_by_step": per[0]["digests"]}
+    comp = outs[0]["arms"]["compressed"]
+    for r, o in enumerate(outs):
+        if not o["arms"]["compressed"]["or_check"]["equal_to_all_gather_or"]:
+            raise AssertionError(f"rank {r}: OR all-reduce differs from "
+                                 "all_gather + OR")
+    rel = [abs(a - b) / abs(b) for a, b in zip(comp["losses"], emulated_losses)]
+    if max(rel) > 1e-3:
+        raise AssertionError(f"dist losses {comp['losses']} vs emulated "
+                             f"{emulated_losses}")
+    arms["compressed"].update(
+        recovery=comp["recovery"], or_check=comp["or_check"],
+        emulated_losses=emulated_losses, loss_rel_diff_to_emulated=rel,
+        first_loss_equal_to_emulated=comp["losses"][0] == emulated_losses[0])
+    line = {"phase": "dist_train", "arch": "granite-3-2b", "layers": LAYERS,
+            "workers": WORKERS, "procs": WORKERS, "global_batch": BATCH,
+            "seq_len": SEQ, "steps": STEPS, "warmup_steps": 1,
+            "backend": outs[0]["backend"], "staging": outs[0]["staging"],
+            "devices": [o["device"] for o in outs],
+            "wall_s": wall, "arms": arms,
+            "probes": {"nccl_two_ranks_one_device": probe("nccl"),
+                       "gloo_p2p_cuda_tensor": probe("gloo_p2p")}}
+    emit(line)
+    return {k: sum(o["arms"]["compressed"]["launches"][k] for o in outs)
+            for k in want}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1453,6 +1728,7 @@ def main() -> int:
                     phase="bloom_breakdown")
     del state
     torch.cuda.empty_cache()
+    launches_dist = phase_dist_train(train["losses"])
     n = train["params"]
     n_blocks = cfg.num_buckets(n) * cfg.bucket_elems_for(n) // cfg.block_elems
     recs = phase_main_stream(cfg, dev, n_blocks, check)
@@ -1474,7 +1750,8 @@ def main() -> int:
         r["launches"] = on[r["name"]]
         r["launches_by_path"] = {"train": launches[r["name"]],
                                  "innet_train": launches_innet[r["name"]],
-                                 "bloom_train": launches_bloom[r["name"]]}
+                                 "bloom_train": launches_bloom[r["name"]],
+                                 "dist_train": launches_dist[r["name"]]}
     phase_lossless(api.cfg, tc, dev)
     phase_innet_lossless(api.cfg, dev)
     phase_bloom_lossless(api.cfg, dev)

@@ -1,12 +1,14 @@
-"""Aggregator strategies over the workers of a :class:`LocalWorkers` group.
+"""Aggregator strategies over the workers of a group: W workers emulated
+on one device (:class:`LocalWorkers`), or this process as one of W ranks
+(:class:`ProcessGroupWorkers`).
 
 - :class:`DenseAggregator` — plain f32 sum of the raw gradients (the
   NCCL all-reduce baseline arm).
 - :class:`CompressedAggregator` — the paper's pipeline over one fused
-  bucket stream: per worker, per-leaf sparsify + error feedback, bucket
-  pack and ONE producer launch; then the sketch SUM and word OR over the
-  workers; then ONE consumer launch on the aggregate and ``unpack(rec /
-  W)``. This is the reference's unstreamed path on a pure data-parallel
+  bucket stream: per local worker, per-leaf sparsify + error feedback,
+  bucket pack and ONE producer launch; then the sketch SUM and word OR
+  over the workers; then ONE consumer launch on the aggregate and
+  ``unpack(rec / W)``. This is the reference's unstreamed path on a pure data-parallel
   mesh with the trivial wire plan. With the Bloom index (or an unaligned
   bitmap) the producer and consumer are the compressor's composed passes
   around the standalone encode and peel kernels.
@@ -19,12 +21,13 @@ Streaming, wire plans, telemetry and the other strategies come with
 later slices.
 
 An aggregator is called as ``agg(grads_w, state)``, where ``grads_w[w]``
-is worker w's gradient leaves in the reference's flatten order and
-``state.residual`` holds one ``(W, *shape)`` error-feedback tensor per
-leaf. It returns the aggregated (mean) leaves and the new state. The
-compressed strategy writes the new residuals into ``state.residual`` in
-place (it is the only holder of that memory; at full width it is W f32
-copies of the model).
+is local worker w's gradient leaves in the reference's flatten order
+(``group.local_workers`` of them: W emulated, one a rank) and
+``state.residual`` holds one ``(local_workers, *shape)`` error-feedback
+tensor per leaf. It returns the aggregated (mean over all W) leaves and
+the new state, the same on every rank. The compressed strategy writes the
+new residuals into ``state.residual`` in place (it is the only holder of
+that memory; at full width it is one f32 copy of the model a worker).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from repro_torch.net.topology import make_topology, tree_all_reduce
 from .config import CompressionConfig
 from .compressor import CompressedLeaf, HomomorphicCompressor
 from .bucketing import BucketPlan, make_bucket_plan
-from .collectives import AggregationState, LocalWorkers, dense_all_reduce
+from .collectives import AggregationState, dense_all_reduce
 from . import topk as topk_lib
 
 
@@ -64,7 +67,7 @@ def sparsify_leaf(flat: torch.Tensor, res: torch.Tensor,
 class DenseAggregator:
     wire = "dense"
 
-    group: LocalWorkers
+    group: Any           # LocalWorkers or ProcessGroupWorkers
     cfg: Any = None      # constructor uniformity only
 
     def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
@@ -80,15 +83,18 @@ class CompressedAggregator:
     wire = "compressed"
 
     cfg: CompressionConfig
-    group: LocalWorkers
+    group: Any           # LocalWorkers or ProcessGroupWorkers
 
     def _produce(self, grads_w: Sequence[Sequence[torch.Tensor]],
                  state: AggregationState, comp: HomomorphicCompressor,
                  plan: BucketPlan):
-        """Phase I per worker: sparsify + EF (residuals updated in place),
-        pack, one producer launch. Returns each worker's
-        ``(CompressedLeaf, per-block maxabs)``."""
+        """Phase I per local worker: sparsify + EF (residual row w
+        updated in place), pack, one producer launch. Returns each local
+        worker's ``(CompressedLeaf, per-block maxabs)``."""
         cfg = self.cfg
+        if len(grads_w) != self.group.local_workers:
+            raise ValueError(f"{len(grads_w)} gradient sets for "
+                             f"{self.group.local_workers} local workers")
         ef_on = cfg.topk_ratio is not None and cfg.error_feedback
         out = []
         for w, leaves in enumerate(grads_w):
@@ -184,10 +190,10 @@ class CompressedInNetworkAggregator(CompressedAggregator):
             mx.reshape(nbk, nbpb).amax(dim=1)) for mx in maxabs])
         q = tree_all_reduce(
             [wire.encode(c.sketch.reshape(nbk, -1), exp) for c in cs],
-            topo, "add", window_slots=cfg.switch_slots)[0]
+            topo, "add", window_slots=cfg.switch_slots, group=group)[0]
         words = tree_all_reduce(
             [c.index_words.reshape(nbk, -1) for c in cs],
-            topo, "or", window_slots=cfg.switch_slots)[0]
+            topo, "or", window_slots=cfg.switch_slots, group=group)[0]
         rec, stats = comp.recover(
             CompressedLeaf(sketch=q.reshape(cs[0].sketch.shape),
                            index_words=words.reshape(-1)),
@@ -200,7 +206,7 @@ AGGREGATORS = {"dense": DenseAggregator, "compressed": CompressedAggregator,
                "compressed_innet": CompressedInNetworkAggregator}
 
 
-def make_aggregator(name: str, cfg: CompressionConfig, group: LocalWorkers):
+def make_aggregator(name: str, cfg: CompressionConfig, group):
     if name not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {name!r}; this slice has "
                          f"{sorted(AGGREGATORS)}")

@@ -8,8 +8,8 @@ is carried here; wire-byte accounting comes with the wire-planning slice.
 Fields the port reads differently:
 
 - ``use_pallas`` selects the hand CUDA kernels: ``"never"`` the plain
-  PyTorch version, ``"always"`` the kernel, ``"auto"`` whichever the
-  tensor's device takes (see :mod:`repro_torch.kernels.ops`).
+  PyTorch version on any device, ``"always"`` the kernel, ``"auto"``
+  whichever the tensor's device takes (see :mod:`repro_torch.kernels.ops`).
 - ``encode_block_tile`` / ``peel_block_tile`` are kept so the configs
   stay equal; the first kernels run one sketch block per CUDA block.
 - ``chunk_blocks`` is kept as a field only: the port launches each codec

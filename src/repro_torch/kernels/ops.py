@@ -8,11 +8,16 @@ calls the ops here and never reaches into ``core.sketch`` or
 Dispatch follows the tensor's device, under the ``use_pallas`` policy of
 the config (the reference's name, kept so the configs stay equal):
 
-- a tensor on the CPU takes the plain version (``kernels/ref.py``);
+- ``"never"`` takes the plain version (``kernels/ref.py``) on any
+  device, as the reference's ``"never"`` takes its jnp version on any
+  backend;
+- otherwise a tensor on the CPU takes the plain version, and
   ``"always"`` raises there, since the kernels exist only on the card;
-- a CUDA tensor takes the hand kernel, or the call raises: ``"never"``
-  raises rather than run the plain version on the card (``chip_smoke.py``
-  calls ``kernels/ref.py`` directly when it compares the two).
+- otherwise a CUDA tensor takes the hand kernel, or the call raises
+  where the kernel cannot build, launch or fit (the peel kernels refuse
+  a block whose bits exceed shared memory, e.g. ``ratio=0.001``). The
+  plain version never stands in silently: it runs on the card only when
+  the caller asks for ``"never"``.
 
 The fused wire kernels have both legs of the reference: with
 ``exponents`` and ``mantissa_bits`` the producer quantizes to the fxp32
@@ -39,27 +44,28 @@ __all__ = ["LAUNCHES", "sketch_encode", "sketch_peel", "encode_pack_quantize",
            "sketch_estimate", "kernel_occupancy", "kernel_threads"]
 
 
-def _use_kernel(cfg: CompressionConfig, t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        if cfg.use_pallas == "never":
-            raise ValueError(
-                "use_pallas='never' on a CUDA tensor: the plain versions run "
-                "on the card only through repro_torch.kernels.ref")
-        return True
-    if t.device.type == "cpu":
-        if cfg.use_pallas == "always":
-            raise ValueError(
-                "use_pallas='always' needs a CUDA tensor: the hand kernels "
-                "exist only on the card")
+def _use_kernel(cfg: CompressionConfig, device: torch.device) -> bool:
+    """Whether a call on ``device`` under ``cfg.use_pallas`` launches the
+    hand kernel (True) or runs the plain version (False); raises where
+    the policy cannot be met there."""
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    if cfg.use_pallas == "never":
         return False
-    raise ValueError(f"unsupported device {t.device}")
+    if device.type == "cuda":
+        return True
+    if cfg.use_pallas == "always":
+        raise ValueError(
+            "use_pallas='always' needs a CUDA tensor: the hand kernels "
+            "exist only on the card")
+    return False
 
 
 def sketch_encode(xb: torch.Tensor, block_ids: torch.Tensor,
                   cfg: CompressionConfig) -> torch.Tensor:
     """(nb, G, c) values (f32, f16 or bf16) + (nb,) int32 ids ->
     (nb, rows, c) f32 sketch."""
-    if _use_kernel(cfg, xb):
+    if _use_kernel(cfg, xb.device):
         return sketch_encode_cuda(xb, block_ids, cfg)
     return ref_ops.sketch_encode_ref(xb, block_ids, cfg)
 
@@ -68,7 +74,7 @@ def sketch_peel(sketch: torch.Tensor, bits: torch.Tensor,
                 block_ids: torch.Tensor, cfg: CompressionConfig):
     """(nb, rows, c) sketch + (nb, G, c) bits -> (values f32, residual
     int8), both (nb, G, c)."""
-    if _use_kernel(cfg, sketch):
+    if _use_kernel(cfg, sketch.device):
         return sketch_peel_cuda(sketch, bits, block_ids, cfg)
     return ref_ops.sketch_peel_ref(sketch, bits, block_ids, cfg)
 
@@ -100,7 +106,7 @@ def encode_pack_quantize(xb: torch.Tensor, block_ids: torch.Tensor,
     is the fxp32 int32 one when (nb,) int32 per-block ``exponents`` and
     ``mantissa_bits`` are given."""
     _check_fused(cfg, exponents, mantissa_bits)
-    if _use_kernel(cfg, xb):
+    if _use_kernel(cfg, xb.device):
         return encode_pack_quantize_cuda(xb, block_ids, cfg, exponents=exponents,
                                          mantissa_bits=mantissa_bits)
     return ref_ops.encode_pack_quantize_ref(
@@ -117,7 +123,7 @@ def dequant_peel_unpack(sketch: torch.Tensor, words: torch.Tensor,
     the same pass with (nb,) int32 per-block ``exponents`` and
     ``mantissa_bits``."""
     _check_fused(cfg, exponents, mantissa_bits)
-    if _use_kernel(cfg, sketch):
+    if _use_kernel(cfg, sketch.device):
         return dequant_peel_unpack_cuda(sketch, words, block_ids, cfg,
                                         exponents=exponents,
                                         mantissa_bits=mantissa_bits)
@@ -129,10 +135,11 @@ def dequant_peel_unpack(sketch: torch.Tensor, words: torch.Tensor,
 def wire_codec_passes(cfg: CompressionConfig, quantized: bool = False,
                       device: str | torch.device = "cuda"):
     """Analytic pass counts over the bucket stream per wire direction on
-    ``device``: the fused kernels make 1 each way; the composed plain
-    versions encode + pack (+ quantize) and unpack + peel (+ dequant)."""
-    if (fused_wire_supported(cfg) and torch.device(device).type == "cuda"
-            and cfg.use_pallas != "never"):
+    ``device``, as the dispatch runs them there: the fused kernels make 1
+    each way; the composed plain versions encode + pack (+ quantize) and
+    unpack + peel (+ dequant). Raises where the dispatch raises for the
+    policy on that device."""
+    if fused_wire_supported(cfg) and _use_kernel(cfg, torch.device(device)):
         return {"producer": 1, "consumer": 1}
     extra = 1 if quantized else 0
     return {"producer": 2 + extra, "consumer": 2 + extra}

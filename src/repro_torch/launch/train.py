@@ -6,7 +6,8 @@
 
 Trains the named architecture at its published widths (``--layers`` cuts
 the depth; ``--smoke`` takes the reduced same-family config instead) with
-``--workers`` data-parallel workers emulated on one device, and prints a
+``--workers`` data-parallel workers emulated on one device (or run as
+``--procs`` processes, below), and prints a
 JSON summary. ``--aggregator`` picks the strategy and ``--wire`` the
 in-network tier's wire (``f32``, or ``fxp32``: the sketch quantized to
 shared-exponent int32 for the switch). ``--index bloom`` swaps the
@@ -16,6 +17,12 @@ sparsity the filter is sized for. ``--accum-steps`` defaults to 1:
 the config's microbatch count is sized for the reference's pod-scale
 global batch, and a small batch split over the workers cannot take it.
 ``--device cpu`` runs the plain PyTorch versions of the codec kernels.
+
+``--procs W`` runs the W workers as W spawned processes, one rank each
+(:mod:`repro_torch.launch.ranks`): gloo where the ranks share a device
+(the CPU, or one card), NCCL with rank r on ``cuda:r`` where there are W
+cards. The summary printed is rank 0's; a rank that fails, or a run
+past ``--timeout`` seconds, ends the launch with an error.
 """
 
 from __future__ import annotations
@@ -25,31 +32,9 @@ import dataclasses
 import json
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
-    ap.add_argument("--smoke", action="store_true",
-                    help="use the reduced config (CPU-sized)")
-    ap.add_argument("--layers", type=int, default=None,
-                    help="cut n_layers to this depth")
-    ap.add_argument("--workers", type=int, default=2)
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--seq-len", type=int, default=128)
-    ap.add_argument("--aggregator",
-                    choices=["dense", "compressed", "compressed_innet"],
-                    default=None)
-    ap.add_argument("--wire", choices=["f32", "fxp32"], default=None,
-                    help="the in-network tier's sketch wire")
-    ap.add_argument("--index", choices=["bitmap", "bloom"], default=None,
-                    help="the non-zero index of the compressed wire")
-    ap.add_argument("--topk-ratio", type=float, default=None,
-                    help="share of each leaf a worker sends")
-    ap.add_argument("--accum-steps", type=int, default=1)
-    ap.add_argument("--lr", type=float, default=None)
-    ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-
+def _train(group, device, args):
+    """Train as ``args`` say on ``device``: every worker here (``group``
+    None), or this rank's of ``group``. Returns the summary."""
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import model_api
     from repro_torch.train.loop import run_training
@@ -70,18 +55,66 @@ def main(argv=None):
     if args.lr:
         tc = dataclasses.replace(tc, optimizer=dataclasses.replace(
             tc.optimizer, lr=args.lr, total_steps=args.steps))
+    quiet = group is not None and group.rank != 0
     res = run_training(model_api(cfg), tc, global_batch=args.global_batch,
                        seq_len=args.seq_len, steps=args.steps,
-                       device=args.device)
-    summary = {
+                       device=device, group=group,
+                       log_every=0 if quiet else 10)
+    return {
         "arch": args.arch, "layers": cfg.n_layers, "workers": tc.workers,
+        "procs": args.procs or 1,
         "aggregator": tc.aggregator, "wire": tc.compression.wire_dtype,
         "index": tc.compression.index,
         "topk_ratio": tc.compression.topk_ratio,
         "device": args.device,
         "first_loss": res.losses[0], "last_loss": res.losses[-1],
-        "steps": res.final_step,
+        "losses": res.losses, "steps": res.final_step,
     }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut n_layers to this depth")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="data-parallel workers W (default 2, or --procs)")
+    ap.add_argument("--procs", type=int, default=None,
+                    help="run the W workers as this many processes")
+    ap.add_argument("--timeout", type=float, default=3600.0,
+                    help="seconds the spawned ranks may take in all")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--aggregator",
+                    choices=["dense", "compressed", "compressed_innet"],
+                    default=None)
+    ap.add_argument("--wire", choices=["f32", "fxp32"], default=None,
+                    help="the in-network tier's sketch wire")
+    ap.add_argument("--index", choices=["bitmap", "bloom"], default=None,
+                    help="the non-zero index of the compressed wire")
+    ap.add_argument("--topk-ratio", type=float, default=None,
+                    help="share of each leaf a worker sends")
+    ap.add_argument("--accum-steps", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.procs is not None:
+        if args.workers not in (None, args.procs):
+            ap.error(f"--workers {args.workers} with --procs {args.procs}: "
+                     "one worker a process")
+        args.workers = args.procs
+    elif args.workers is None:
+        args.workers = 2
+
+    if args.procs:
+        from repro_torch.launch.ranks import spawn_ranks
+        summary = spawn_ranks(_train, args.procs, (args,),
+                              device=args.device, timeout=args.timeout)[0]
+    else:
+        summary = _train(None, args.device, args)
     print(json.dumps(summary))
     return summary
 

@@ -11,7 +11,7 @@ reference's ``repro.net.fixedpoint``:
   kernel's per-block ``maxabs`` through
   :meth:`FixedPointWire.exponents_from_maxabs`), and the workers agree on
   the elementwise max (:meth:`FixedPointWire.shared_exponents`, a max
-  over :class:`repro_torch.core.collectives.LocalWorkers`), so every
+  over the workers of a ``repro_torch.core.collectives`` group), so every
   worker quantizes against the same scale;
 - ``encode``: ``q = rint(y * 2^(M - e))`` as int32, ``M = mantissa_bits``;
 - ``decode``: ``float32(q) * 2^(e - M)``.

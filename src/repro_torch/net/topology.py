@@ -3,18 +3,21 @@
 Workers send their sketch and bitmap up a worker -> ToR -> spine tree
 once, switches combine (integer add, OR) as the stream passes, and the
 root broadcasts the aggregate back down. :class:`Topology` maps that tree
-onto the data-parallel levels of a
-:class:`repro_torch.core.collectives.LocalWorkers` group (the
-reference's mesh axes) and accounts its links;
-:func:`tree_all_reduce` is the schedule: a binary reduce-to-root per
-level, innermost first, then the broadcast.
+onto the data-parallel levels of a group
+(:class:`repro_torch.core.collectives.LocalWorkers` or
+``ProcessGroupWorkers``: the reference's mesh axes) and accounts its
+links; :func:`tree_all_reduce` is the schedule: a binary reduce-to-root
+per level, innermost first, then the broadcast back down.
 
 As in the reference, the tree combines with integer add or bitwise OR
 only and rejects float operands: the float sketch goes through the
 fixed-point wire first (:mod:`repro_torch.net.fixedpoint`). Both
 combiners are exact, so the tree's result equals the flat sum and OR of
-the same payloads bit for bit. The port's W workers are emulated on one
-device, so the broadcast hands every worker the root's tensor.
+the same payloads bit for bit. Over ``LocalWorkers`` the W workers are
+emulated on one device, so the broadcast hands every worker the root's
+tensor; over a process group each step is a point-to-point send
+between the ranks of one level's subgroup (:func:`reduce_to_root`,
+:func:`broadcast_from_root`), with the reference's pairs.
 
 Wire model per direction (``P`` = payload bytes): every worker sends
 ``P`` once up its link and receives ``P`` once back; a level-i switch
@@ -29,6 +32,9 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.core.collectives import DPLevel, exchange
+from .fixedpoint import ceil_log2
 
 TOPOLOGIES = ("flat", "tor_spine")
 
@@ -107,7 +113,8 @@ class Topology:
 
 
 def make_topology(kind: str, group) -> Topology:
-    """Map ``kind`` onto ``group.levels`` (a ``LocalWorkers``). ``flat``:
+    """Map ``kind`` onto ``group.levels`` (a ``LocalWorkers`` or a
+    ``ProcessGroupWorkers``). ``flat``:
     one switch tier with all W workers as ports. ``tor_spine``: one tier
     per level, so it needs two levels or more (a ToR tier and a spine)."""
     if kind not in TOPOLOGIES:
@@ -143,48 +150,94 @@ def _combine_fn(combine: str, dtype: torch.dtype):
     raise ValueError(f"combine must be 'add' or 'or', got {combine!r}")
 
 
-def reduce_to_root(parts: Sequence[torch.Tensor], combine: str
-                   ) -> List[torch.Tensor]:
-    """Binary-tree reduction of one level's payloads to its rank 0 in
-    ceil(log2 n) steps, child ``r + d`` sending its subtotal to ``r``.
-    Ranks other than 0 end with stale partials."""
-    x = list(parts)
-    comb = _combine_fn(combine, x[0].dtype)
+def _reduce_steps(n: int):
+    """The reduce-to-root schedule on a level of ``n``: per step, the
+    (child, parent) pairs, child ``r + d`` sending its subtotal to ``r``
+    for d = 1, 2, 4, ..."""
     d = 1
-    while d < len(x):
-        for i in range(d, len(x), 2 * d):
-            x[i - d] = comb(x[i - d], x[i])
+    while d < n:
+        yield [(i, i - d) for i in range(d, n, 2 * d)]
         d *= 2
+
+
+def _broadcast_steps(n: int):
+    """The inverse tree: per step, the (parent, child) pairs that carry
+    rank 0's value down, the widest distance first."""
+    if n == 1:
+        return
+    d = 1 << (ceil_log2(n) - 1)
+    while d >= 1:
+        yield [(i - d, i) for i in range(d, n, 2 * d)]
+        d //= 2
+
+
+def reduce_to_root(x: torch.Tensor, level: DPLevel, combine: str
+                   ) -> torch.Tensor:
+    """Binary-tree reduction of this rank's payload to rank 0 of the
+    level in ceil(log2 n) point-to-point steps. Ranks other than 0 end
+    with stale partials (the broadcast overwrites them)."""
+    comb = _combine_fn(combine, x.dtype)
+    for pairs in _reduce_steps(level.size):
+        for child, parent in pairs:
+            if child == level.index:
+                exchange(level, sends=[(x, parent)])
+            elif parent == level.index:
+                recv = torch.empty_like(x)
+                exchange(level, recvs=[(recv, child)])
+                x = comb(x, recv)
     return x
 
 
-def broadcast_from_root(x: torch.Tensor, n: int) -> List[torch.Tensor]:
-    """The root's aggregate as every one of ``n`` workers receives it: on
-    one device they all read the root's tensor, so nothing is copied."""
-    return [x] * n
+def broadcast_from_root(x: torch.Tensor, level: DPLevel) -> torch.Tensor:
+    """Rank 0's value of the level reaches every rank of it in
+    ceil(log2 n) point-to-point steps."""
+    for pairs in _broadcast_steps(level.size):
+        for parent, child in pairs:
+            if parent == level.index:
+                exchange(level, sends=[(x, child)])
+            elif child == level.index:
+                x = torch.empty_like(x)
+                exchange(level, recvs=[(x, parent)])
+    return x
 
 
 def _reduce_levels(parts: List[torch.Tensor], topo: Topology,
                    combine: str) -> torch.Tensor:
-    """Reduce level by level, innermost first: at level l the ranks are
-    the roots of level l-1 (workers at a stride of the sizes below)."""
+    """Emulated on one device: reduce level by level, innermost first; at
+    level l the ranks are the roots of level l-1 (workers at a stride of
+    the sizes below)."""
+    comb = _combine_fn(combine, parts[0].dtype)
     stride = 1
     for size in topo.sizes:
         span = stride * size
         for base in range(0, topo.workers, span):
-            parts[base:base + span:stride] = reduce_to_root(
-                parts[base:base + span:stride], combine)
+            for pairs in _reduce_steps(size):
+                for child, parent in pairs:
+                    p, c = base + parent * stride, base + child * stride
+                    parts[p] = comb(parts[p], parts[c])
         stride = span
     return parts[0]
 
 
+def _tree_p2p(x: torch.Tensor, levels: Sequence[DPLevel],
+              combine: str) -> torch.Tensor:
+    for level in levels:
+        x = reduce_to_root(x, level, combine)
+    for level in reversed(levels):
+        x = broadcast_from_root(x, level)
+    return x
+
+
 def tree_all_reduce(parts: Sequence[torch.Tensor], topo: Topology,
-                    combine: str, window_slots: Optional[int] = None
-                    ) -> List[torch.Tensor]:
+                    combine: str, window_slots: Optional[int] = None,
+                    group=None) -> List[torch.Tensor]:
     """Reduce-to-root over the topology's levels, then broadcast: the
-    aggregate each of the W workers holds. ``parts[w]`` is worker w's
-    payload; ``combine`` is ``"add"`` (integer) or ``"or"``, and float
-    payloads raise.
+    aggregate each local worker holds. ``parts`` are the payloads of the
+    local workers of ``group`` (default: all ``topo.workers``, emulated
+    on one device); ``combine`` is ``"add"`` (integer) or ``"or"``, and
+    float payloads raise. Over a ``ProcessGroupWorkers`` the steps are
+    sends between the ranks of each level's subgroup, staged as the
+    group's other collectives.
 
     ``window_slots``: the leading dim of each payload is a stream of
     chunks (buckets), reduced at most ``window_slots`` at a time, window
@@ -193,20 +246,27 @@ def tree_all_reduce(parts: Sequence[torch.Tensor], topo: Topology,
     schedule.
     """
     parts = list(parts)
-    if len(parts) != topo.workers:
-        raise ValueError(f"{len(parts)} payloads for a tree of "
-                         f"{topo.workers} workers")
+    local = topo.workers if group is None else group.local_workers
+    if len(parts) != local:
+        raise ValueError(f"{len(parts)} payloads for {local} local workers "
+                         f"of a tree of {topo.workers}")
     _combine_fn(combine, parts[0].dtype)
-    if window_slots is not None:
-        if window_slots < 1:
-            raise ValueError(
-                f"window_slots must be >= 1, got {window_slots}")
-        n = parts[0].shape[0]
-        if n > window_slots:
-            root = torch.cat([
-                _reduce_levels([p[w0:w0 + window_slots] for p in parts],
-                               topo, combine)
-                for w0 in range(0, n, window_slots)])
-            return broadcast_from_root(root, topo.workers)
-    return broadcast_from_root(_reduce_levels(parts, topo, combine),
-                               topo.workers)
+    if window_slots is not None and window_slots < 1:
+        raise ValueError(f"window_slots must be >= 1, got {window_slots}")
+    n = parts[0].shape[0]
+    windows = ([(0, n)] if window_slots is None or n <= window_slots else
+               [(w0, w0 + window_slots) for w0 in range(0, n, window_slots)])
+    if local == topo.workers:
+        if len(windows) == 1:
+            root = _reduce_levels(parts, topo, combine)
+        else:
+            root = torch.cat([_reduce_levels([p[a:b] for p in parts], topo,
+                                             combine) for a, b in windows])
+        return [root] * topo.workers
+    if tuple(group.levels) != topo.sizes:
+        raise ValueError(f"topology levels {topo.sizes} are not the "
+                         f"group's {tuple(group.levels)}")
+    wire = group.to_wire(parts[0])
+    out = torch.cat([_tree_p2p(wire[a:b], group.dp_levels, combine)
+                     for a, b in windows])
+    return [out.to(parts[0].device)]

@@ -2,8 +2,8 @@
 data-parallel world, optimizer, memory policy.
 
 The reference's ``TrainConfig`` without ``sharding``: ``workers`` stands
-in for the data-parallel world (W workers emulated on one device, see
-``core/collectives.LocalWorkers``) and ``dp_levels`` for the mesh's
+in for the data-parallel world (W workers, emulated on one device or run
+as W ranks: see ``core/collectives``) and ``dp_levels`` for the mesh's
 data-parallel axes (the level sizes, innermost first, that the
 in-network tier's ``tor_spine`` tree maps onto; empty means one level of
 all W). ``remat`` defaults to ``"none"``, the only policy the port runs.

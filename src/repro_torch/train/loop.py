@@ -37,13 +37,16 @@ def device_batch(host: Dict, device) -> Dict[str, torch.Tensor]:
 def run_training(api: ModelAPI, tc: TrainConfig, *, global_batch: int,
                  seq_len: int, steps: int, device="cuda",
                  params: Optional[ParamTree] = None, log_every: int = 10,
-                 log_fn: Callable[[str], None] = print) -> TrainResult:
+                 log_fn: Callable[[str], None] = print,
+                 group=None) -> TrainResult:
     """Train ``steps`` steps from a fresh state (``params`` replaces the
-    random init); batch ``s`` is the pipeline's batch of step ``s``."""
+    random init); batch ``s`` is the pipeline's batch of step ``s``, and
+    ``group`` picks the workers this process runs (default: all
+    ``tc.workers`` emulated here; see ``build_train_step``)."""
     device = torch.device(device)
     make_batch = batch_fn(api.cfg, global_batch, seq_len, seed=tc.seed)
-    state = init_train_state(api, tc, device, params=params)
-    step_fn = build_train_step(api, tc)
+    state = init_train_state(api, tc, device, params=params, group=group)
+    step_fn = build_train_step(api, tc, group=group)
     losses, all_metrics, secs = [], [], []
     for step in range(steps):
         t0 = time.perf_counter()

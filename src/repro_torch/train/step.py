@@ -11,10 +11,14 @@ The step follows the reference's Algorithm 1 deployment:
      aggregates densely;
   3. the optimizer applies the mean gradient, replicated.
 
-The workers run in turn on one device (``core/collectives.LocalWorkers``).
-The update is the replicated ``new_p`` of the reference's ``zero1=False``
-path; ZeRO-1 comes with the reduce-scatter slice. Parameters, moments and
-error-feedback residuals are updated in place.
+The workers are those of a group (``core/collectives``): by default all
+W run in turn in this process on one device (``LocalWorkers``); with a
+``ProcessGroupWorkers`` this process is one rank and runs its own worker
+on its rows of the global batch. Every rank applies the same aggregate,
+so the parameters stay replicated. The update is the replicated
+``new_p`` of the reference's ``zero1=False`` path; ZeRO-1 comes with the
+reduce-scatter slice. Parameters, moments and error-feedback residuals
+are updated in place.
 """
 
 from __future__ import annotations
@@ -36,21 +40,25 @@ from . import optimizer as opt_lib
 class TrainState:
     params: ParamTree
     opt: Dict[str, List[torch.Tensor]]
-    residual: List[torch.Tensor]   # EF residuals (W, *shape), or (0,) stubs
+    residual: List[torch.Tensor]   # EF residuals (local workers, *shape), or (0,) stubs
     step: int
 
 
 def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
-                     params: ParamTree | None = None) -> TrainState:
+                     params: ParamTree | None = None,
+                     group=None) -> TrainState:
     """Fresh state; ``params`` (e.g. from ``convert.params_from_jax``)
-    replaces the random init from ``tc.seed``."""
+    replaces the random init from ``tc.seed``. The error-feedback
+    residuals have one row per local worker of ``group`` (default: all
+    ``tc.workers``)."""
     params = api.init(tc.seed, device) if params is None else params
     leaves = params.leaves()
     opt = opt_lib.init_opt_state(leaves, tc.optimizer)
     ccfg = tc.compression
     if tc.aggregator != "dense" and ccfg.topk_ratio is not None \
             and ccfg.error_feedback:
-        residual = [torch.zeros((tc.workers,) + tuple(p.shape),
+        local = tc.workers if group is None else group.local_workers
+        residual = [torch.zeros((local,) + tuple(p.shape),
                                 dtype=torch.float32, device=p.device)
                     for p in leaves]
     else:
@@ -59,11 +67,18 @@ def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
     return TrainState(params=params, opt=opt, residual=residual, step=0)
 
 
-def build_train_step(api: ModelAPI, tc: TrainConfig):
+def build_train_step(api: ModelAPI, tc: TrainConfig, group=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``; ``batch``
-    holds the global batch's tensors on the params' device."""
+    holds the global batch's tensors on the params' device, and the step
+    runs the rows of ``group``'s local workers (default: a
+    ``LocalWorkers`` of ``tc.workers`` on ``tc.dp_levels``)."""
     W = tc.workers
-    group = LocalWorkers(W, tc.dp_levels)
+    if group is None:
+        group = LocalWorkers(W, tc.dp_levels)
+    if group.workers != W or tuple(group.levels) != (tc.dp_levels or (W,)):
+        raise ValueError(f"group of {group.workers} workers on levels "
+                         f"{tuple(group.levels)} for a config of {W} on "
+                         f"{tc.dp_levels or (W,)}")
     ocfg = tc.optimizer
     aggregator = agg_lib.make_aggregator(
         tc.aggregator if W > 1 else "dense", tc.compression, group)
@@ -116,7 +131,8 @@ def build_train_step(api: ModelAPI, tc: TrainConfig):
             raise ValueError(f"global batch {B} does not split over {W} workers")
         per = B // W
         losses, metrics_w, grads_w = [], [], []
-        for w in range(W):
+        for w in range(group.first_worker,
+                       group.first_worker + group.local_workers):
             loss, metrics, grads = local_grads(
                 state.params, {k: v[w * per:(w + 1) * per] for k, v in batch.items()})
             losses.append(loss)
@@ -128,9 +144,12 @@ def build_train_step(api: ModelAPI, tc: TrainConfig):
             del grads_w
             gnorm = apply_updates(state, grads)
         stats = agg_state.stats
-        out = {k: group.sum([m[k] for m in metrics_w]) / W for k in metrics_w[0]}
+        names = list(metrics_w[0])    # one reduction for the loss and metrics
+        mean = group.sum([torch.stack([l, *(m[k] for k in names)])
+                          for l, m in zip(losses, metrics_w)]) / W
+        out = dict(zip(names, mean[1:]))
         out["grad_norm"] = gnorm
-        out["loss"] = group.sum(losses) / W
+        out["loss"] = mean[0]
         if stats is not None:
             out.update(recovery_nnz=stats.nnz, recovery_peeled=stats.peeled,
                        recovery_residual=stats.residual)

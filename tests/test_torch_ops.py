@@ -185,6 +185,33 @@ def test_wire_codec_passes():
     assert ops.wire_codec_passes(never) == {"producer": 2, "consumer": 2}
 
 
+@pytest.mark.parametrize("policy", ["auto", "never", "always"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_wire_codec_passes_agree_with_dispatch(policy, device):
+    """The analytic pass counts follow the dispatch on every device and
+    policy: one pass each way where the fused kernel runs, the composed
+    plain passes where the plain version runs, and a raise where the
+    dispatch raises. Analytic, so the CUDA rows run without a card."""
+    cfg = dataclasses.replace(CFGS[0], use_pallas=policy)
+    dev = torch.device(device)
+    if device == "cpu" and policy == "always":
+        with pytest.raises(ValueError, match="CUDA"):
+            ops._use_kernel(cfg, dev)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.wire_codec_passes(cfg, device=device)
+        return
+    passes = 1 if ops._use_kernel(cfg, dev) else 2
+    assert passes == (1 if device == "cuda" and policy != "never" else 2)
+    assert ops.wire_codec_passes(cfg, device=device) == \
+        {"producer": passes, "consumer": passes}
+    if device == "cpu":          # what the dispatch runs here, counted
+        xb, ids = blocks(cfg, 2, 0.05, 6), ids_for(2)
+        before = dict(ops.LAUNCHES)
+        ops.dequant_peel_unpack(*ops.encode_pack_quantize(xb, ids, cfg)[:2],
+                                ids, cfg)
+        assert ops.LAUNCHES == before
+
+
 def test_sketch_estimate_is_the_plain_median():
     cfg = CFGS[0]
     xb, ids = blocks(cfg, 2, 0.03, 5), ids_for(2)
@@ -364,10 +391,19 @@ def test_kernels_repeat_bit_for_bit_and_count_launches(cuda_dev):
 
 @pytest.mark.cuda
 def test_cuda_dispatch_rules(cuda_dev):
+    """``"never"`` runs the plain version on the card and counts no
+    launch; ``"auto"`` still raises where a kernel cannot fit."""
     cfg = dataclasses.replace(CFGS[0], use_pallas="never")
     xb, ids = blocks(cfg, 1, 0.05, 10).to(cuda_dev), ids_for(1, 0, cuda_dev)
-    with pytest.raises(ValueError, match="never"):
-        ops.encode_pack_quantize(xb, ids, cfg)
+    before = dict(ops.LAUNCHES)
+    got = ops.encode_pack_quantize(xb, ids, cfg)
+    want = ref.encode_pack_quantize_ref(xb, ids, cfg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = ops.dequant_peel_unpack(want[0], want[1], ids, cfg)
+    want = ref.dequant_peel_unpack_ref(want[0], want[1], ids, cfg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].device.type == "cuda"
+    assert ops.LAUNCHES == before
     with pytest.raises(TypeError, match="int32"):   # exponents on the card, f32
         ops.encode_pack_quantize(xb, ids, CFGS[0],
                                  exponents=torch.zeros(1, device=cuda_dev),
@@ -380,6 +416,10 @@ def test_cuda_dispatch_rules(cuda_dev):
     w = torch.zeros((1, huge.block_elems // 32), dtype=torch.int32, device=cuda_dev)
     with pytest.raises(ValueError, match="shared memory"):
         ops.dequant_peel_unpack(sk, w, ids, huge)
+    never = dataclasses.replace(huge, use_pallas="never")
+    got = ops.dequant_peel_unpack(sk, w, ids, never)
+    want = ref.dequant_peel_unpack_ref(sk, w, ids, never)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
 # ----------------------------------------------------------------------
@@ -558,18 +598,27 @@ def test_standalone_encode_takes_half_precision(cuda_dev, dtype):
 
 @pytest.mark.cuda
 def test_standalone_cuda_dispatch_rules(cuda_dev):
+    """As ``test_cuda_dispatch_rules``, for the standalone encode and
+    peel."""
     cfg = dataclasses.replace(STD_CFGS[-2], use_pallas="never")
     xb, ids = blocks(cfg, 1, 0.05, 55).to(cuda_dev), ids_for(1, 0, cuda_dev)
-    with pytest.raises(ValueError, match="never"):
-        ops.sketch_encode(xb, ids, cfg)
-    with pytest.raises(ValueError, match="never"):
-        ops.sketch_peel(torch.zeros((1, cfg.rows, cfg.lanes), device=cuda_dev),
-                        xb != 0, ids, cfg)
+    before = dict(ops.LAUNCHES)
+    y = ops.sketch_encode(xb, ids, cfg)
+    assert y.device.type == "cuda"
+    assert torch.equal(y, ref.sketch_encode_ref(xb, ids, cfg))
+    got = ops.sketch_peel(y, xb != 0, ids, cfg)
+    want = ref.sketch_peel_ref(y, xb != 0, ids, cfg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ops.LAUNCHES == before
     huge = CompressionConfig(ratio=0.001, rows=6)   # bits alone > shared memory
     sk = torch.zeros((1, huge.rows, huge.lanes), device=cuda_dev)
     bits = torch.zeros((1, huge.group, huge.lanes), dtype=torch.bool, device=cuda_dev)
     with pytest.raises(ValueError, match="shared memory"):
         ops.sketch_peel(sk, bits, ids, huge)
+    never = dataclasses.replace(huge, use_pallas="never")
+    got = ops.sketch_peel(sk, bits, ids, never)
+    want = ref.sketch_peel_ref(sk, bits, ids, never)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 # ----------------------------------------------------------------------

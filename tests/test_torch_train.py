@@ -19,6 +19,7 @@ p_s)`` instead, which the port's replicated update does not reproduce
 bit for bit.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -192,3 +193,20 @@ def test_launcher_runs_on_cpu():
                 "--device", "cpu"])
     assert out["workers"] == 2 and out["aggregator"] == "compressed"
     assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
+
+
+def test_launcher_procs_print_rank0_summary_equal_to_one_process(capsys):
+    """``--procs 2`` spawns two gloo ranks on the CPU; the summary printed
+    is rank 0's, and its losses are the one-process W=2 run's."""
+    from repro_torch.launch.train import main
+    argv = ["--arch", "granite-3-2b", "--smoke", "--steps", "2",
+            "--global-batch", "4", "--seq-len", "16", "--device", "cpu"]
+    one = main(argv + ["--workers", "2"])
+    capsys.readouterr()
+    two = main(argv + ["--procs", "2"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == two
+    assert (two["procs"], two["workers"], one["procs"]) == (2, 2, 1)
+    assert two["losses"] == one["losses"] and len(two["losses"]) == 2
+    with pytest.raises(SystemExit):
+        main(argv + ["--procs", "2", "--workers", "3"])
