@@ -132,10 +132,47 @@ The ``torch.distributed`` slice (W ranks as processes):
     says to two ranks on one device and what gloo does with a CUDA
     tensor sent point to point.
 
+The streamed wire, the reduce-scatter wire and ZeRO-1 (phases 4, 9 and
+18 now also take each step's parameter sha256):
+
+19. stream_train — LocalWorkers, W=2: the train of phase 4 with
+    ``overlap=True`` (415 one-bucket chunks: W producer launches a chunk,
+    one consumer launch a step) and the train of phase 9 likewise (52
+    chunks of 8 switch slots); each step's parameter sha256, the losses
+    and the recovery equal the unstreamed phase's. Then the producer
+    stage chunked (one launch a chunk, and one launch alone) beside the
+    one-launch producer, on a synthetic 4% stream.
+20. rs_train — LocalWorkers, W=2: ``compressed_rs`` on the native wire
+    with ZeRO-1, one-shot (W consumer launches a step, one a worker's
+    half) and streamed (208 chunks of 2 buckets: W producer and W
+    consumer launches a chunk); the two runs' parameter sha256 equal
+    after every step, their recovery equal, step 0's equal to phase 4's,
+    losses within rtol 1e-3 of phase 4's. Then the consumer on a half
+    stream and on one chunk's slice beside the whole stream.
+21. dist_rs — W=2 ranks as in phase 18: the ``compressed_rs`` + ZeRO-1
+    arm (native, one-shot) and the streamed ``compressed`` arm; after
+    every step each arm's parameter sha256 equal on both ranks and to its
+    emulation (phase 20's one-shot arm; phase 4, which phase 19 equals),
+    each rank's launches the emulation's share; per arm the steps, the
+    last step's collectives replayed alone by operation (sketch and word
+    reduce-scatters, the recovered-chunk and ZeRO-1 delta gathers, the
+    sketch sum and word OR) with their payload bytes a rank, and peak
+    memory a rank; for the streamed arm each step's summed reduce time
+    and its overlap with the next chunk's producer (host clock around
+    each reduce on the communication thread, CUDA events after each
+    producer, placed on the host clock by a synchronised event when the
+    stream starts); and what gloo's ``reduce_scatter_tensor`` does on
+    the card's torch.
+22. gather_skip — the same ranks: a synthetic aligned two-leaf tree takes
+    the gather-skip path, each rank's aggregate equal to the full
+    gather's on its owned coordinates and zero elsewhere and the norm
+    summed over the ranks equal to the full gather's; the full-width
+    granite shapes take it on no chunk grid.
+
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path, ``dist_train``'s
-summed over the ranks, for the three peel kernels the rounds histogram,
+and ``dist_rs``'s summed over the ranks, for the three peel kernels the rounds histogram,
 for the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
@@ -738,12 +775,17 @@ class BloomObserver:
         self.held.clear()
 
 
-def phase_train(dev, phase="train", wire="f32", fields=None):
+def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
+                want=None, emit_line=True):
     """The main path: ``compressed`` (``wire="f32"``) or, with
     ``wire="fxp32"``, ``compressed_innet`` on the fxp32 wire; ``fields``
     override the config's compression fields (the Bloom path:
-    ``index="bloom"``, a 0.1% top-k). The launch counters are zeroed just
-    before the run and read just after."""
+    ``index="bloom"``, a 0.1% top-k; the streamed paths: ``overlap``),
+    ``tc_fields`` its train fields (``aggregator``, ``zero1``), and
+    ``want`` the launch counts the run must give (default: the unstreamed
+    paths'). The launch counters are zeroed just before the run and read
+    just after; the parameters' sha256 is taken after every step, outside
+    the step's clock."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -758,32 +800,44 @@ def phase_train(dev, phase="train", wire="f32", fields=None):
         aggregator="compressed_innet" if innet else "compressed",
         compression=dataclasses.replace(arch.train.compression, wire_dtype=wire,
                                         **(fields or {})))
+    tc = dataclasses.replace(tc, **(tc_fields or {}))
     bloom = tc.compression.index == "bloom"
     api = model_api(mcfg)
     torch.cuda.reset_peak_memory_stats()
     observer = BloomObserver() if bloom else None
+    params = api.init(tc.seed, dev)
+    digests = []
+
+    def after_step(line):
+        if observer is not None:
+            observer.after_step(line)
+        digests.append(param_digest(params))
+
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     if bloom:
         with observer:
             res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
-                               steps=STEPS, device=dev, log_every=1,
-                               log_fn=observer.after_step)
+                               steps=STEPS, device=dev, params=params,
+                               log_every=1, log_fn=after_step)
     else:
         res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
-                           steps=STEPS, device=dev, log_every=0)
+                           steps=STEPS, device=dev, params=params,
+                           log_every=1, log_fn=after_step)
     launches = dict(ops.LAUNCHES)
-    want = dict.fromkeys(ops.LAUNCHES, 0)
-    if bloom:
+    expect = dict.fromkeys(ops.LAUNCHES, 0)
+    if want is not None:
+        expect.update(want)
+    elif bloom:
         # per step: W standalone encodes, one standalone peel, no fused leg
-        want.update(sketch_encode=WORKERS * STEPS, sketch_peel=STEPS)
+        expect.update(sketch_encode=WORKERS * STEPS, sketch_peel=STEPS)
     else:
         # per step: W f32 producer launches, then one consumer launch (the
         # dequant leg on the fxp32 wire); the quantize leg is off the path
-        want.update(encode_pack_quantize=WORKERS * STEPS)
-        want["dequant_peel_unpack_dq" if innet else "dequant_peel_unpack"] = STEPS
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
+        expect.update(encode_pack_quantize=WORKERS * STEPS)
+        expect["dequant_peel_unpack_dq" if innet else "dequant_peel_unpack"] = STEPS
+    if launches != expect:
+        raise AssertionError(f"{phase}: launch counts {launches}, expected {expect}")
     if not all(torch.isfinite(torch.tensor(res.losses))):
         raise AssertionError(f"non-finite loss: {res.losses}")
     recovery = [{k[len("recovery_"):]: int(m[k]) for k in m
@@ -800,10 +854,12 @@ def phase_train(dev, phase="train", wire="f32", fields=None):
            "index": tc.compression.index, "topk_ratio": tc.compression.topk_ratio,
            "topology": tc.compression.topology,
            "switch_slots": tc.compression.switch_slots,
+           "overlap": tc.compression.overlap, "zero1": tc.zero1,
            "steps": STEPS, "warmup_steps": 1,
            "step_ms": [s * 1e3 for s in res.step_seconds[1:]],
            "warmup_ms": res.step_seconds[0] * 1e3,
            "losses": res.losses, "launches": launches, "recovery": recovery,
+           "param_sha256_by_step": digests,
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     if bloom:
         for r, o in zip(recovery, observer.steps):
@@ -817,7 +873,8 @@ def phase_train(dev, phase="train", wire="f32", fields=None):
         out["bloom"] = observer.steps
         out["peak_mem_note"] = ("includes the observer's references to both "
                                 "workers' block streams")
-    emit(out)
+    if emit_line:
+        emit(out)
     return out, launches, api, tc, res.state
 
 
@@ -1441,21 +1498,39 @@ def param_digest(params):
 
 
 class WireLog:
-    """The group a ``dist_train`` rank hands its step: each collective
-    goes on to the rank's ``ProcessGroupWorkers``; the log keeps each
-    one's op, shape and dtype (``step_calls``: the last step's) and the
-    last word OR's input and output (references to the step's own
-    tensors)."""
+    """The group a ``dist_train`` / ``dist_rs`` rank hands its step: each
+    collective goes on to the rank's ``ProcessGroupWorkers``; the log
+    keeps each one's op, shape, dtype and name (``step_calls``: the last
+    step's) and the last word OR's input and output (references to the
+    step's own tensors). With ``timed``, a streamed aggregation's reduces
+    go through :class:`TimedIssue` (``streams``: one timeline a stream)."""
 
-    def __init__(self, group):
+    def __init__(self, group, timed=False):
         self.group, self.calls, self.step_calls, self.words = group, [], [], None
+        self.timed, self.streams, self.scattered = timed, [], False
 
     def __getattr__(self, name):
         return getattr(self.group, name)
 
     def _note(self, op, parts):
-        self.calls.append((op, tuple(parts[0].shape), parts[0].dtype))
+        self.calls.append((op, tuple(parts[0].shape), parts[0].dtype,
+                           self._label(op)))
         return getattr(self.group, op)(parts)
+
+    def _label(self, op):
+        """The replay's name for a call: the reduce-scatters by payload,
+        and a gather by where it falls in the step (the first after the
+        word reduce-scatter restores the recovered chunks; the others
+        gather the ZeRO-1 deltas)."""
+        if op == "bor_scatter":
+            self.scattered = True
+            return "word_reduce_scatter"
+        if op == "gather":
+            label = "recovered_chunk_gather" if self.scattered \
+                else "zero1_delta_gather"
+            self.scattered = False
+            return label
+        return {"sum_scatter": "sketch_reduce_scatter"}.get(op, op)
 
     def sum(self, parts):
         return self._note("sum", parts)
@@ -1468,8 +1543,65 @@ class WireLog:
         self.words = (parts[0], out)
         return out
 
+    def sum_scatter(self, parts):
+        return self._note("sum_scatter", parts)
+
+    def bor_scatter(self, parts):
+        return self._note("bor_scatter", parts)
+
+    def gather(self, parts):
+        return self._note("gather", parts)
+
+    def issuer(self):
+        inner = self.group.issuer()
+        return TimedIssue(inner, self) if self.timed else inner
+
     def end_step(self):
         self.step_calls, self.calls = self.calls, []
+
+
+def replay_collectives(group, calls, dev, staging=False):
+    """A step's logged collectives (``calls``: op, shape, dtype, name)
+    replayed alone on zero buffers, three times, each with the host clock
+    around it and a synchronise, totals and medians by name; with
+    ``staging``, also the copies to the wire's memory and back alone."""
+    import collections
+    import torch
+    import torch.distributed as dist
+    bufs = [(name, op, torch.zeros(shape, dtype=dtype, device=dev))
+            for op, shape, dtype, name in calls]
+    runs, by_label, copies = [], collections.defaultdict(list), []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        per = collections.Counter()
+        for name, op, b in bufs:
+            t = time.perf_counter()
+            getattr(group, op)([b])
+            torch.cuda.synchronize()
+            per[name] += (time.perf_counter() - t) * 1e3
+        runs.append((time.perf_counter() - t0) * 1e3)
+        for name, ms in per.items():
+            by_label[name].append(ms)
+    nbytes = collections.Counter()
+    for name, _, b in bufs:
+        nbytes[name] += b.numel() * b.element_size()
+    out = {"ms": runs, "ms_median": statistics.median(runs),
+           "ms_median_by_op": {k: statistics.median(v) for k, v in by_label.items()},
+           "calls": dict(collections.Counter(name for name, _, _ in bufs)),
+           "payload_bytes": dict(nbytes),
+           "payload_bytes_total": sum(nbytes.values())}
+    if staging:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _, _, b in bufs:
+                group.to_wire(b).to(b.device)
+            torch.cuda.synchronize()
+            copies.append((time.perf_counter() - t0) * 1e3)
+        out["staging_copies_ms_median"] = statistics.median(copies)
+    return out
 
 
 def dist_rank(group, dev):
@@ -1480,7 +1612,6 @@ def dist_rank(group, dev):
     after), the peak memory, the last step's collectives replayed alone
     (host clock, synchronised, three times) and their payload bytes; for
     the compressed arm the OR check."""
-    import collections
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_arch
@@ -1531,42 +1662,10 @@ def dist_rank(group, dev):
                 "equal_to_all_gather_or": bool(torch.equal(ored.cpu(), w_out.cpu()))}
             log.words = None
             del w_in, w_out, wire, gathered, ored
-        bufs = [(op, torch.zeros(shape, dtype=dtype, device=dev))
-                for op, shape, dtype in log.step_calls]
-        runs, by_op, staging = [], collections.defaultdict(list), []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            dist.barrier()
-            t0 = time.perf_counter()
-            per = collections.Counter()
-            for op, b in bufs:
-                t = time.perf_counter()
-                getattr(group, op)([b])
-                torch.cuda.synchronize()
-                per[op] += (time.perf_counter() - t) * 1e3
-            runs.append((time.perf_counter() - t0) * 1e3)
-            for op, ms in per.items():
-                by_op[op].append(ms)
-        for _ in range(3):       # the copies to the wire's memory and back
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _, b in bufs:
-                group.to_wire(b).to(b.device)
-            torch.cuda.synchronize()
-            staging.append((time.perf_counter() - t0) * 1e3)
-        nbytes = collections.Counter()
-        for op, b in bufs:
-            nbytes[op] += b.numel() * b.element_size()
-        arm["collectives"] = {
-            "ms": runs, "ms_median": statistics.median(runs),
-            "ms_median_by_op": {op: statistics.median(v)
-                                for op, v in by_op.items()},
-            "staging_copies_ms_median": statistics.median(staging),
-            "calls": dict(collections.Counter(op for op, _ in bufs)),
-            "payload_bytes": dict(nbytes),
-            "payload_bytes_total": sum(nbytes.values())}
+        arm["collectives"] = replay_collectives(group, log.step_calls, dev,
+                                                staging=True)
         out["arms"][aggregator] = arm
-        del res, params, bufs, log
+        del res, params, log
         torch.cuda.empty_cache()
     return out
 
@@ -1682,6 +1781,450 @@ def phase_dist_train(emulated_losses):
             for k in want}
 
 
+# ----------------------------------------------------------------------
+# The streamed wire, the reduce-scatter wire and ZeRO-1
+# ----------------------------------------------------------------------
+
+def meta_leaves(shapes_dtypes):
+    """Shape-only leaves (``meta`` tensors) for plans and predicates."""
+    import torch
+    return [torch.empty(sh, dtype=dt, device="meta") for sh, dt in shapes_dtypes]
+
+
+def stream_grids(shapes_dtypes, cfg):
+    """The bucket plan of the model's stream and the chunk grids of the
+    new paths: the all-reduce grid with ``overlap`` (a bucket a chunk),
+    the innet window grid and the reduce-scatter grid over W."""
+    from repro_torch.core.bucketing import make_bucket_plan
+    from repro_torch.core.streams import make_stream_plan
+    plan = make_bucket_plan(meta_leaves(shapes_dtypes), cfg)
+    over = dataclasses.replace(cfg, overlap=True)
+    return plan, {
+        "allreduce": make_stream_plan(plan, over),
+        "innet": make_stream_plan(plan, over, window_buckets=cfg.switch_slots),
+        "scatter": make_stream_plan(plan, over, workers=WORKERS, scatter=True)}
+
+
+def synthetic_stream(cfg, plan, gen, frac=0.04):
+    """A worker's Gaussian ``(n_buckets, E)`` stream at ``frac`` density."""
+    nb = plan.padded // cfg.block_elems
+    return make_blocks(cfg, nb, frac, "gauss", gen).reshape(
+        plan.n_buckets, plan.bucket_elems)
+
+
+def phase_stream_train(dev, cfg, train, innet, shapes_dtypes):
+    """LocalWorkers, W=2: ``compressed`` and ``compressed_innet`` (fxp32)
+    with ``overlap=True``. Per step W producer launches a chunk (415
+    one-bucket chunks; 52 chunks of 8 switch slots) and one consumer
+    launch on the reassembled stream; the parameters' sha256 after every
+    step and the losses equal the unstreamed phases' (chunking is
+    bit-invisible). Then the producer stage chunked (one launch a chunk)
+    beside the one-launch producer, on a synthetic 4% stream."""
+    import torch
+    from repro_torch.core.compressor import HomomorphicCompressor
+
+    plan, grids = stream_grids(shapes_dtypes, cfg)
+    arms, launches = {}, {}
+    for name, base, wire, grid, consumer in (
+            ("compressed_overlap", train, "f32", grids["allreduce"],
+             "dequant_peel_unpack"),
+            ("innet_fxp32_overlap", innet, "fxp32", grids["innet"],
+             "dequant_peel_unpack_dq")):
+        want = {"encode_pack_quantize": WORKERS * grid.n_chunks * STEPS,
+                consumer: STEPS}
+        out, launches[name], _, _, state = phase_train(
+            dev, phase=name, wire=wire, fields={"overlap": True}, want=want,
+            emit_line=False)
+        del state
+        torch.cuda.empty_cache()
+        if out["param_sha256_by_step"] != base["param_sha256_by_step"] or \
+                out["losses"] != base["losses"] or \
+                out["recovery"] != base["recovery"]:
+            raise AssertionError(f"{name}: parameters, losses or recovery "
+                                 f"differ from the unstreamed {base['phase']} phase")
+        arms[name] = {k: out[k] for k in (
+            "step_ms", "warmup_ms", "losses", "launches", "recovery",
+            "param_sha256_by_step", "peak_mem_bytes")}
+        arms[name].update(n_chunks=grid.n_chunks, chunk_buckets=grid.chunk_buckets,
+                          equal_to=base["phase"],
+                          unstreamed_step_ms=base["step_ms"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    comp = HomomorphicCompressor(cfg)
+    stream = synthetic_stream(cfg, plan, gen)
+    stages = {}
+    for name, grid in (("allreduce", grids["allreduce"]), ("innet", grids["innet"])):
+        view = grid.chunk_view(stream)
+        n = grid.n_chunks
+
+        def chunked():
+            for i in range(n):
+                comp.compress_wire(view[i].reshape(-1),
+                                   block_offset=grid.chunk_start_block(i))
+
+        stages[name] = {
+            "chunks": n, "blocks_per_chunk": grid.chunk_buckets * grid.blocks_per_bucket,
+            "chunked_ms": cuda_ms(chunked, 3, 1),
+            "per_launch_ms": cuda_ms(lambda: comp.compress_wire(
+                view[0].reshape(-1)), 20)}
+        del view
+    stages["one_launch_ms"] = cuda_ms(lambda: comp.compress(stream.reshape(-1)), 5, 1)
+    del stream
+    torch.cuda.empty_cache()
+    emit({"phase": "stream_train", "workers": WORKERS, "arms": arms,
+          "producer_stage": stages})
+    return launches
+
+
+def phase_rs_train(dev, cfg, train, shapes_dtypes, consumer_ms):
+    """LocalWorkers, W=2: ``compressed_rs`` on the native wire with
+    ZeRO-1, one-shot and streamed (208 chunks of 2 buckets, one bucket a
+    rank a chunk). Per step W producer launches (W a chunk streamed) and
+    W consumer launches, each on its worker's half (W a chunk streamed).
+    The two runs' parameter sha256 must be equal after every step, and
+    the losses within rtol 1e-3 of phase ``train``'s (the ZeRO-1 update
+    adds bf16 deltas, the replicated one writes the new values). Then the
+    consumer on a half stream (208 buckets) and on one chunk's slice (one
+    bucket), beside the whole stream, on a synthetic two-worker 4%
+    aggregate."""
+    import torch
+    from repro_torch.core.compressor import CompressedLeaf, HomomorphicCompressor
+
+    plan, grids = stream_grids(shapes_dtypes, cfg)
+    grid = grids["scatter"]
+    arms, launches = {}, {}
+    for name, fields, chunks in (("oneshot", {}, 1),
+                                 ("streamed", {"overlap": True}, grid.n_chunks)):
+        want = {"encode_pack_quantize": WORKERS * chunks * STEPS,
+                "dequant_peel_unpack": WORKERS * chunks * STEPS}
+        out, launches[name], _, _, state = phase_train(
+            dev, phase=f"rs_{name}", fields=fields, want=want, emit_line=False,
+            tc_fields={"aggregator": "compressed_rs", "zero1": True})
+        del state
+        torch.cuda.empty_cache()
+        arms[name] = {k: out[k] for k in (
+            "step_ms", "warmup_ms", "losses", "launches", "recovery",
+            "param_sha256_by_step", "peak_mem_bytes")}
+        arms[name]["n_chunks"] = chunks
+    if arms["oneshot"]["param_sha256_by_step"] != arms["streamed"]["param_sha256_by_step"]:
+        raise AssertionError("rs_train: one-shot and streamed parameters differ")
+    rel = [abs(a - b) / abs(b) for a, b in zip(arms["oneshot"]["losses"],
+                                               train["losses"])]
+    if max(rel) > 1e-3:
+        raise AssertionError(f"rs_train losses {arms['oneshot']['losses']} vs "
+                             f"train {train['losses']}")
+    # the slices' stats add up to the whole stream's: equal to train's at
+    # step 0 (the same parameters), and between the two arms at every step
+    if arms["oneshot"]["recovery"] != arms["streamed"]["recovery"] or \
+            arms["oneshot"]["recovery"][0] != train["recovery"][0]:
+        raise AssertionError("rs_train recovery stats differ")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    comp = HomomorphicCompressor(cfg)
+    nbpb, wpb = grid.blocks_per_bucket, grid.words_per_bucket
+    pad = grid.padded_buckets - plan.n_buckets
+    parts = []
+    for _ in range(WORKERS):
+        c = comp.compress(synthetic_stream(cfg, plan, gen).reshape(-1))
+        parts.append((torch.nn.functional.pad(c.sketch, (0, 0, 0, 0, 0, pad * nbpb)),
+                      torch.nn.functional.pad(c.index_words, (0, pad * wpb))))
+    sk = parts[0][0] + parts[1][0]
+    words = parts[0][1] | parts[1][1]
+    del parts
+    half = grid.padded_buckets // WORKERS
+
+    def consumer(b0, nbk):
+        leaf = CompressedLeaf(sketch=sk[b0 * nbpb:(b0 + nbk) * nbpb],
+                              index_words=words[b0 * wpb:(b0 + nbk) * wpb])
+        return lambda: comp.recover(leaf, nbk * plan.bucket_elems,
+                                    block_offset=b0 * nbpb)
+
+    stages = {"breakdown_consumer_ms": consumer_ms,
+              "whole_stream_ms": cuda_ms(consumer(0, plan.n_buckets), 5, 1),
+              "half_stream_ms_by_rank": [cuda_ms(consumer(r * half, half), 5, 1)
+                                         for r in range(WORKERS)],
+              "half_stream_blocks": half * nbpb,
+              "chunk_slice_ms": cuda_ms(consumer(0, grid.rank_chunk_buckets), 20),
+              "chunk_slice_blocks": grid.rank_chunk_buckets * nbpb}
+    del sk, words
+    torch.cuda.empty_cache()
+    emit({"phase": "rs_train", "workers": WORKERS, "rs_wire": "native",
+          "zero1": True, "chunk_buckets": grid.chunk_buckets,
+          "loss_rel_diff_to_train": rel, "arms": arms, "consumer_stage": stages})
+    return launches, arms
+
+
+class TimedIssue:
+    """Wraps a rank's communication thread for the streamed arm of
+    ``dist_rs``: a CUDA event on the main stream as each chunk's reduce is
+    issued (right after its producer was enqueued) and the host clock
+    around each reduce on the thread. When the stream starts the device
+    is synchronised and an event recorded, which places the device's
+    events on the host clock."""
+
+    def __init__(self, inner, log):
+        self.inner, self.log = inner, log
+
+    def __enter__(self):
+        import torch
+        torch.cuda.synchronize()
+        self.h0 = time.perf_counter()
+        self.e0 = torch.cuda.Event(enable_timing=True)
+        self.e0.record()
+        self.marks = []
+        self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        out = self.inner.__exit__(*exc)
+        self.log.streams.append((self.h0, self.e0, self.marks))
+        return out
+
+    def __call__(self, fn, payload):
+        import torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        mark = {"issued": ev}
+
+        def timed(p):
+            mark["t0"] = time.perf_counter()
+            out = fn(p)
+            mark["t1"] = time.perf_counter()
+            return out
+
+        self.marks.append(mark)
+        return self.inner(timed, payload)
+
+
+def stream_overlap(h0, e0, marks):
+    """One stream's reduce time and its overlap with the producers: chunk
+    i's producer is in flight on the device between the events issued
+    after chunks i-1 and i (its enqueue included); chunk i's reduce runs
+    on the host between its stamps. ``overlap_next_ms``: chunk i's reduce
+    against chunk i+1's producer; ``producers_under_reduces_ms``: each
+    producer against every reduce (the thread runs one at a time)."""
+    ends = [h0 + e0.elapsed_time(m["issued"]) / 1e3 for m in marks]
+    starts = [h0] + ends[:-1]
+    reduce_s = [m["t1"] - m["t0"] for m in marks]
+
+    def meet(a0, a1, b0, b1):
+        return max(0.0, min(a1, b1) - max(a0, b0))
+
+    overlap = [meet(marks[i]["t0"], marks[i]["t1"], starts[i + 1], ends[i + 1])
+               for i in range(len(marks) - 1)]
+    under, k = 0.0, 0
+    for s, e in zip(starts, ends):       # both sequences run in time order
+        while k < len(marks) and marks[k]["t1"] <= s:
+            k += 1
+        j = k
+        while j < len(marks) and marks[j]["t0"] < e:
+            under += meet(s, e, marks[j]["t0"], marks[j]["t1"])
+            j += 1
+    return {"chunks": len(marks), "reduce_ms": sum(reduce_s) * 1e3,
+            "producers_ms": sum(e - s for s, e in zip(starts, ends)) * 1e3,
+            "overlap_next_ms": sum(overlap) * 1e3,
+            "chunks_overlapping_next_producer": sum(o > 0 for o in overlap),
+            "producers_under_reduces_ms": under * 1e3,
+            "last_producer_done_ms": (ends[-1] - h0) * 1e3,
+            "first_reduce_wait_ms": (marks[0]["t0"] - h0) * 1e3,
+            "stream_ms": (marks[-1]["t1"] - h0) * 1e3}
+
+
+def dist_rs_rank(group, dev, shapes_dtypes):
+    """One rank of ``dist_rs``: the ``compressed_rs`` + ZeRO-1 arm
+    (native, one-shot) and the streamed ``compressed`` arm (``overlap``),
+    each a fresh train of the phase-4 setup with this rank's worker, as in
+    ``dist_rank``; the streamed arm's reduce/producer timeline; the gloo
+    ``reduce_scatter_tensor`` probe; then the gather-skip checks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.loop import run_training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch("granite-3-2b")
+    api = model_api(dataclasses.replace(arch.model, n_layers=LAYERS))
+    out = {"rank": group.rank, "device": str(dev), "backend": group.backend,
+           "staging": group.staging, "arms": {}}
+    for name, fields, tc_fields in (
+            ("rs_zero1", {}, {"aggregator": "compressed_rs", "zero1": True}),
+            ("overlap", {"overlap": True}, {"aggregator": "compressed"})):
+        tc = dataclasses.replace(
+            arch.train, workers=WORKERS, accum_steps=1, remat="none",
+            compression=dataclasses.replace(arch.train.compression, **fields),
+            **tc_fields)
+        log = WireLog(group, timed=name == "overlap")
+        params = api.init(tc.seed, dev)
+        digests, timeline = [], []
+
+        def after_step(_line):
+            log.end_step()
+            digests.append(param_digest(params))
+            timeline.extend(stream_overlap(*st) for st in log.streams)
+            log.streams.clear()
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+                           steps=STEPS, device=dev, params=params,
+                           log_every=1, log_fn=after_step, group=log)
+        arm = {"losses": res.losses, "digests": digests,
+               "launches": dict(ops.LAUNCHES),
+               "step_ms": [t * 1e3 for t in res.step_seconds[1:]],
+               "warmup_ms": res.step_seconds[0] * 1e3,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "recovery": [{k[len("recovery_"):]: int(m[k]) for k in m
+                             if k.startswith("recovery_")} for m in res.metrics]}
+        if timeline:
+            arm["stream_by_step"] = timeline
+        arm["collectives"] = replay_collectives(group, log.step_calls, dev)
+        out["arms"][name] = arm
+        del res, params, log
+        torch.cuda.empty_cache()
+    probe = torch.arange(4 * WORKERS, dtype=torch.float32) * (group.rank + 1)
+    got = torch.empty(4)
+    try:
+        dist.reduce_scatter_tensor(got, probe)
+        out["gloo_reduce_scatter_tensor"] = {"ok": True, "received": got.tolist()}
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        out["gloo_reduce_scatter_tensor"] = {
+            "ok": False, "error": str(e).splitlines()[:1]}
+    out["gather_skip"] = gather_skip_check(group, dev, shapes_dtypes)
+    return out
+
+
+def gather_skip_check(group, dev, shapes_dtypes):
+    """The gather-skip path on the ranks: a synthetic aligned tree (two
+    leaves of 4 buckets, 2 chunks: each leaf's ZeRO-1 slice r lies in rank
+    r's run of each chunk) takes it, and each rank's aggregate equals the
+    full gather's on its owned coordinates and is zero elsewhere, with
+    the grad norm summed over the ranks equal to the full gather's
+    (dyadic values: every sum exact). The full-width granite shapes at
+    W=2 take it on no grid."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.aggregators import make_aggregator
+    from repro_torch.core.collectives import AggregationState
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.config import TrainConfig
+    from repro_torch.train.step import zero1_dims
+
+    base = get_arch("granite-3-2b").train.compression
+    cfg = dataclasses.replace(base, stream_chunks=2)
+    n = 4 * cfg.bucket_elems_for(1 << 30)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(40 + group.rank)
+    grads = dyadic_grads([(n,), (n,)], 0.04, gen, dev)[:1]   # this rank's
+    skip = make_aggregator("compressed_rs", cfg, group, zero1_dims=(0, 0))
+    active = skip.gather_skip_active(grads[0])
+    views, _ = skip(grads, AggregationState(
+        residual=[torch.zeros((1, n), device=dev) for _ in range(2)]))
+    full, _ = make_aggregator("compressed_rs", cfg, group)(grads, AggregationState(
+        residual=[torch.zeros((1, n), device=dev) for _ in range(2)]))
+    own = slice(group.rank * n // WORKERS, (group.rank + 1) * n // WORKERS)
+    exact = all(torch.equal(v[own], f[own]) for v, f in zip(views[0], full))
+    zero_elsewhere = all(int(v.count_nonzero()) == int(v[own].count_nonzero())
+                         for v in views[0])
+    norm_r = opt_lib.global_grad_norm(views[0])
+    norm = float(torch.sqrt(group.sum([norm_r * norm_r])))
+    norm_full = float(opt_lib.global_grad_norm(full))
+    leaves = meta_leaves(shapes_dtypes)
+    tc = TrainConfig(workers=WORKERS, zero1=True)
+    dims = zero1_dims(leaves, tc)
+    granite = {}
+    per_rank = stream_grids(shapes_dtypes, base)[1]["scatter"].n_chunks
+    for chunks in [None] + [k for k in range(1, per_rank + 1) if per_rank % k == 0]:
+        c = dataclasses.replace(base, overlap=chunks is None, stream_chunks=chunks)
+        granite[str(chunks or "overlap")] = make_aggregator(
+            "compressed_rs", c, group, zero1_dims=dims).gather_skip_active(leaves)
+    return {"aligned_active": active, "exact_on_owned": exact,
+            "zero_elsewhere": zero_elsewhere, "owned_nnz": [
+                int(v[own].count_nonzero()) for v in views[0]],
+            "norm_summed_over_ranks": norm, "norm_full_gather": norm_full,
+            "granite_zero1_dims": dims, "granite_active_by_grid": granite}
+
+
+def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes):
+    """W=2 ranks sharing ``cuda:0`` over gloo, as ``dist_train``: the
+    ``compressed_rs`` + ZeRO-1 arm (native, one-shot) and the streamed
+    ``compressed`` arm. After every step each arm's parameter sha256 must
+    be equal on both ranks and equal to the emulated run of the same
+    config (``rs_train``'s one-shot arm; ``train``, which the streamed
+    emulation equals), and each rank must have launched the emulation's
+    launches over W. Per arm: steps, the last step's collectives replayed
+    alone by operation with their payload bytes a rank, peak memory a
+    rank; for the streamed arm the reduce time a step and its overlap with
+    the next chunk's producer. Then the gloo ``reduce_scatter_tensor``
+    probe and the gather-skip checks."""
+    from repro_torch.launch.ranks import spawn_ranks
+
+    n_chunks = stream_grids(shapes_dtypes, cfg)[1]["allreduce"].n_chunks
+    t0 = time.perf_counter()
+    outs = spawn_ranks(dist_rs_rank, WORKERS, (shapes_dtypes,), device="cuda",
+                       timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    # a rank runs its own worker's producers; on the reduce-scatter wire
+    # it peels its own half, on the all-reduce wire the whole stream
+    emulated = {"rs_zero1": (rs_arms["oneshot"], {
+                    "encode_pack_quantize": STEPS, "dequant_peel_unpack": STEPS}),
+                "overlap": (train, {"encode_pack_quantize": n_chunks * STEPS,
+                                    "dequant_peel_unpack": STEPS})}
+    arms, launches = {}, {}
+    for name, (emu, want) in emulated.items():
+        per = [o["arms"][name] for o in outs]
+        want = {**dict.fromkeys(per[0]["launches"], 0), **want}
+        for r, a in enumerate(per):
+            if a["launches"] != want:
+                raise AssertionError(f"rank {r} {name}: launch counts "
+                                     f"{a['launches']}, expected {want}")
+            if a["digests"] != emu["param_sha256_by_step"]:
+                raise AssertionError(f"rank {r} {name}: parameters differ from "
+                                     "the emulated run")
+            if a["losses"] != per[0]["losses"]:
+                raise AssertionError(f"{name}: ranks report different losses")
+        launches[name] = {k: sum(a["launches"][k] for a in per) for k in want}
+        arms[name] = {
+            "losses": per[0]["losses"], "emulated_losses": emu["losses"],
+            "step_ms_by_rank": [a["step_ms"] for a in per],
+            "warmup_ms_by_rank": [a["warmup_ms"] for a in per],
+            "collectives_ms_median_by_op_by_rank": [
+                a["collectives"]["ms_median_by_op"] for a in per],
+            "collectives_ms_median_total_by_rank": [
+                a["collectives"]["ms_median"] for a in per],
+            "collective_calls": per[0]["collectives"]["calls"],
+            "payload_bytes_per_rank_step": per[0]["collectives"]["payload_bytes"],
+            "payload_bytes_total_per_rank_step":
+                per[0]["collectives"]["payload_bytes_total"],
+            "peak_mem_bytes_by_rank": [a["peak_mem_bytes"] for a in per],
+            "launches_by_rank": [a["launches"] for a in per],
+            "recovery": per[0]["recovery"],
+            "param_sha256_by_step": per[0]["digests"]}
+        if "stream_by_step" in per[0]:
+            arms[name]["stream_by_step_by_rank"] = [a["stream_by_step"] for a in per]
+    skips = [o["gather_skip"] for o in outs]
+    for r, g in enumerate(skips):
+        if not (g["aligned_active"] and g["exact_on_owned"] and g["zero_elsewhere"]
+                and g["norm_summed_over_ranks"] == g["norm_full_gather"]):
+            raise AssertionError(f"rank {r}: gather-skip check failed: {g}")
+        if any(g["granite_active_by_grid"].values()):
+            raise AssertionError("gather skip fired at the full-width geometry")
+    emit({"phase": "dist_rs", "arch": "granite-3-2b", "layers": LAYERS,
+          "workers": WORKERS, "procs": WORKERS, "global_batch": BATCH,
+          "seq_len": SEQ, "steps": STEPS, "warmup_steps": 1,
+          "backend": outs[0]["backend"], "staging": outs[0]["staging"],
+          "devices": [o["device"] for o in outs], "wall_s": wall, "arms": arms,
+          "gloo_reduce_scatter_tensor": [o["gloo_reduce_scatter_tensor"]
+                                         for o in outs]})
+    emit({"phase": "gather_skip", "by_rank": skips})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1713,7 +2256,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train, launches, api, tc, state = phase_train(dev)
-    phase_breakdown(api, tc, state, train["step_ms"], dev)
+    shapes_dtypes = [(tuple(p.shape), p.dtype) for p in state.params.leaves()]
+    consumer_ms = phase_breakdown(api, tc, state, train["step_ms"], dev)[
+        "stages_ms"]["consumer"]["per_call"]
     del state
     torch.cuda.empty_cache()
     innet, launches_innet, _, tc_innet, state = phase_train(
@@ -1729,6 +2274,14 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     launches_dist = phase_dist_train(train["losses"])
+    launches_stream = phase_stream_train(dev, tc.compression, train, innet,
+                                         shapes_dtypes)
+    torch.cuda.empty_cache()
+    launches_rs, rs_arms = phase_rs_train(dev, tc.compression, train,
+                                          shapes_dtypes, consumer_ms)
+    torch.cuda.empty_cache()
+    launches_dist_rs = phase_dist_rs(tc.compression, rs_arms, train,
+                                     shapes_dtypes)
     n = train["params"]
     n_blocks = cfg.num_buckets(n) * cfg.bucket_elems_for(n) // cfg.block_elems
     recs = phase_main_stream(cfg, dev, n_blocks, check)
@@ -1748,10 +2301,15 @@ def main() -> int:
         else:
             on = launches
         r["launches"] = on[r["name"]]
-        r["launches_by_path"] = {"train": launches[r["name"]],
-                                 "innet_train": launches_innet[r["name"]],
-                                 "bloom_train": launches_bloom[r["name"]],
-                                 "dist_train": launches_dist[r["name"]]}
+        r["launches_by_path"] = {
+            "train": launches[r["name"]],
+            "innet_train": launches_innet[r["name"]],
+            "bloom_train": launches_bloom[r["name"]],
+            "dist_train": launches_dist[r["name"]],
+            **{f"stream_train/{k}": v[r["name"]] for k, v in launches_stream.items()},
+            **{f"rs_train/{k}": v[r["name"]] for k, v in launches_rs.items()},
+            **{f"dist_rs/{k}": v.get(r["name"], 0)
+               for k, v in launches_dist_rs.items()}}
     phase_lossless(api.cfg, tc, dev)
     phase_innet_lossless(api.cfg, dev)
     phase_bloom_lossless(api.cfg, dev)

@@ -8,41 +8,62 @@ on one device (:class:`LocalWorkers`), or this process as one of W ranks
   bucket stream: per local worker, per-leaf sparsify + error feedback,
   bucket pack and ONE producer launch; then the sketch SUM and word OR
   over the workers; then ONE consumer launch on the aggregate and
-  ``unpack(rec / W)``. This is the reference's unstreamed path on a pure data-parallel
-  mesh with the trivial wire plan. With the Bloom index (or an unaligned
-  bitmap) the producer and consumer are the compressor's composed passes
-  around the standalone encode and peel kernels.
+  ``unpack(rec / W)``. With the Bloom index (or an unaligned bitmap) the
+  producer and consumer are the compressor's composed passes around the
+  standalone encode and peel kernels. With ``cfg.overlap`` /
+  ``cfg.stream_chunks`` the wire is cut into whole-bucket chunks
+  (:func:`repro_torch.core.streams.make_stream_plan`): one producer
+  launch a chunk a local worker at the chunk's block offset, each
+  chunk's sum and OR issued through
+  :func:`~repro_torch.core.streams.stream_schedule` while the next
+  chunk encodes, and one consumer launch on the reassembled stream.
+- :class:`CompressedReduceScatterAggregator` — the reduce-scatter wire:
+  the sketch and the words are reduce-scattered, so each rank receives
+  and peels only its own 1/W of the buckets (one consumer launch a rank,
+  or one a received chunk slice when streamed, at the slice's block
+  offset), and the recovered slices are all-gathered; when the chunk
+  grid aligns with the ZeRO-1 optimizer slices (``zero1_dims``), the
+  gather is skipped.
 - :class:`CompressedInNetworkAggregator` — the same stream through the
   emulated in-network tier: on the fxp32 wire the sketch is quantized to
   shared-exponent int32 and summed, with the words ORed, by a windowed
-  switch tree; the consumer dequantizes in its one launch.
+  switch tree, a chunk of whole switch windows at a time when streamed;
+  the consumer dequantizes in its one launch.
 
-Streaming, wire plans, telemetry and the other strategies come with
-later slices.
+Wire plans, telemetry and the all-to-all exchanges come with later
+slices.
 
 An aggregator is called as ``agg(grads_w, state)``, where ``grads_w[w]``
 is local worker w's gradient leaves in the reference's flatten order
 (``group.local_workers`` of them: W emulated, one a rank) and
 ``state.residual`` holds one ``(local_workers, *shape)`` error-feedback
-tensor per leaf. It returns the aggregated (mean over all W) leaves and
-the new state, the same on every rank. The compressed strategy writes the
-new residuals into ``state.residual`` in place (it is the only holder of
-that memory; at full width it is one f32 copy of the model a worker).
+tensor per leaf. It returns the aggregated (mean over all W, or the sum
+with ``mean=False``) leaves and the new state, the same on every rank;
+on the gather-skip path (:meth:`CompressedReduceScatterAggregator.
+gather_skip_active`) it returns one list of leaves a local worker
+instead, each exact inside that worker's owned coordinates and zero
+outside. The compressed strategies write the new residuals into
+``state.residual`` in place (the only holder of that memory; at full
+width it is one f32 copy of the model a worker).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, List, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.net.fixedpoint import FixedPointWire
 from repro_torch.net.topology import make_topology, tree_all_reduce
 from .config import CompressionConfig
-from .compressor import CompressedLeaf, HomomorphicCompressor
+from .compressor import CompressedLeaf, HomomorphicCompressor, RecoveryStats
 from .bucketing import BucketPlan, make_bucket_plan
-from .collectives import AggregationState, dense_all_reduce
+from .collectives import (AggregationState, dense_all_reduce,
+                          gather_chunk_slices)
+from .streams import (StreamPlan, make_stream_plan, stream_schedule,
+                      zero1_gather_skip)
 from . import topk as topk_lib
 
 
@@ -65,14 +86,30 @@ def sparsify_leaf(flat: torch.Tensor, res: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class DenseAggregator:
+    """Same constructor surface as the compressed strategies; ``cfg`` and
+    ``zero1_dims`` are unused."""
+
     wire = "dense"
 
     group: Any           # LocalWorkers or ProcessGroupWorkers
-    cfg: Any = None      # constructor uniformity only
+    cfg: Any = None
+    mean: bool = True
+    zero1_dims: Any = None
 
     def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
                  state: AggregationState):
-        return dense_all_reduce(grads_w, self.group), state
+        return dense_all_reduce(grads_w, self.group, mean=self.mean), state
+
+
+def _sum_stats(stats: Sequence[RecoveryStats], group) -> RecoveryStats:
+    """Recovery stats summed over consumer launches (``stats[w]`` lists
+    local worker w's) and then over the workers, so a wire that peels in
+    slices reports the counts of one peel over the whole stream."""
+    per_worker = [torch.stack([sum(s.nnz for s in sw), sum(s.peeled for s in sw),
+                               sum(s.residual for s in sw)]) for sw in stats]
+    nnz, peeled, residual = group.sum(per_worker)
+    return RecoveryStats(nnz=nnz, peeled=peeled, residual=residual,
+                         rounds=stats[0][0].rounds)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,53 +121,310 @@ class CompressedAggregator:
 
     cfg: CompressionConfig
     group: Any           # LocalWorkers or ProcessGroupWorkers
+    mean: bool = True    # False: the sum over the workers, undivided
+    # Per-leaf ZeRO-1 slice dims (streams.zero_slice_dim; None: unsliced
+    # leaf). Only the reduce-scatter wire reads them (the gather skip).
+    zero1_dims: Any = None
 
-    def _produce(self, grads_w: Sequence[Sequence[torch.Tensor]],
-                 state: AggregationState, comp: HomomorphicCompressor,
-                 plan: BucketPlan):
-        """Phase I per local worker: sparsify + EF (residual row w
-        updated in place), pack, one producer launch. Returns each local
-        worker's ``(CompressedLeaf, per-block maxabs)``."""
+    # ---- phase I -------------------------------------------------------
+
+    def _pack(self, w: int, grads: Sequence[torch.Tensor],
+              state: AggregationState, plan: BucketPlan) -> torch.Tensor:
+        """Local worker w's sparsify + EF (residual row w updated in
+        place) and pack: its ``(n_buckets, E)`` f32 stream."""
         cfg = self.cfg
-        if len(grads_w) != self.group.local_workers:
-            raise ValueError(f"{len(grads_w)} gradient sets for "
-                             f"{self.group.local_workers} local workers")
         ef_on = cfg.topk_ratio is not None and cfg.error_feedback
-        out = []
-        for w, leaves in enumerate(grads_w):
-            flats = []
-            for g, r in zip(leaves, state.residual):
-                flat, nr = sparsify_leaf(g.reshape(-1).to(torch.float32),
-                                         r[w] if ef_on else r, cfg)
-                flats.append(flat)
-                if ef_on:
-                    r[w].copy_(nr.reshape(r.shape[1:]))
-            out.append(comp.compress_wire(plan.pack_flat(flats).reshape(-1)))
-        return out
+        flats = []
+        for g, r in zip(grads, state.residual):
+            flat, nr = sparsify_leaf(g.reshape(-1).to(torch.float32),
+                                     r[w] if ef_on else r, cfg)
+            flats.append(flat)
+            if ef_on:
+                r[w].copy_(nr.reshape(r.shape[1:]))
+        return plan.pack_flat(flats)
 
-    def _finish(self, rec: torch.Tensor, stats, plan: BucketPlan,
-                state: AggregationState):
-        out = plan.unpack(rec.reshape(plan.n_buckets, plan.bucket_elems)
-                          / self.group.workers)
+    def _produce(self, grads_w, state, plan, comp):
+        """One-shot phase I: each local worker packed and compressed in
+        turn (one stream held at a time): ``(CompressedLeaf, maxabs)``
+        a worker."""
+        return [comp.compress_wire(self._pack(w, g, state, plan).reshape(-1))
+                for w, g in enumerate(grads_w)]
+
+    def _stream_plan(self, plan: BucketPlan) -> StreamPlan:
+        """The wire-chunk grid (subclasses align it to their wire)."""
+        return make_stream_plan(plan, self.cfg)
+
+    def _reduce_allreduce(self, payload_w):
+        """The all-reduce wire for one chunk: the local workers'
+        ``(sketch, words)`` -> (sketch SUM, word OR)."""
+        return (self.group.sum([p[0] for p in payload_w]),
+                self.group.bor([p[1] for p in payload_w]))
+
+    def _encode_streamed(self, grads_w, state, plan, comp, splan, reduce_fn,
+                         with_maxabs=False):
+        """Per-chunk producer launches and wire through the scheduler.
+
+        Every local worker's stream is packed first; then chunk i makes
+        one producer launch a local worker, at the chunk's global block
+        offset, and hands the workers' payloads (``(sketch, words)``, or
+        with ``with_maxabs`` also the per-block max) to ``reduce_fn``.
+        Returns the reduced payloads stacked on a leading ``n_chunks``
+        dim."""
+        views = [splan.chunk_view(self._pack(w, g, state, plan))
+                 for w, g in enumerate(grads_w)]
+
+        def enc(i, chunks):
+            out = []
+            for chunk in chunks:
+                leaf, mx = comp.compress_wire(
+                    chunk.reshape(-1), block_offset=splan.chunk_start_block(i))
+                out.append((leaf.sketch, leaf.index_words, mx) if with_maxabs
+                           else (leaf.sketch, leaf.index_words))
+            return out
+
+        return stream_schedule(list(zip(*views)), enc, reduce_fn,
+                               group=self.group)
+
+    def _trim_fused(self, stacked_sk, stacked_words, plan: BucketPlan,
+                    splan: StreamPlan):
+        """Stacked per-chunk (sketch, words) -> the stream's fused views,
+        padding buckets dropped."""
+        cfg = self.cfg
+        sk = stacked_sk.reshape((-1, cfg.rows, cfg.lanes))
+        words = stacked_words.reshape(-1)
+        return (sk[:plan.n_buckets * splan.blocks_per_bucket],
+                words[:plan.n_buckets * splan.words_per_bucket])
+
+    def _encode(self, grads_w, state, plan, comp):
+        """Phase I and the wire: the aggregated ``(sketch, words)``."""
+        splan = self._stream_plan(plan)
+        if not splan.streamed:
+            cs = [c for c, _ in self._produce(grads_w, state, plan, comp)]
+            return self._reduce_allreduce([(c.sketch, c.index_words)
+                                           for c in cs])
+        sks, ws = self._encode_streamed(grads_w, state, plan, comp, splan,
+                                        self._reduce_allreduce)
+        return self._trim_fused(sks, ws, plan, splan)
+
+    # ---- phase II ------------------------------------------------------
+
+    def _recover(self, payload, plan: BucketPlan, comp: HomomorphicCompressor):
+        """The aggregated payload -> ``(n_buckets, E)`` recovered stream
+        and its stats, in one consumer launch."""
+        sk, words = payload
+        rec, stats = comp.recover(CompressedLeaf(sketch=sk, index_words=words),
+                                  plan.padded, with_stats=True)
+        return rec.reshape(plan.n_buckets, plan.bucket_elems), stats
+
+    def _finish(self, rec, stats, plan: BucketPlan, state: AggregationState):
+        """Unpack (and mean) the recovered stream, or each local worker's
+        on the gather-skip path (``rec`` a list)."""
+        W = self.group.workers if self.mean else 1
+
+        def unpack(r):
+            return plan.unpack(r / W if W > 1 else r)
+
+        out = [unpack(r) for r in rec] if isinstance(rec, list) else unpack(rec)
         return out, AggregationState(residual=state.residual, stats=stats)
 
     def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
                  state: AggregationState):
+        if len(grads_w) != self.group.local_workers:
+            raise ValueError(f"{len(grads_w)} gradient sets for "
+                             f"{self.group.local_workers} local workers")
         comp = HomomorphicCompressor(self.cfg)
         plan = make_bucket_plan(grads_w[0], self.cfg)
-        cs = [c for c, _ in self._produce(grads_w, state, comp, plan)]
-        agg = CompressedLeaf(sketch=self.group.sum([c.sketch for c in cs]),
-                             index_words=self.group.bor(
-                                 [c.index_words for c in cs]))
-        rec, stats = comp.recover(agg, plan.padded, with_stats=True)
+        payload = self._encode(grads_w, state, plan, comp)
+        rec, stats = self._recover(payload, plan, comp)
+        del payload
         return self._finish(rec, stats, plan, state)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedReduceScatterAggregator(CompressedAggregator):
+    """Compressed aggregation over a reduce-scattered wire (the
+    reference's ``CompressedReduceScatterAggregator``).
+
+    Phase I is :class:`CompressedAggregator`'s. Phase II takes one of two
+    wires, by ``cfg.rs_wire``:
+
+    - **native** (``"native"``, and ``"auto"``: the port has no
+      partial-auto regions that would force the emulation): the sketch
+      and the words, zero-padded to ``nb_p = ceil(nb/W)·W`` buckets, are
+      sum- and OR-reduce-scattered, so each rank receives only its own
+      ``nb_p/W`` buckets, peels them in one consumer launch at the
+      block offset ``rank·(nb_p/W)·blocks_per_bucket``, and the
+      recovered slices are all-gathered. With ``cfg.overlap`` /
+      ``cfg.stream_chunks`` the grid's chunks hold ``k·W`` whole buckets
+      (``make_stream_plan(..., scatter=True)``): each chunk is
+      reduce-scattered while the next one encodes, each received slice
+      is peeled at :meth:`StreamPlan.rank_slice_start_block`, and
+      :func:`gather_chunk_slices` restores the stream, unless the grid
+      aligns with the ZeRO-1 slices (``zero1_dims``,
+      :func:`zero1_gather_skip`): then each local worker keeps its
+      recovered values in place in a zero stream (exact inside its owned
+      coordinates, zero outside) and the gather is skipped.
+    - **emulated** (``"emulate"``): the all-reduce wire (streamed as
+      :class:`CompressedAggregator`'s), then each rank peels its own
+      slice and the slices are gathered: the all-reduce's bytes, 1/W of
+      the peel.
+
+    On :class:`LocalWorkers` worker w plays rank w: W consumer launches
+    (W a chunk when streamed), each on its slice. Every path equals
+    :class:`CompressedAggregator` bit for bit, apart from the gather-skip
+    contract above; the recovery stats are summed over the slices and
+    the ranks.
+    """
+
+    wire = "compressed_rs"
+
+    def _native_wire(self) -> bool:
+        return self.cfg.rs_wire != "emulate"
+
+    def _check_bitmap(self):
+        if self.cfg.index != "bitmap":
+            raise ValueError(
+                "compressed_rs requires index='bitmap' (a Bloom filter "
+                "hashes global coordinates and cannot be sliced per-rank)")
+
+    def _rs_geometry(self, plan: BucketPlan):
+        """(W, blocks a bucket, words a bucket, n_buckets padded to W)."""
+        W = self.group.workers
+        nb_p = -(-plan.n_buckets // W) * W
+        return W, plan.blocks_per_bucket(self.cfg), plan.words_per_bucket, nb_p
+
+    def _stream_plan(self, plan: BucketPlan) -> StreamPlan:
+        """The per-rank-aligned scatter grid on the native wire; the
+        all-reduce grid elsewhere (the emulated wire ships the whole
+        stream, and one rank has nothing to scatter)."""
+        if self._native_wire() and self.group.workers > 1:
+            return make_stream_plan(plan, self.cfg, workers=self.group.workers,
+                                    scatter=True)
+        return super()._stream_plan(plan)
+
+    def _gather_skip(self, plan: BucketPlan, splan: StreamPlan) -> bool:
+        if self.zero1_dims is None:
+            return False
+        return zero1_gather_skip(splan, plan, tuple(self.zero1_dims))
+
+    def gather_skip_active(self, leaves: Sequence[torch.Tensor]) -> bool:
+        """Whether aggregating gradients shaped like ``leaves`` skips the
+        recovered-chunk gather (and returns one list of leaves a local
+        worker); the train step then sums the squared grad norm over the
+        ranks."""
+        if not (self._native_wire() and self.group.workers > 1):
+            return False
+        plan = make_bucket_plan(leaves, self.cfg)
+        splan = self._stream_plan(plan)
+        return splan.streamed and self._gather_skip(plan, splan)
+
+    def _reduce_scatter(self, payload_w):
+        """The native wire for one chunk: each local worker's slice of the
+        sketch SUM and of the word OR, stacked ``(local_workers, ...)``."""
+        return (torch.stack(self.group.sum_scatter([p[0] for p in payload_w])),
+                torch.stack(self.group.bor_scatter([p[1] for p in payload_w])))
+
+    def _encode(self, grads_w, state, plan, comp):
+        self._check_bitmap()
+        if not self._native_wire() or self.group.workers == 1:
+            return super()._encode(grads_w, state, plan, comp)
+        splan = self._stream_plan(plan)
+        if splan.streamed:
+            return self._encode_streamed(grads_w, state, plan, comp, splan,
+                                         self._reduce_scatter)
+        # one-shot: one reduce-scatter of the whole stream, padded to
+        # whole per-rank runs of buckets
+        W, nbpb, wpb, nb_p = self._rs_geometry(plan)
+        pad_b = nb_p - plan.n_buckets
+        payload_w = []
+        for c, _ in self._produce(grads_w, state, plan, comp):
+            sk, words = c.sketch, c.index_words
+            if pad_b:    # zero blocks and words peel to exact zeros
+                sk = F.pad(sk, (0, 0, 0, 0, 0, pad_b * nbpb))
+                words = F.pad(words, (0, pad_b * wpb))
+            payload_w.append((sk, words))
+        return self._reduce_scatter(payload_w)
+
+    def _recover(self, payload, plan: BucketPlan, comp: HomomorphicCompressor):
+        self._check_bitmap()
+        group = self.group
+        if group.workers == 1:
+            return super()._recover(payload, plan, comp)
+        W, nbpb, wpb, nb_p = self._rs_geometry(plan)
+        chunk_b = nb_p // W                      # buckets a rank
+        chunk_elems = chunk_b * plan.bucket_elems
+        sk, words = payload
+        if self._native_wire():
+            splan = self._stream_plan(plan)
+            if splan.streamed:
+                return self._recover_streamed(sk, words, plan, splan, comp)
+            # (sk, words): each local worker's reduced slice, stacked
+            slices = [(sk[w], words[w]) for w in range(group.local_workers)]
+        else:
+            pad_b = nb_p - plan.n_buckets
+            if pad_b:
+                sk = F.pad(sk, (0, 0, 0, 0, 0, pad_b * nbpb))
+                words = F.pad(words, (0, pad_b * wpb))
+            slices = []
+            for w in range(group.local_workers):
+                r = group.first_worker + w
+                slices.append((sk[r * chunk_b * nbpb:(r + 1) * chunk_b * nbpb],
+                               words[r * chunk_b * wpb:(r + 1) * chunk_b * wpb]))
+        recs, stats = [], []
+        for w, (sk_w, words_w) in enumerate(slices):
+            r = group.first_worker + w
+            rec, st = comp.recover(
+                CompressedLeaf(sketch=sk_w, index_words=words_w), chunk_elems,
+                with_stats=True, block_offset=r * chunk_b * nbpb)
+            recs.append(rec)
+            stats.append([st])
+        full = group.gather(recs)[:plan.padded]
+        return (full.reshape(plan.n_buckets, plan.bucket_elems),
+                _sum_stats(stats, group))
+
+    def _recover_streamed(self, sk, words, plan: BucketPlan, splan: StreamPlan,
+                          comp: HomomorphicCompressor):
+        """Streamed native wire: ``sk`` / ``words`` are each local
+        worker's reduced slice of every chunk, ``(n_chunks,
+        local_workers, ...)``; peel each at its global block offset, then
+        gather the slices (or, on the gather-skip path, place each local
+        worker's in a zero stream)."""
+        group = self.group
+        slice_elems = splan.rank_chunk_buckets * plan.bucket_elems
+        recs, stats = [], []
+        for w in range(group.local_workers):
+            r = group.first_worker + w
+            rec_w, st_w = [], []
+            for j in range(splan.n_chunks):
+                rec, st = comp.recover(
+                    CompressedLeaf(sketch=sk[j, w], index_words=words[j, w]),
+                    slice_elems, with_stats=True,
+                    block_offset=splan.rank_slice_start_block(j, r))
+                rec_w.append(rec)
+                st_w.append(st)
+            recs.append(torch.stack(rec_w))      # (n_chunks, slice_elems)
+            stats.append(st_w)
+        stats = _sum_stats(stats, group)
+        if self._gather_skip(plan, splan):
+            out = []
+            for w, rec in enumerate(recs):
+                r = group.first_worker + w
+                full = torch.zeros((splan.n_chunks, splan.chunk_elems),
+                                   dtype=rec.dtype, device=rec.device)
+                full[:, r * slice_elems:(r + 1) * slice_elems] = rec
+                out.append(full.reshape(-1)[:plan.padded]
+                           .reshape(plan.n_buckets, plan.bucket_elems))
+            return out, stats
+        full = gather_chunk_slices(recs, group)
+        stream = full.reshape(-1)[:plan.padded]
+        return stream.reshape(plan.n_buckets, plan.bucket_elems), stats
 
 
 @dataclasses.dataclass(frozen=True)
 class CompressedInNetworkAggregator(CompressedAggregator):
     """Compressed aggregation through the emulated in-network tier, the
     paper's "aggregate inside the switch" deployment (the reference's
-    unstreamed ``CompressedInNetworkAggregator``).
+    ``CompressedInNetworkAggregator``).
 
     Phase I is :class:`CompressedAggregator`'s. Phase II depends on
     ``cfg.wire_dtype``:
@@ -152,21 +446,22 @@ class CompressedInNetworkAggregator(CompressedAggregator):
       validated and the step is :class:`CompressedAggregator`'s, bit for
       bit (a tree of float adds would be order-sensitive).
 
-    ``cfg.overlap`` and ``cfg.stream_chunks`` (the streamed schedule)
-    come with the stream-scheduler slice and raise until then. The fxp32
-    wire needs ``index="bitmap"``: the tree ORs the words bucket by
-    bucket, and a Bloom filter has no per-bucket words (the reference
-    fails reshaping them); a bitmap geometry with ``block_elems % 32 !=
-    0`` works, since buckets hold whole words.
+    With ``cfg.overlap`` / ``cfg.stream_chunks`` the chunks span whole
+    switch windows (``make_stream_plan(..., window_buckets=
+    cfg.switch_slots)``, a ``ValueError`` where a forced count cannot):
+    on fxp32 each chunk agrees its exponents from its own blocks' maxima,
+    quantizes and goes up the tree while the next chunk encodes; the
+    chunks' exponents are concatenated and cut to the real buckets, and
+    one dequant consumer launch follows. The fxp32 wire needs
+    ``index="bitmap"``: the tree ORs the words bucket by bucket, and a
+    Bloom filter has no per-bucket words (the reference fails reshaping
+    them); a bitmap geometry with ``block_elems % 32 != 0`` works, since
+    buckets hold whole words.
     """
 
     wire = "compressed_innet"
 
     def __post_init__(self):
-        if self.cfg.overlap or self.cfg.stream_chunks is not None:
-            raise NotImplementedError(
-                "compressed_innet: overlap/stream_chunks need the stream "
-                "scheduler, which is not ported yet")
         if self.cfg.wire_dtype == "fxp32" and self.cfg.index != "bitmap":
             raise ValueError(
                 f"compressed_innet with wire_dtype='fxp32' needs "
@@ -175,39 +470,75 @@ class CompressedInNetworkAggregator(CompressedAggregator):
                 "hashes the whole stream's coordinates into words that "
                 "belong to no bucket")
 
-    def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
-                 state: AggregationState):
+    def _stream_plan(self, plan: BucketPlan) -> StreamPlan:
+        """Chunks span whole ``switch_slots`` bucket windows."""
+        return make_stream_plan(plan, self.cfg,
+                                window_buckets=self.cfg.switch_slots)
+
+    def _encode(self, grads_w, state, plan, comp):
         cfg, group = self.cfg, self.group
-        topo = make_topology(cfg.topology, group)
+        topo = make_topology(cfg.topology, group)       # validates it
         if cfg.wire_dtype == "f32":
-            return super().__call__(grads_w, state)
-        comp = HomomorphicCompressor(cfg)
-        plan = make_bucket_plan(grads_w[0], cfg)
+            return super()._encode(grads_w, state, plan, comp)
         wire = FixedPointWire(workers=group.workers)
-        nbk, nbpb = plan.n_buckets, plan.bucket_elems // cfg.block_elems
-        cs, maxabs = zip(*self._produce(grads_w, state, comp, plan))
-        exp = group.max([wire.exponents_from_maxabs(
-            mx.reshape(nbk, nbpb).amax(dim=1)) for mx in maxabs])
-        q = tree_all_reduce(
-            [wire.encode(c.sketch.reshape(nbk, -1), exp) for c in cs],
-            topo, "add", window_slots=cfg.switch_slots, group=group)[0]
-        words = tree_all_reduce(
-            [c.index_words.reshape(nbk, -1) for c in cs],
-            topo, "or", window_slots=cfg.switch_slots, group=group)[0]
+        splan = self._stream_plan(plan)
+        nbpb = splan.blocks_per_bucket
+
+        def tree_window(payload_w, n_b):
+            """One run of ``n_b`` whole buckets over the fxp32 tree: the
+            exponents agreed from the producers' per-block maxima, the
+            quantized sketches added and the words ORed, window by
+            window. Returns (int32 sum, words, exponents)."""
+            sks, words, maxabs = zip(*payload_w)
+            exp = group.max([wire.exponents_from_maxabs(
+                mx.reshape(n_b, nbpb).amax(dim=1)) for mx in maxabs])
+            q = tree_all_reduce(
+                [wire.encode(sk.reshape(n_b, -1), exp) for sk in sks],
+                topo, "add", window_slots=cfg.switch_slots, group=group)[0]
+            w = tree_all_reduce(
+                [wd.reshape(n_b, -1) for wd in words],
+                topo, "or", window_slots=cfg.switch_slots, group=group)[0]
+            return (q.reshape(sks[0].shape), w.reshape(words[0].shape), exp)
+
+        if not splan.streamed:
+            produced = self._produce(grads_w, state, plan, comp)
+            return tree_window([(c.sketch, c.index_words, mx)
+                                for c, mx in produced], plan.n_buckets)
+        qs, ws, exps = self._encode_streamed(
+            grads_w, state, plan, comp, splan,
+            lambda p: tree_window(p, splan.chunk_buckets), with_maxabs=True)
+        q, w = self._trim_fused(qs, ws, plan, splan)
+        return q, w, exps.reshape(-1)[:plan.n_buckets]
+
+    def _recover(self, payload, plan: BucketPlan, comp: HomomorphicCompressor):
+        """fxp32 payloads carry ``(q int32, words, exponents)``, dequantized
+        inside the one consumer launch; f32 payloads are the base
+        class's ``(sketch, words)``."""
+        if len(payload) == 2:
+            return super()._recover(payload, plan, comp)
+        q, words, exp = payload
+        wire = FixedPointWire(workers=self.group.workers)
+        nbpb = plan.blocks_per_bucket(self.cfg)
         rec, stats = comp.recover(
-            CompressedLeaf(sketch=q.reshape(cs[0].sketch.shape),
-                           index_words=words.reshape(-1)),
-            plan.padded, with_stats=True,
+            CompressedLeaf(sketch=q, index_words=words), plan.padded,
+            with_stats=True,
             dequant=(exp.repeat_interleave(nbpb), wire.mantissa_bits))
-        return self._finish(rec, stats, plan, state)
+        return rec.reshape(plan.n_buckets, plan.bucket_elems), stats
 
 
 AGGREGATORS = {"dense": DenseAggregator, "compressed": CompressedAggregator,
+               "compressed_rs": CompressedReduceScatterAggregator,
                "compressed_innet": CompressedInNetworkAggregator}
 
 
-def make_aggregator(name: str, cfg: CompressionConfig, group):
+def make_aggregator(name: str, cfg: CompressionConfig, group,
+                    mean: bool = True, zero1_dims=None):
+    """Build the named strategy (see :data:`AGGREGATORS`) over ``group``;
+    ``zero1_dims``: per-leaf ZeRO-1 slice dims, for the reduce-scatter
+    wire's gather skip."""
     if name not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {name!r}; this slice has "
                          f"{sorted(AGGREGATORS)}")
-    return AGGREGATORS[name](cfg=cfg, group=group)
+    return AGGREGATORS[name](
+        cfg=cfg, group=group, mean=mean,
+        zero1_dims=None if zero1_dims is None else tuple(zero1_dims))

@@ -10,8 +10,17 @@ stream viewed as ``(n_buckets, bucket_elems)``:
 
 ``bucket_elems`` is ``cfg.bucket_bytes`` rounded to the bucket quantum
 (whole sketch blocks and whole bitmap words), so the stream's block ids,
-and with them its hash plan, are the reference's. Per-bucket views
-(``group_view``, ``residual_slices``) come with the streaming slice.
+and with them its hash plan, are the reference's, and the sketch and the
+words slice into exact per-bucket views: what lets the stream scheduler
+(:mod:`repro_torch.core.streams`) ship bucket i while bucket i+1 encodes.
+
+Per-bucket views, as the reference's:
+
+- ``bucket_segments`` — for each bucket, the runs of leaves that land in
+  it (:class:`BucketSegment`);
+- ``group_view`` — a plan over a run of buckets as one flat pseudo-leaf;
+- ``residual_slices`` — one worker's error-feedback residual runs per
+  bucket (the port keeps residuals as ``(local_workers, *shape)``).
 """
 
 from __future__ import annotations
@@ -23,6 +32,17 @@ import torch
 import torch.nn.functional as F
 
 from .config import CompressionConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketSegment:
+    """One contiguous run of a leaf inside one bucket."""
+
+    leaf: int          # index into the leaf list
+    leaf_start: int    # offset into the leaf's flat vector
+    bucket: int        # bucket index
+    bucket_start: int  # offset into the bucket
+    length: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +64,16 @@ class BucketPlan:
     @property
     def pad(self) -> int:
         return self.padded - self.total
+
+    def blocks_per_bucket(self, cfg: CompressionConfig) -> int:
+        """Whole sketch blocks per bucket (exact: ``bucket_elems`` is a
+        multiple of the bucket quantum)."""
+        return self.bucket_elems // cfg.block_elems
+
+    @property
+    def words_per_bucket(self) -> int:
+        """Whole packed-bitmap words per bucket (exact, likewise)."""
+        return self.bucket_elems // 32
 
     def pack_flat(self, flats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Already-flat leaves (in plan order) -> (n_buckets, E) f32."""
@@ -70,6 +100,51 @@ class BucketPlan:
         """(n_buckets, E) f32 -> leaves with original shapes and dtypes."""
         return [f.to(dt).reshape(sh) for f, dt, sh in
                 zip(self.unpack_flat(buckets), self.dtypes, self.shapes)]
+
+    # ---- per-bucket views ----------------------------------------------
+
+    @property
+    def bucket_segments(self) -> Tuple[Tuple[BucketSegment, ...], ...]:
+        """For each bucket, the runs of leaves that land in it, in stream
+        order. The padding tail is not a segment."""
+        out: List[List[BucketSegment]] = [[] for _ in range(self.n_buckets)]
+        for li, (off, n) in enumerate(zip(self.offsets, self.sizes)):
+            pos = off
+            while pos < off + n:
+                b = pos // self.bucket_elems
+                b_start = pos - b * self.bucket_elems
+                length = min(off + n - pos, self.bucket_elems - b_start)
+                out[b].append(BucketSegment(
+                    leaf=li, leaf_start=pos - off, bucket=b,
+                    bucket_start=b_start, length=length))
+                pos += length
+        return tuple(tuple(s) for s in out)
+
+    def group_view(self, start: int, count: int) -> "BucketPlan":
+        """A plan over buckets ``[start, start + count)`` as one flat f32
+        pseudo-leaf, with this plan's ``bucket_elems`` and ``total`` cut
+        at the stream's true element count (so the last group pads
+        exactly where the full plan pads)."""
+        if not (0 <= start and count >= 1
+                and start + count <= self.n_buckets):
+            raise ValueError(
+                f"group [{start}, {start + count}) out of range for "
+                f"{self.n_buckets} buckets")
+        total = min(count * self.bucket_elems,
+                    self.total - start * self.bucket_elems)
+        return BucketPlan(
+            shapes=((total,),), dtypes=(torch.float32,), sizes=(total,),
+            offsets=(0,), total=total, bucket_elems=self.bucket_elems,
+            n_buckets=count)
+
+    def residual_slices(self, residual: Sequence[torch.Tensor],
+                        worker: int = 0) -> List[List[torch.Tensor]]:
+        """Local worker ``worker``'s error-feedback residual runs per
+        bucket: for each bucket, one flat view per segment, from the
+        ``(local_workers, *shape)`` residual of each leaf."""
+        rows = [r[worker].reshape(-1) for r in residual]
+        return [[rows[s.leaf][s.leaf_start:s.leaf_start + s.length]
+                 for s in segs] for segs in self.bucket_segments]
 
 
 def make_bucket_plan(leaves: Sequence[Any], cfg: CompressionConfig

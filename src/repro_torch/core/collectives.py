@@ -6,16 +6,24 @@ aggregates with ``psum`` (sketches, dense gradients), an OR all-reduce
 built from ``ppermute`` (bitmap words) and a ``pmax`` (fxp32
 exponents). The port has two groups with one surface: ``workers`` (W),
 ``levels``, ``local_workers`` (the workers this process runs),
-``first_worker`` (the global index of its first) and ``sum``, ``bor``
-and ``max``, each taking the payloads of the local workers and
-returning the aggregate over all W:
+``first_worker`` (the global index of its first), ``sum``, ``bor`` and
+``max``, each taking the payloads of the local workers and returning
+the aggregate over all W; the reduce-scatters ``sum_scatter`` and
+``bor_scatter``, each returning one slice a local worker (worker w's
+the w-th of W equal slices of the aggregate, rank-major, the
+reference's ``psum_scatter`` tiling); ``gather``, the all-gather of one
+equal slice a worker; and ``issuer``, which says how a streamed
+aggregation issues a chunk's collectives (:mod:`repro_torch.core.streams`):
 
 - :class:`LocalWorkers` emulates all W workers in one process on one
   device, folding over the worker axis;
 - :class:`ProcessGroupWorkers` is one rank of W processes: ``sum`` and
-  ``max`` are ``all_reduce``, and ``bor`` is the reference's
-  hierarchical OR all-reduce on point-to-point sends, since no
-  collective library reduces with a bitwise OR.
+  ``max`` are ``all_reduce``, ``bor`` is the reference's hierarchical
+  OR all-reduce on point-to-point sends, since no collective library
+  reduces with a bitwise OR, the two reduce-scatters are the
+  reference's ring reduce-scatter on the same sends (with ``+`` or
+  ``|``), on every backend, and ``gather`` is ``all_gather`` of the
+  slices' bytes.
 
 The OR all-reduce primitives are the reference's
 (``src/repro/core/collectives.py``) on ``torch.distributed`` P2P:
@@ -26,7 +34,12 @@ The OR all-reduce primitives are the reference's
   exchanges, powers of two only;
 - :func:`or_allreduce`: over several levels, innermost first, each by
   the ring for payloads of ``ring_threshold`` bytes or more and for
-  sizes that are not a power of two, else by doubling.
+  sizes that are not a power of two, else by doubling;
+- :func:`or_reduce_scatter_ring` / :func:`or_reduce_scatter`: the
+  ring's first phase alone, shifted so rank i ends on its own chunk i,
+  over the levels outermost first (the rank-major assignment);
+  :func:`reduce_scatter` is the same with any in-place combiner;
+- :func:`gather_chunk_slices`: the inverse of a per-chunk scatter.
 
 Every exchange posts its send and its receive together
 (``dist.batch_isend_irecv``), so no ring step waits on a blocking send.
@@ -39,10 +52,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, List, NamedTuple, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .streams import CommThread, InlineIssue
 
 
 def linear_rank(indices: Sequence[int], levels: Sequence[int]) -> int:
@@ -121,6 +136,31 @@ class LocalWorkers:
         """Elementwise max over workers (the reference's ``pmax``)."""
         self._check(parts)
         return functools.reduce(torch.maximum, parts)
+
+    def _scatter(self, total: torch.Tensor) -> List[torch.Tensor]:
+        if total.shape[0] % self.workers:
+            raise ValueError(f"leading dim {total.shape[0]} not divisible "
+                             f"by {self.workers} workers")
+        return list(total.chunk(self.workers))
+
+    def sum_scatter(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Reduce-scatter of the sum: worker w's slice is the w-th of W
+        equal leading-dim slices of :meth:`sum`."""
+        return self._scatter(self.sum(parts))
+
+    def bor_scatter(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Reduce-scatter of the bitwise OR, sliced as :meth:`sum_scatter`."""
+        return self._scatter(self.bor(parts))
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """All-gather: the workers' equal slices concatenated in worker
+        order on the leading dim."""
+        self._check(parts)
+        return torch.cat(list(parts))
+
+    def issuer(self) -> InlineIssue:
+        """A streamed aggregation's reduces run inline: they are local."""
+        return InlineIssue()
 
 
 class DPLevel(NamedTuple):
@@ -219,6 +259,76 @@ def or_allreduce(x: torch.Tensor, levels: Sequence[DPLevel],
     return x
 
 
+def reduce_scatter_ring(x: torch.Tensor, level: DPLevel,
+                        combine_: Callable) -> torch.Tensor:
+    """Reduce-scatter around the level's ring, the reference's
+    ``or_reduce_scatter_ring`` schedule with the in-place combiner
+    ``combine_`` (``torch.Tensor.bitwise_or_``, ``torch.Tensor.add_``):
+    the leading dim of ``x`` (same shape on every rank, divisible by the
+    level's size n) is cut into n chunks, and after n-1 steps rank i
+    holds chunk i combined over the level. ``x`` is not written."""
+    n, idx = level.size, level.index
+    if x.shape[0] % n:
+        raise ValueError(f"reduce-scatter: leading dim {x.shape[0]} not "
+                         f"divisible by the level's size {n}")
+    if n == 1:
+        return x
+    chunks = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:])).clone()
+    nxt, prv = (idx + 1) % n, (idx - 1) % n
+    recv = torch.empty_like(chunks[0])
+    for t in range(n - 1):
+        exchange(level, sends=[(chunks[(idx - t - 1) % n], nxt)],
+                 recvs=[(recv, prv)])
+        combine_(chunks[(idx - t - 2) % n], recv)
+    return chunks[idx]
+
+
+def or_reduce_scatter_ring(x: torch.Tensor, level: DPLevel) -> torch.Tensor:
+    """Bitwise-OR reduce-scatter of integer words around the level's
+    ring: rank i receives its own fully ORed chunk i, (n-1)/n · |B| a
+    link and no all-gather phase."""
+    return reduce_scatter_ring(x, level, torch.Tensor.bitwise_or_)
+
+
+def reduce_scatter(x: torch.Tensor, levels: Sequence[DPLevel],
+                   combine_: Callable) -> torch.Tensor:
+    """Hierarchical ring reduce-scatter over data-parallel levels: the
+    leading dim of ``x`` must divide by W, and rank w receives the w-th
+    of W equal chunks combined over all ranks. The levels are scattered
+    outermost first (the outer level picks the coarse chunk, each inner
+    one a sub-chunk of it), so the assignment is rank-major, as the
+    reference's ``psum_scatter`` over its mesh axes."""
+    W = math.prod(level.size for level in levels)
+    if x.shape[0] % W:
+        raise ValueError(f"reduce-scatter: leading dim {x.shape[0]} not "
+                         f"divisible by the total size {W}")
+    for level in reversed(levels):
+        x = reduce_scatter_ring(x, level, combine_)
+    return x
+
+
+def or_reduce_scatter(x: torch.Tensor, levels: Sequence[DPLevel]) -> torch.Tensor:
+    """Hierarchical bitwise-OR reduce-scatter (the reference's
+    ``or_reduce_scatter``): see :func:`reduce_scatter`."""
+    return reduce_scatter(x, levels, torch.Tensor.bitwise_or_)
+
+
+def gather_chunk_slices(parts: Sequence[torch.Tensor], group) -> torch.Tensor:
+    """Reassemble per-chunk reduce-scatter slices across the workers:
+    ``parts[w]`` is local worker w's ``(n_chunks, S, ...)`` slices, one a
+    wire chunk. Returns ``(n_chunks, W * S, ...)``: every chunk restored
+    as the one-shot wire delivers it (the workers' slices rank-major),
+    with one all-gather for all chunks. The reference's zero-pad + psum
+    form serves its partial-auto regions; the port has none, so it
+    gathers."""
+    if group.workers == 1:
+        return parts[0]
+    n_chunks, s = parts[0].shape[0], parts[0].shape[1]
+    rest = tuple(parts[0].shape[2:])
+    full = group.gather(list(parts)).reshape((group.workers, n_chunks, s) + rest)
+    return full.transpose(0, 1).reshape((n_chunks, group.workers * s) + rest)
+
+
 class ProcessGroupWorkers:
     """This process as one of W data-parallel ranks of the default
     ``torch.distributed`` process group, one worker a rank.
@@ -304,12 +414,49 @@ class ProcessGroupWorkers:
         """Elementwise max over the W ranks (``all_reduce(MAX)``)."""
         return self._all_reduce(self._one(parts), dist.ReduceOp.MAX)
 
+    def sum_scatter(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's slice of the sum over the W ranks, by the ring
+        reduce-scatter over the levels (:func:`reduce_scatter`)."""
+        x = self._one(parts)
+        return [reduce_scatter(self.to_wire(x), self.dp_levels,
+                               torch.Tensor.add_).to(x.device)]
+
+    def bor_scatter(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's slice of the bitwise OR over the W ranks
+        (:func:`or_reduce_scatter`)."""
+        x = self._one(parts)
+        return [or_reduce_scatter(self.to_wire(x), self.dp_levels).to(x.device)]
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """All-gather of this rank's slice: the W ranks' equal slices
+        concatenated in rank order on the leading dim. The slices move as
+        bytes (``all_gather`` on their ``uint8`` view), whatever their
+        dtype."""
+        x = self._one(parts).contiguous()
+        wire = self.to_wire(x)
+        if x.dim() == 0:
+            raise ValueError("gather needs a slice with a leading dim")
+        raw = wire.view(torch.uint8)
+        out = torch.empty((self.workers,) + tuple(raw.shape), dtype=torch.uint8,
+                          device=raw.device, pin_memory=raw.is_pinned())
+        dist.all_gather(list(out.unbind(0)), raw)
+        out = out.view(x.dtype).reshape((self.workers * x.shape[0],)
+                                        + tuple(x.shape[1:]))
+        return out.to(x.device)
+
+    def issuer(self) -> CommThread:
+        """A streamed aggregation's reduces run on one communication
+        thread, in chunk order (:class:`repro_torch.core.streams.CommThread`)."""
+        return CommThread()
+
 
 def dense_all_reduce(grads_w: Sequence[Sequence[torch.Tensor]],
-                     group) -> List[torch.Tensor]:
-    """Mean of every leaf over the workers, summed in f32 and cast back to
-    the leaf's dtype. ``grads_w[w]`` is local worker w's leaves."""
-    return [(group.sum([g.to(torch.float32) for g in parts]) / group.workers
+                     group, mean: bool = True) -> List[torch.Tensor]:
+    """Mean (or with ``mean=False`` the sum) of every leaf over the
+    workers, summed in f32 and cast back to the leaf's dtype.
+    ``grads_w[w]`` is local worker w's leaves."""
+    div = group.workers if mean else 1
+    return [(group.sum([g.to(torch.float32) for g in parts]) / div
              ).to(parts[0].dtype) for parts in zip(*grads_w)]
 
 

@@ -1,6 +1,6 @@
 """W data-parallel ranks as spawned processes.
 
-    results = spawn_ranks(fn, world, args, device="cpu", timeout=600)
+    results = spawn_ranks(fn, world, args, device="cuda", timeout=600)
 
 starts ``world`` processes with the ``spawn`` method (never ``fork``: the
 caller may have CUDA up), joins them in one ``torch.distributed`` process
@@ -97,13 +97,14 @@ def _collect(procs, results, world, deadline):
 
 
 def spawn_ranks(fn: Callable, world: int, args: Sequence = (), *,
-                device="cpu", levels: Sequence[int] = (),
+                device="cuda", levels: Sequence[int] = (),
                 timeout: float = 600.0, init_dir=None,
                 threads: int | None = None,
                 backend: str | None = None) -> list:
     """Run ``fn(group, device, *args)`` on ``world`` spawned ranks and
     return their results in rank order; raises if any rank raises, dies
-    or outlasts ``timeout``. ``init_dir``: where the rendezvous file's
+    or outlasts ``timeout``. ``device``: the card by default (see
+    :func:`placement`), ``"cpu"`` for gloo ranks on the CPU. ``init_dir``: where the rendezvous file's
     temporary directory goes (default: the system's). ``threads``: each
     rank's intra-op CPU threads (default: this process's cores shared
     out over the ranks; W ranks each spinning on all cores run an order

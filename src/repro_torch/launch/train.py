@@ -16,7 +16,13 @@ kernels), best with a small ``--topk-ratio`` such as 0.001, the extreme
 sparsity the filter is sized for. ``--accum-steps`` defaults to 1:
 the config's microbatch count is sized for the reference's pod-scale
 global batch, and a small batch split over the workers cannot take it.
-``--device cpu`` runs the plain PyTorch versions of the codec kernels.
+``--overlap`` streams the compressed wire bucket by bucket (the
+reference's finest aligned grid), ``--stream-chunks N`` cuts it into N
+chunks; ``--aggregator compressed_rs`` takes the reduce-scatter wire
+(``--rs-wire`` native or emulated), and ``--zero1`` slices the optimizer
+update over the workers. ``--bucket-bytes`` sets the bucket size (a
+smoke model's stream is one bucket at the default 4 MiB). ``--device cpu`` runs the plain PyTorch
+versions of the codec kernels.
 
 ``--procs W`` runs the W workers as W spawned processes, one rank each
 (:mod:`repro_torch.launch.ranks`): gloo where the ranks share a device
@@ -48,10 +54,15 @@ def _train(group, device, args):
         tc = dataclasses.replace(tc, aggregator=args.aggregator)
     fields = {k: v for k, v in (("wire_dtype", args.wire),
                                 ("index", args.index),
-                                ("topk_ratio", args.topk_ratio)) if v}
+                                ("topk_ratio", args.topk_ratio),
+                                ("overlap", args.overlap),
+                                ("stream_chunks", args.stream_chunks),
+                                ("rs_wire", args.rs_wire),
+                                ("bucket_bytes", args.bucket_bytes)) if v}
     tc = dataclasses.replace(tc, compression=dataclasses.replace(
         tc.compression, **fields))
-    tc = dataclasses.replace(tc, accum_steps=args.accum_steps)
+    tc = dataclasses.replace(tc, accum_steps=args.accum_steps,
+                             zero1=args.zero1)
     if args.lr:
         tc = dataclasses.replace(tc, optimizer=dataclasses.replace(
             tc.optimizer, lr=args.lr, total_steps=args.steps))
@@ -66,6 +77,9 @@ def _train(group, device, args):
         "aggregator": tc.aggregator, "wire": tc.compression.wire_dtype,
         "index": tc.compression.index,
         "topk_ratio": tc.compression.topk_ratio,
+        "overlap": tc.compression.overlap,
+        "stream_chunks": tc.compression.stream_chunks,
+        "rs_wire": tc.compression.rs_wire, "zero1": tc.zero1,
         "device": args.device,
         "first_loss": res.losses[0], "last_loss": res.losses[-1],
         "losses": res.losses, "steps": res.final_step,
@@ -89,7 +103,8 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--aggregator",
-                    choices=["dense", "compressed", "compressed_innet"],
+                    choices=["dense", "compressed", "compressed_rs",
+                             "compressed_innet"],
                     default=None)
     ap.add_argument("--wire", choices=["f32", "fxp32"], default=None,
                     help="the in-network tier's sketch wire")
@@ -97,6 +112,16 @@ def main(argv=None):
                     help="the non-zero index of the compressed wire")
     ap.add_argument("--topk-ratio", type=float, default=None,
                     help="share of each leaf a worker sends")
+    ap.add_argument("--overlap", action="store_true",
+                    help="stream the compressed wire chunk by chunk")
+    ap.add_argument("--stream-chunks", type=int, default=None,
+                    help="cut the compressed wire into this many chunks")
+    ap.add_argument("--rs-wire", choices=["auto", "native", "emulate"],
+                    default=None, help="compressed_rs: the wire it takes")
+    ap.add_argument("--bucket-bytes", type=int, default=None,
+                    help="f32 bytes a bucket (the unit a chunk holds whole)")
+    ap.add_argument("--zero1", action="store_true",
+                    help="slice the optimizer update over the workers")
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--device", default="cuda")

@@ -7,6 +7,15 @@ as W ranks: see ``core/collectives``) and ``dp_levels`` for the mesh's
 data-parallel axes (the level sizes, innermost first, that the
 in-network tier's ``tor_spine`` tree maps onto; empty means one level of
 all W). ``remat`` defaults to ``"none"``, the only policy the port runs.
+
+``zero1`` is the reference's ``ShardingProfile.zero1``: the optimizer
+update is sliced over the W workers on each leaf's
+``streams.zero_slice_dim`` and the updates' deltas all-gathered, and on
+ranks each keeps only its slice of the moments. The port's default is
+``False`` (the reference's is ``True``). ``rs_gather_skip`` is the
+reference's: with ``compressed_rs`` and ``zero1``, skip the
+recovered-chunk gather where the chunk grid aligns with the ZeRO-1
+slices.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ from .optimizer import OptimizerConfig
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    aggregator: str = "compressed"       # "dense" | "compressed" | "compressed_innet"
+    aggregator: str = "compressed"       # "dense" | "compressed" |
+                                         # "compressed_rs" | "compressed_innet"
     compression: CompressionConfig = dataclasses.field(
         default_factory=CompressionConfig)
     optimizer: OptimizerConfig = dataclasses.field(
@@ -30,6 +40,9 @@ class TrainConfig:
     accum_steps: int = 1                 # microbatch gradient accumulation
     workers: int = 1                     # data-parallel workers (W)
     dp_levels: Tuple[int, ...] = ()      # DP level sizes, innermost first
+    zero1: bool = False                  # slice the optimizer update over W
+    rs_gather_skip: bool = True          # compressed_rs + zero1: skip the
+                                         # gather where the grid aligns
     seed: int = 0
 
     def __post_init__(self):

@@ -51,11 +51,16 @@ def lr_schedule(step: int, cfg: OptimizerConfig, device=None) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def init_opt_state(leaves: Sequence[torch.Tensor],
-                   cfg: OptimizerConfig) -> Dict[str, List[torch.Tensor]]:
+def init_opt_state(leaves: Sequence[torch.Tensor], cfg: OptimizerConfig,
+                   shapes: Sequence[Sequence[int]] | None = None
+                   ) -> Dict[str, List[torch.Tensor]]:
+    """Zero moments on each leaf's device, of the leaf's shape or of
+    ``shapes[i]`` (a rank's ZeRO-1 slice)."""
+    shapes = [p.shape for p in leaves] if shapes is None else shapes
+
     def zeros():
-        return [torch.zeros(p.shape, dtype=cfg._sdt, device=p.device)
-                for p in leaves]
+        return [torch.zeros(tuple(sh), dtype=cfg._sdt, device=p.device)
+                for p, sh in zip(leaves, shapes)]
     if cfg.kind == "adamw":
         return {"m": zeros(), "v": zeros()}
     if cfg.kind == "momentum":

@@ -34,7 +34,21 @@ Pins, all exact unless stated:
   ``test_w2_lossless_compressed_tracks_dense_and_reference``);
 - at W = 4 on levels (2, 2): parameters identical on every rank, and
   lossless compressed losses within 1e-4 of dense, the bound of
-  ``tests/drivers/train_step_driver.py``.
+  ``tests/drivers/train_step_driver.py``;
+- the sum and OR reduce-scatters (``ProcessGroupWorkers.sum_scatter``
+  and ``bor_scatter``, the ring ``or_reduce_scatter_ring`` on one level
+  and the hierarchical ``or_reduce_scatter``) equal numpy's sum and OR
+  followed by the rank-major slice, outermost level first;
+  ``ProcessGroupWorkers.gather`` is the concatenation in rank order of
+  any dtype's bytes; ``gather_chunk_slices`` inverts a per-chunk scatter;
+- ``compressed_rs`` (one-shot and streamed) and the streamed
+  ``compressed`` aggregate give each rank the emulation's mean and
+  residual row; on an aligned two-leaf tree the gather-skip path gives
+  each rank the emulation's view of its own worker;
+- 3 steps at W = 2 of ``compressed_rs`` with ZeRO-1 (one-shot, and
+  streamed with ``overlap``) and of the streamed ``compressed``: losses
+  and parameter digests bit for bit with the emulation; at W = 4 the
+  ZeRO-1 parameters identical on every rank.
 """
 import concurrent.futures
 import dataclasses
@@ -46,10 +60,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.collectives import (LocalWorkers, ProcessGroupWorkers,
-                                          _use_ring, level_indices,
-                                          linear_rank, or_allreduce,
-                                          or_allreduce_doubling,
-                                          or_allreduce_ring)
+                                          _use_ring, gather_chunk_slices,
+                                          level_indices, linear_rank,
+                                          or_allreduce, or_allreduce_doubling,
+                                          or_allreduce_ring, or_reduce_scatter,
+                                          or_reduce_scatter_ring)
 from repro_torch.core.config import CompressionConfig
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.net.topology import make_topology, tree_all_reduce
@@ -89,17 +104,53 @@ def _agg_grads(world, seed=12):
             for _ in range(world)]
 
 
-def _aggregate(name, world, group, grads_w):
+# aggregations on every rank: name -> (aggregator, config fields)
+AGGREGATES = {"compressed": ("compressed", {}),
+              "compressed_innet": ("compressed_innet", {}),
+              "compressed_overlap": ("compressed", dict(overlap=True)),
+              "compressed_rs": ("compressed_rs", {}),
+              "compressed_rs_overlap": ("compressed_rs", dict(overlap=True))}
+
+
+def _aggregate(name, world, group, grads_w, fields=None, shapes=AGG_SHAPES,
+               zero1_dims=None):
     """One aggregation of ``grads_w`` (the group's local workers') with
-    error feedback from zero residuals: the mean leaves and residuals."""
+    error feedback from zero residuals: the mean leaves (one list a local
+    worker on the gather-skip path) and residuals."""
     from repro_torch.core.aggregators import make_aggregator
     from repro_torch.core.collectives import AggregationState
     cfg = CompressionConfig(**AGG_CFG, topology="tor_spine" if world == 4
-                            else "flat")
-    res = [torch.zeros((len(grads_w),) + sh) for sh in AGG_SHAPES]
-    out, st = make_aggregator(name, cfg, group)(
+                            else "flat", **(fields or {}))
+    res = [torch.zeros((len(grads_w),) + sh) for sh in shapes]
+    out, st = make_aggregator(name, cfg, group, zero1_dims=zero1_dims)(
         grads_w, AggregationState(residual=res))
-    return [o.numpy() for o in out], [r.numpy() for r in st.residual]
+    to_np = lambda leaves: [o.numpy() for o in leaves]
+    out = [to_np(o) for o in out] if isinstance(out[0], list) else to_np(out)
+    return out, [r.numpy() for r in st.residual]
+
+
+SKIP_SHAPES = [(4 * 3840,), (4 * 3840,)]      # 4 buckets a leaf
+
+
+def _skip_grads(world):
+    """Every worker's leaves of the aligned two-leaf tree (dyadic)."""
+    return [[torch.from_numpy(_dyadic(1, sh[0], 30 + 2 * w + k)[0])
+             for k, sh in enumerate(SKIP_SHAPES)] for w in range(world)]
+
+
+def _skip_aggregate(world, group, grads_w):
+    """The gather-skip aggregation of the aligned tree: 2 chunks, each
+    leaf's ZeRO-1 slice on dim 0 inside its rank's run of buckets."""
+    return _aggregate("compressed_rs", world, group, grads_w,
+                      dict(stream_chunks=2), SKIP_SHAPES, zero1_dims=(0, 0))
+
+
+def _rs_payloads(world, r):
+    """Rank r's inputs to the reduce-scatters: int words (bit 31 set in
+    half) and dyadic floats, leading dims divisible by W."""
+    return (torch.from_numpy(_words(world, (world * 5, 3), 21)[r]),
+            torch.from_numpy(_dyadic(world, world * 7 * 4, 22)[r]
+                             .reshape(world * 7, 4)))
 
 
 def _digest(params):
@@ -121,11 +172,17 @@ def _train_paths(world):
         base, aggregator="compressed",
         compression=CompressionConfig(**LOSSLESS),
         optimizer=OptimizerConfig(**MOMENTUM))
+    rs_zero1 = dataclasses.replace(base, aggregator="compressed_rs", zero1=True)
+    # one-block buckets: the smoke model's 14 buckets stream in 14 chunks
+    # (7 on the reduce-scatter grid), where 4 MiB buckets would make one
+    streamed = dataclasses.replace(comp, overlap=True,
+                                   bucket_bytes=4 * comp.block_elems)
     if world == 4:
         return {"dense": dataclasses.replace(base, aggregator="dense"),
                 "lossless": lossless,
                 "lossless_dense": dataclasses.replace(lossless,
-                                                      aggregator="dense")}
+                                                      aggregator="dense"),
+                "rs_zero1": rs_zero1}
     return {
         "dense": dataclasses.replace(base, aggregator="dense"),
         "bitmap": dataclasses.replace(base, aggregator="compressed"),
@@ -136,10 +193,15 @@ def _train_paths(world):
             base, aggregator="compressed_innet", compression=dataclasses.replace(
                 comp, wire_dtype="fxp32")),
         "lossless": lossless,
+        "overlap": dataclasses.replace(
+            base, aggregator="compressed", compression=streamed),
+        "rs_zero1": rs_zero1,
+        "rs_zero1_overlap": dataclasses.replace(rs_zero1, compression=streamed),
     }
 
 
-EMULATED = ("dense", "bitmap", "bloom", "innet_fxp32")
+EMULATED = ("dense", "bitmap", "bloom", "innet_fxp32", "overlap", "rs_zero1",
+            "rs_zero1_overlap")
 
 
 def _smoke_api():
@@ -199,9 +261,25 @@ def _rank(group, dev, world):
                                    group=group))
             assert all(len(g) == 1 for g in got)
             out["tree"][kind, slots] = (got[0][0].numpy(), got[1][0].numpy())
+    words, floats = _rs_payloads(world, r)
+    out["scatter"] = {"bor": group.bor_scatter([words])[0].numpy(),
+                      "sum": group.sum_scatter([floats])[0].numpy(),
+                      "or_hier": or_reduce_scatter(words, group.dp_levels).numpy(),
+                      "or_ring": or_reduce_scatter_ring(words, flat.dp_levels[0])
+                      .numpy()}
+    out["gather"] = {str(t.dtype): group.gather([t]).numpy() if t.dtype !=
+                     torch.bfloat16 else group.gather([t]).view(torch.int16).numpy()
+                     for t in (words, floats, floats.to(torch.bfloat16))}
+    chunks = torch.from_numpy(_dyadic(world, 3 * world * 5, 23)[r]).reshape(
+        3, world * 5)
+    local = torch.stack([group.sum_scatter([c])[0] for c in chunks])
+    out["chunk_slices"] = gather_chunk_slices([local], group).numpy()
     grads = _agg_grads(world)[r]
-    out["aggregate"] = {name: _aggregate(name, world, group, [grads])
-                        for name in ("compressed", "compressed_innet")}
+    out["aggregate"] = {name: _aggregate(agg, world, group, [grads], fields)
+                        for name, (agg, fields) in AGGREGATES.items()}
+    if world in (2, 4):
+        out["gather_skip"] = _skip_aggregate(world, group,
+                                             [_skip_grads(world)[r]])
     out["train"] = {name: _train(tc, group, dev)
                     for name, tc in _train_paths(world).items()}
     return out
@@ -223,8 +301,8 @@ def runs(tmp_path_factory):
     emulation's. The three spawns and the emulation start together and
     run while the tests compute the JAX reference."""
     pool = concurrent.futures.ThreadPoolExecutor(len(LEVELS) + 1)
-    futures = {w: pool.submit(spawn_ranks, _rank, w, (w,), levels=LEVELS[w],
-                              timeout=300, threads=1,
+    futures = {w: pool.submit(spawn_ranks, _rank, w, (w,), device="cpu",
+                              levels=LEVELS[w], timeout=300, threads=1,
                               init_dir=tmp_path_factory.mktemp(f"w{w}"))
                for w in LEVELS}
     futures["emulated"] = pool.submit(_emulate)
@@ -386,3 +464,88 @@ def test_p2p_tree_equals_flat_sum_and_or(runs, world, slots):
             got = out["tree"][kind, slots]
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
+
+
+# ----------------------------------------------------------------------
+# the reduce-scatter wire and ZeRO-1 on ranks
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_reduce_scatters_and_gather_match_numpy(runs, world):
+    words, floats = zip(*(_rs_payloads(world, r) for r in range(world)))
+    or_all = np.bitwise_or.reduce(np.stack([w.numpy() for w in words]), axis=0)
+    sum_all = LocalWorkers(world).sum(list(floats)).numpy()
+    for r, out in enumerate(runs(world)):
+        rows = slice(r * 5, (r + 1) * 5)
+        for name in ("bor", "or_hier", "or_ring"):
+            np.testing.assert_array_equal(out["scatter"][name], or_all[rows],
+                                          err_msg=name)
+        frows = slice(r * 7, (r + 1) * 7)
+        assert out["scatter"]["sum"].tobytes() == sum_all[frows].tobytes()
+        got = out["gather"]
+        np.testing.assert_array_equal(got["torch.int32"],
+                                      np.concatenate([w.numpy() for w in words]))
+        np.testing.assert_array_equal(got["torch.float32"],
+                                      np.concatenate([f.numpy() for f in floats]))
+        np.testing.assert_array_equal(
+            got["torch.bfloat16"],
+            np.concatenate([f.to(torch.bfloat16).view(torch.int16).numpy()
+                            for f in floats]))
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_gather_chunk_slices_inverts_a_per_chunk_scatter(runs, world):
+    parts = _dyadic(world, 3 * world * 5, 23).reshape(world, 3, world * 5)
+    want = LocalWorkers(world).sum([torch.from_numpy(p) for p in parts]).numpy()
+    for out in runs(world):
+        assert out["chunk_slices"].tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+@pytest.mark.parametrize("name", ["compressed_overlap", "compressed_rs",
+                                  "compressed_rs_overlap"])
+def test_rs_and_streamed_aggregates_equal_emulation(runs, world, name):
+    agg, fields = AGGREGATES[name]
+    grads = _agg_grads(world)
+    want, want_res = _aggregate(agg, world, LocalWorkers(world, LEVELS[world]),
+                                grads, fields)
+    plain, _ = _aggregate("compressed", world,
+                          LocalWorkers(world, LEVELS[world]), grads)
+    for a, b in zip(want, plain):
+        assert a.tobytes() == b.tobytes()
+    for r, out in enumerate(runs(world)):
+        got, res = out["aggregate"][name]
+        for a, b in zip(got, want):
+            assert a.tobytes() == b.tobytes(), name
+        for a, b in zip(res, want_res):
+            np.testing.assert_array_equal(a[0], b[r])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gather_skip_on_ranks_equals_emulation(runs, world):
+    want, want_res = _skip_aggregate(world, LocalWorkers(world, LEVELS[world]),
+                                     _skip_grads(world))
+    assert len(want) == world
+    for r, out in enumerate(runs(world)):
+        got, res = out["gather_skip"]
+        assert len(got) == 1
+        for a, b in zip(got[0], want[r]):
+            assert a.tobytes() == b.tobytes()
+        for a, b in zip(res, want_res):
+            np.testing.assert_array_equal(a[0], b[r])
+
+
+def test_streamed_training_equals_unstreamed(runs):
+    """Chunking is bit-invisible through training too: the streamed runs
+    (one-block buckets) equal the unstreamed ones (4 MiB buckets)."""
+    emu = runs("emulated")
+    for streamed, plain in (("overlap", "bitmap"),
+                            ("rs_zero1_overlap", "rs_zero1")):
+        assert emu[streamed]["digest"] == emu[plain]["digest"]
+        assert emu[streamed]["losses"] == emu[plain]["losses"]
+
+
+def test_w4_zero1_stays_replicated(runs):
+    outs = runs(4)
+    assert len({out["train"]["rs_zero1"]["digest"] for out in outs}) == 1
+    assert all(np.isfinite(outs[0]["train"]["rs_zero1"]["losses"]))

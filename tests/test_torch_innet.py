@@ -403,13 +403,6 @@ def test_innet_f32_wire_is_compressed_bit_for_bit():
             grads, AggregationState(residual=[torch.zeros((4,) + s) for s in SHAPES]))
 
 
-@pytest.mark.parametrize("field", [dict(overlap=True), dict(stream_chunks=2)])
-def test_innet_streamed_schedule_not_ported(field):
-    cfg = dataclasses.replace(tcfg(JCFG), **field)
-    with pytest.raises(NotImplementedError, match="stream"):
-        make_aggregator("compressed_innet", cfg, LocalWorkers(2))
-
-
 def test_innet_lossless_smoke_train_tracks_dense():
     """The lossless profile (ratio 2, rows 60) at the smoke config: three
     steps of the fxp32 in-network step against the dense step, losses
