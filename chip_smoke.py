@@ -17,7 +17,8 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
    device memory.
 4. train   — granite-3-2b at full width, depth cut 40 -> 4, bf16, W=2
    data-parallel workers emulated on the card, global batch 8 x 1024
-   tokens, aggregator ``compressed`` (ratio 0.1, top-k 4%), AdamW, one
+   tokens, aggregator ``compressed`` (ratio 0.1, top-k 4%), AdamW with
+   the ZeRO-1 update (the default, as every train phase's), one
    warm-up step and three timed steps. The launch counters are zeroed
    just before and read just after: the producer must have run W times
    per step and the consumer once.
@@ -146,8 +147,9 @@ The streamed wire, the reduce-scatter wire and ZeRO-1 (phases 4, 9 and
     with ZeRO-1, one-shot (W consumer launches a step, one a worker's
     half) and streamed (208 chunks of 2 buckets: W producer and W
     consumer launches a chunk); the two runs' parameter sha256 equal
-    after every step, their recovery equal, step 0's equal to phase 4's,
-    losses within rtol 1e-3 of phase 4's. Then the consumer on a half
+    after every step and equal to phase 4's (which takes the ZeRO-1
+    update too, the default), their recovery equal, step 0's equal to
+    phase 4's, the losses equal. Then the consumer on a half
     stream and on one chunk's slice beside the whole stream.
 21. dist_rs — W=2 ranks as in phase 18: the ``compressed_rs`` + ZeRO-1
     arm (native, one-shot) and the streamed ``compressed`` arm; after
@@ -169,10 +171,42 @@ The streamed wire, the reduce-scatter wire and ZeRO-1 (phases 4, 9 and
     summed over the ranks equal to the full gather's; the full-width
     granite shapes take it on no chunk grid.
 
+Wire plans and the ``auto`` strategy (after phase 16, as they read the
+codec's rate from phase 6 and the link's from phase 18):
+
+23. auto_train — LocalWorkers, W=2, the ``auto`` aggregator (fxp32 on
+    the in-network groups). (a) A fixed mixed plan of all four wires over
+    the 415 buckets, the groups after the first starting at odd buckets,
+    for 2 steps: the launches of rows 1, 2 and 4 the plan implies (W
+    producers a compressed group, one consumer for ``compressed``, W for
+    ``compressed_rs``, one dequant consumer for ``compressed_innet``);
+    then on step 0's gradients and zero residuals each compressed
+    group's aggregate rows equal the fixed strategy's bit for bit, the
+    dense group's the sum of the packed streams, the residuals equal.
+    (b) ``uniform_plan(415, "compressed")`` for 4 steps: parameter
+    sha256 equal to phase 4's after every step. (c) The controller with
+    ``replan_every=2`` from priors measured in this run
+    (``priors_from_codec_report``: the stream's bytes over the mean of
+    the producer's and consumer's ``main_stream`` times, the device
+    memory bound, and ``dist_train``'s dense all-reduce bytes over their
+    time), driven until it decides: its ``decision_trace()``, each
+    bucket's occupancy against the 7.3% limit, the vetoed buckets and
+    the ``lm_head`` buckets among them, the decided plan's step time
+    beside the best uniform wire's and beside the plan that routes the
+    vetoed buckets dense and the rest compressed.
+24. dist_auto — W=2 ranks as in phase 18: the mixed plan of 23(a) for 2
+    steps; each step's parameter sha256 equal on both ranks and to
+    23(a)'s, each rank's launches the plan's for one worker; the last
+    step's collectives replayed alone by operation (the dense group's
+    sum, the sketch sum and word OR, the reduce-scatters and the
+    recovered-chunk gather, the exponent max) and the in-network group's
+    P2P tree, with their bytes a rank.
+
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
-the occupancy query, its launches on each train path, ``dist_train``'s
-and ``dist_rs``'s summed over the ranks, for the three peel kernels the rounds histogram,
+the occupancy query, its launches on each train path (the ``auto``
+phases' too), ``dist_train``'s, ``dist_rs``'s and ``dist_auto``'s summed
+over the ranks, for the three peel kernels the rounds histogram,
 for the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
@@ -776,13 +810,14 @@ class BloomObserver:
 
 
 def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
-                want=None, emit_line=True):
+                want=None, emit_line=True, wire_plan=None, steps=STEPS):
     """The main path: ``compressed`` (``wire="f32"``) or, with
     ``wire="fxp32"``, ``compressed_innet`` on the fxp32 wire; ``fields``
     override the config's compression fields (the Bloom path:
     ``index="bloom"``, a 0.1% top-k; the streamed paths: ``overlap``),
-    ``tc_fields`` its train fields (``aggregator``, ``zero1``), and
-    ``want`` the launch counts the run must give (default: the unstreamed
+    ``tc_fields`` its train fields (``aggregator``, ``zero1``),
+    ``wire_plan`` the aggregator's wire plan, and ``want`` the launch
+    counts the run of ``steps`` steps must give (default: the unstreamed
     paths'). The launch counters are zeroed just before the run and read
     just after; the parameters' sha256 is taken after every step, outside
     the step's clock."""
@@ -818,24 +853,25 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
     if bloom:
         with observer:
             res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
-                               steps=STEPS, device=dev, params=params,
+                               steps=steps, device=dev, params=params,
                                log_every=1, log_fn=after_step)
     else:
         res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
-                           steps=STEPS, device=dev, params=params,
-                           log_every=1, log_fn=after_step)
+                           steps=steps, device=dev, params=params,
+                           log_every=1, log_fn=after_step,
+                           wire_plan=wire_plan)
     launches = dict(ops.LAUNCHES)
     expect = dict.fromkeys(ops.LAUNCHES, 0)
     if want is not None:
         expect.update(want)
     elif bloom:
         # per step: W standalone encodes, one standalone peel, no fused leg
-        expect.update(sketch_encode=WORKERS * STEPS, sketch_peel=STEPS)
+        expect.update(sketch_encode=WORKERS * steps, sketch_peel=steps)
     else:
         # per step: W f32 producer launches, then one consumer launch (the
         # dequant leg on the fxp32 wire); the quantize leg is off the path
-        expect.update(encode_pack_quantize=WORKERS * STEPS)
-        expect["dequant_peel_unpack_dq" if innet else "dequant_peel_unpack"] = STEPS
+        expect.update(encode_pack_quantize=WORKERS * steps)
+        expect["dequant_peel_unpack_dq" if innet else "dequant_peel_unpack"] = steps
     if launches != expect:
         raise AssertionError(f"{phase}: launch counts {launches}, expected {expect}")
     if not all(torch.isfinite(torch.tensor(res.losses))):
@@ -855,7 +891,7 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
            "topology": tc.compression.topology,
            "switch_slots": tc.compression.switch_slots,
            "overlap": tc.compression.overlap, "zero1": tc.zero1,
-           "steps": STEPS, "warmup_steps": 1,
+           "steps": steps, "warmup_steps": 1,
            "step_ms": [s * 1e3 for s in res.step_seconds[1:]],
            "warmup_ms": res.step_seconds[0] * 1e3,
            "losses": res.losses, "launches": launches, "recovery": recovery,
@@ -1498,16 +1534,19 @@ def param_digest(params):
 
 
 class WireLog:
-    """The group a ``dist_train`` / ``dist_rs`` rank hands its step: each
-    collective goes on to the rank's ``ProcessGroupWorkers``; the log
-    keeps each one's op, shape, dtype and name (``step_calls``: the last
-    step's) and the last word OR's input and output (references to the
-    step's own tensors). With ``timed``, a streamed aggregation's reduces
-    go through :class:`TimedIssue` (``streams``: one timeline a stream)."""
+    """The group a ``dist_train`` / ``dist_rs`` / ``dist_auto`` rank hands
+    its step: each collective goes on to the rank's
+    ``ProcessGroupWorkers``; the log keeps each one's op, shape, dtype and
+    name (``step_calls``: the last step's) and the last word OR's input
+    and output (references to the step's own tensors). With ``timed``, a
+    streamed aggregation's reduces go through :class:`TimedIssue`
+    (``streams``: one timeline a stream). With ``bucket_elems``, a sum of
+    whole buckets (a wire plan's dense group) is named apart."""
 
-    def __init__(self, group, timed=False):
+    def __init__(self, group, timed=False, bucket_elems=None):
         self.group, self.calls, self.step_calls, self.words = group, [], [], None
         self.timed, self.streams, self.scattered = timed, [], False
+        self.bucket_elems = bucket_elems
 
     def __getattr__(self, name):
         return getattr(self.group, name)
@@ -1533,6 +1572,11 @@ class WireLog:
         return {"sum_scatter": "sketch_reduce_scatter"}.get(op, op)
 
     def sum(self, parts):
+        if self.bucket_elems is not None and parts[0].dim() == 2 and \
+                parts[0].shape[1] == self.bucket_elems:
+            self.calls.append(("sum", tuple(parts[0].shape), parts[0].dtype,
+                               "dense_group_sum"))
+            return self.group.sum(parts)
         return self._note("sum", parts)
 
     def max(self, parts):
@@ -1764,6 +1808,7 @@ def phase_dist_train(emulated_losses):
     if max(rel) > 1e-3:
         raise AssertionError(f"dist losses {comp['losses']} vs emulated "
                              f"{emulated_losses}")
+    dense = outs[0]["arms"]["dense"]["collectives"]
     arms["compressed"].update(
         recovery=comp["recovery"], or_check=comp["or_check"],
         emulated_losses=emulated_losses, loss_rel_diff_to_emulated=rel,
@@ -1777,8 +1822,11 @@ def phase_dist_train(emulated_losses):
             "probes": {"nccl_two_ranks_one_device": probe("nccl"),
                        "gloo_p2p_cuda_tensor": probe("gloo_p2p")}}
     emit(line)
+    # the dense arm's all-reduces, bytes over their time alone (rank 0):
+    # the link the wires cross here, gloo host-staged on one card
+    link = {"bytes": dense["payload_bytes_total"], "ms": dense["ms_median"]}
     return {k: sum(o["arms"]["compressed"]["launches"][k] for o in outs)
-            for k in want}
+            for k in want}, link
 
 
 # ----------------------------------------------------------------------
@@ -1881,9 +1929,10 @@ def phase_rs_train(dev, cfg, train, shapes_dtypes, consumer_ms):
     ZeRO-1, one-shot and streamed (208 chunks of 2 buckets, one bucket a
     rank a chunk). Per step W producer launches (W a chunk streamed) and
     W consumer launches, each on its worker's half (W a chunk streamed).
-    The two runs' parameter sha256 must be equal after every step, and
-    the losses within rtol 1e-3 of phase ``train``'s (the ZeRO-1 update
-    adds bf16 deltas, the replicated one writes the new values). Then the
+    The two runs' parameter sha256 must be equal after every step and
+    equal to phase ``train``'s, which takes the ZeRO-1 update too (the
+    reduce-scatter wire's aggregate is ``compressed``'s bit for bit), and
+    the losses equal. Then the
     consumer on a half stream (208 buckets) and on one chunk's slice (one
     bucket), beside the whole stream, on a synthetic two-worker 4%
     aggregate."""
@@ -1910,9 +1959,11 @@ def phase_rs_train(dev, cfg, train, shapes_dtypes, consumer_ms):
         raise AssertionError("rs_train: one-shot and streamed parameters differ")
     rel = [abs(a - b) / abs(b) for a, b in zip(arms["oneshot"]["losses"],
                                                train["losses"])]
-    if max(rel) > 1e-3:
-        raise AssertionError(f"rs_train losses {arms['oneshot']['losses']} vs "
-                             f"train {train['losses']}")
+    if arms["oneshot"]["param_sha256_by_step"] != train["param_sha256_by_step"] \
+            or arms["oneshot"]["losses"] != train["losses"]:
+        raise AssertionError(f"rs_train parameters or losses "
+                             f"{arms['oneshot']['losses']} differ from train's "
+                             f"{train['losses']}")
     # the slices' stats add up to the whole stream's: equal to train's at
     # step 0 (the same parameters), and between the two arms at every step
     if arms["oneshot"]["recovery"] != arms["streamed"]["recovery"] or \
@@ -2225,6 +2276,430 @@ def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes):
     return launches
 
 
+# ----------------------------------------------------------------------
+# Wire plans and the auto strategy
+# ----------------------------------------------------------------------
+
+AUTO_STEPS = 2           # steps of the fixed mixed plan
+CONTROLLER_STEPS = 40    # most steps the controller may take to decide
+
+
+def mixed_plan(n_buckets):
+    """The fixed mixed plan of ``auto_train`` and ``dist_auto``: all four
+    wires, each group after the first starting at an odd bucket (no
+    multiple of W or of the 8 switch slots)."""
+    from repro_torch.core.wireplan import WireGroup, WirePlan
+    cuts = (0, 37, 151, 263, n_buckets)
+    wires = ("dense", "compressed_rs", "compressed_innet", "compressed")
+    return WirePlan(n_buckets, tuple(WireGroup(a, b - a, w) for a, b, w in
+                                     zip(cuts, cuts[1:], wires)))
+
+
+def auto_tc():
+    """The train config of the ``auto`` phases: phase 4's with the
+    ``auto`` aggregator and fxp32 on the in-network groups."""
+    from repro_torch.configs import get_arch
+    arch = get_arch("granite-3-2b")
+    return dataclasses.replace(
+        arch.train, workers=WORKERS, accum_steps=1, remat="none",
+        aggregator="auto", compression=dataclasses.replace(
+            arch.train.compression, wire_dtype="fxp32"))
+
+
+def plan_launches(plan, local_workers, steps):
+    """The launches ``steps`` steps of ``plan`` imply, for a process
+    running ``local_workers`` workers: a compressed group's producer a
+    worker; the consumer once (``compressed``), once a worker on its
+    slice (``compressed_rs``), or its dequant leg once
+    (``compressed_innet`` on fxp32); a dense group none."""
+    want = {"encode_pack_quantize": 0, "dequant_peel_unpack": 0,
+            "dequant_peel_unpack_dq": 0}
+    for g in plan.groups:
+        if g.wire == "dense":
+            continue
+        want["encode_pack_quantize"] += local_workers * steps
+        if g.wire == "compressed_innet":
+            want["dequant_peel_unpack_dq"] += steps
+        else:
+            want["dequant_peel_unpack"] += steps * (
+                local_workers if g.wire == "compressed_rs" else 1)
+    return want
+
+
+def step0_grads(api, tc, dev):
+    """Each worker's gradients at the seed's parameters on step 0's
+    batch (the first step of every train phase)."""
+    import torch
+    from repro_torch.data.pipeline import batch_fn
+    from repro_torch.train.loop import device_batch
+    params = api.init(tc.seed, dev)
+    batch = device_batch(batch_fn(api.cfg, BATCH, SEQ, seed=tc.seed)(0), dev)
+    per = BATCH // WORKERS
+    grads_w = []
+    for w in range(WORKERS):
+        loss, _ = api.loss(params.tree(), {k: v[w * per:(w + 1) * per]
+                                           for k, v in batch.items()},
+                           remat="none")
+        grads_w.append([g.detach() for g in
+                        torch.autograd.grad(loss, params.leaves())])
+    return grads_w
+
+
+def plan_rows(name, cfg, grads_w, dev, wire_plan=None):
+    """One aggregation of ``grads_w`` on LocalWorkers from zero residuals
+    through the named strategy (and plan): the aggregated ``(n_buckets,
+    E)`` f32 stream before the mean, and the sha256 of the new
+    residuals."""
+    import torch
+    from repro_torch.core.aggregators import make_aggregator
+    from repro_torch.core.bucketing import make_bucket_plan
+    from repro_torch.core.collectives import AggregationState, LocalWorkers
+    from repro_torch.core.compressor import HomomorphicCompressor
+    agg = make_aggregator(name, cfg, LocalWorkers(WORKERS), wire_plan=wire_plan)
+    state = AggregationState(residual=[
+        torch.zeros((WORKERS,) + tuple(g.shape), device=dev) for g in grads_w[0]])
+    bplan = make_bucket_plan(grads_w[0], cfg)
+    streams = [functools.partial(agg._pack, w, g, state, bplan)
+               for w, g in enumerate(grads_w)]
+    rec, _ = agg._execute_plan(streams, bplan, HomomorphicCompressor(cfg), dev)
+    return rec, digest(*[r.reshape(-1) for r in state.residual], chunk=1 << 26)
+
+
+def packed_sum(cfg, grads_w, dev, rows):
+    """The sum over the workers of their packed (sparsified) streams'
+    ``rows``, from zero residuals."""
+    import torch
+    from repro_torch.core.aggregators import make_aggregator
+    from repro_torch.core.bucketing import make_bucket_plan
+    from repro_torch.core.collectives import AggregationState, LocalWorkers
+    agg = make_aggregator("compressed", cfg, LocalWorkers(WORKERS))
+    bplan = make_bucket_plan(grads_w[0], cfg)
+    total = None
+    for w, g in enumerate(grads_w):
+        state = AggregationState(residual=[
+            torch.zeros((WORKERS,) + tuple(x.shape), device=dev) for x in g])
+        part = agg._pack(w, g, state, bplan)[rows].clone()
+        total = part if total is None else total + part
+        del state
+    return total
+
+
+def occupancy_report(occ, cfg, bplan, paths):
+    """Per-bucket occupancy against the peel limit: a histogram, the
+    vetoed buckets (over ``auto_occupancy_margin`` of the capacity),
+    which of them hold the ``lm_head`` leaf, and per leaf (``paths``, in
+    flatten order; a bucket counts for the leaf it holds most of) its
+    vetoed buckets and buckets."""
+    import collections
+    from repro_torch.core.costmodel import occupancy_feasible
+    cap = cfg.peel_capacity / cfg.block_elems
+    limit = cfg.auto_occupancy_margin * cap
+    edges = [0.0, 0.01, 0.02, 0.03, 0.04, 0.05, 0.06, 0.07, limit, cap,
+             0.10, 0.15, 0.20, 1.0]
+    hist = {f"[{a:.4f},{b:.4f})": sum(a <= o < b for o in occ)
+            for a, b in zip(edges, edges[1:])}
+    hist["1.0"] = sum(o >= 1.0 for o in occ)
+    vetoed = [b for b, o in enumerate(occ) if not occupancy_feasible(o, cfg)]
+    lm_head_leaf = paths.index(("lm_head",))
+    lm = [b for b, segs in enumerate(bplan.bucket_segments)
+          if any(sg.leaf == lm_head_leaf for sg in segs)]
+    by_leaf = collections.defaultdict(lambda: [0, 0])
+    for b, segs in enumerate(bplan.bucket_segments):
+        leaf = "/".join(paths[max(segs, key=lambda sg: sg.length).leaf])
+        by_leaf[leaf][0] += b in vetoed
+        by_leaf[leaf][1] += 1
+    return {"limit": limit, "capacity": cap, "histogram": hist,
+            "min": min(occ), "max": max(occ), "vetoed": len(vetoed),
+            "vetoed_buckets": vetoed, "lm_head_buckets": [lm[0], lm[-1] + 1],
+            "lm_head_vetoed": sum(b in lm for b in vetoed),
+            "lm_head_bucket_count": len(lm),
+            "vetoed_outside_lm_head": [b for b in vetoed if b not in lm],
+            "vetoed_and_buckets_by_leaf": dict(by_leaf)}
+
+
+def phase_auto_train(dev, train, shapes_dtypes, codec_bps, link_bps):
+    """LocalWorkers, W=2, the ``auto`` strategy at full width.
+
+    (a) The fixed mixed plan for 2 steps: the launches it implies; then,
+    on step 0's gradients and zero residuals, its aggregate rows equal,
+    group by group and bit for bit, the fixed strategies' (and a dense
+    group's the sum of the packed streams), with equal residuals. (b) The
+    uniform plan on ``compressed``: parameter sha256 equal to phase 4's
+    after every step. (c) The controller from priors measured in this run
+    (``codec_bps``: the stream's bytes over the mean of the producer's and
+    the consumer's full-stream times; ``link_bps``: the dense all-reduces
+    of ``dist_train``), ``replan_every=2``, driven until it decides: its
+    trace, the occupancy against the peel limit, the vetoed buckets, and
+    the decided plan's step time beside the best uniform wire's and
+    beside the plan that routes the vetoed buckets dense."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.bucketing import make_bucket_plan
+    from repro_torch.core.wireplan import plan_from_assignments, uniform_plan
+    from repro_torch.data.pipeline import batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    tc = auto_tc()
+    cfg = tc.compression
+    api = model_api(dataclasses.replace(get_arch("granite-3-2b").model,
+                                        n_layers=LAYERS))
+    bplan = make_bucket_plan(meta_leaves(shapes_dtypes), cfg)
+    nb = bplan.n_buckets
+    plan = mixed_plan(nb)
+    launches = {}
+
+    # (a) the fixed mixed plan
+    mixed, launches["mixed"], _, _, state = phase_train(
+        dev, phase="auto_mixed", wire="fxp32", tc_fields={"aggregator": "auto"},
+        want=plan_launches(plan, WORKERS, AUTO_STEPS), emit_line=False,
+        wire_plan=plan, steps=AUTO_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    grads_w = step0_grads(api, tc, dev)
+    rec, res_digest = plan_rows("auto", cfg, grads_w, dev, wire_plan=plan)
+    groups = []
+    for g in plan.groups:
+        rows = slice(g.start, g.stop)
+        if g.wire == "dense":
+            want, want_res = packed_sum(cfg, grads_w, dev, rows), res_digest
+        else:
+            full, want_res = plan_rows(g.wire, cfg, grads_w, dev)
+            want = full[rows].clone()
+            del full
+        torch.cuda.empty_cache()
+        equal = bool(torch.equal(rec[rows], want))
+        groups.append({"start": g.start, "n_buckets": g.n_buckets,
+                       "wire": g.wire, "rows_equal": equal,
+                       "residuals_equal": want_res == res_digest,
+                       "equal_to": "sum of the packed streams"
+                       if g.wire == "dense" else f"fixed {g.wire}"})
+        if not (equal and want_res == res_digest):
+            raise AssertionError(f"auto_train: group {g} differs from {groups[-1]['equal_to']}")
+        del want
+    del rec, grads_w
+    torch.cuda.empty_cache()
+
+    # (b) the uniform plan on the compressed wire
+    uniform, launches["uniform"], _, _, state = phase_train(
+        dev, phase="auto_uniform", wire="fxp32", tc_fields={"aggregator": "auto"},
+        want={"encode_pack_quantize": WORKERS * STEPS,
+              "dequant_peel_unpack": STEPS},
+        emit_line=False, wire_plan=uniform_plan(nb, "compressed"))
+    del state
+    torch.cuda.empty_cache()
+    if uniform["param_sha256_by_step"] != train["param_sha256_by_step"]:
+        raise AssertionError("auto_train: the uniform compressed plan's "
+                             "parameters differ from phase train's")
+
+    # (c) the controller
+    report = {"achieved_codec_bytes_per_s": codec_bps,
+              "hbm_bytes_per_s": HBM_BYTES_PER_S, "ici_bytes_per_s": link_bps}
+    priors = cm.priors_from_codec_report(report)
+    cfg_c = dataclasses.replace(cfg, replan_every=2, **priors)
+    tc_c = dataclasses.replace(tc, compression=cfg_c)
+    ctl = cm.AutoWireController(bplan, cfg_c, workers=WORKERS, device=dev)
+    state = init_train_state(api, tc_c, dev)
+    make_batch = batch_fn(api.cfg, BATCH, SEQ, seed=tc.seed)
+    fns, walls, step = {}, [], 0
+
+    def run_step(wplan):
+        nonlocal state, step
+        fn = fns.setdefault(wplan, build_train_step(api, tc_c, wire_plan=wplan))
+        batch = device_batch(make_batch(step), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = fn(state, batch)
+        occ = metrics["bucket_occupancy"].tolist()       # syncs the device
+        wall = time.perf_counter() - t0
+        if not math.isfinite(float(metrics["loss"])):
+            raise AssertionError("auto_train: non-finite loss")
+        step += 1
+        return wall, occ
+
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    while True:
+        wplan = ctl.plan(step)
+        if step > 0 and not ctl.decision_trace()["probing"]:
+            break
+        if step >= CONTROLLER_STEPS:
+            raise AssertionError("auto_train: the controller did not decide "
+                                 f"in {CONTROLLER_STEPS} steps")
+        wall, occ = run_step(wplan)
+        walls.append({"plan": wplan.describe(), "ms": wall * 1e3})
+        ctl.observe(wall, {"bucket_occupancy": occ})
+    launches["controller"] = dict(ops.LAUNCHES)
+    decided = wplan
+    trace = ctl.decision_trace()
+    # the controller's folded occupancy, which its vetoes read
+    occ_rep = occupancy_report(ctl._occupancy, cfg_c, bplan,
+                               list(state.params.paths))
+    veto_plan = plan_from_assignments(
+        ["dense" if b in set(occ_rep["vetoed_buckets"]) else "compressed"
+         for b in range(nb)])
+    timed = {}
+    for name, wp in (("decided", decided), ("veto_dense_else_compressed",
+                                            veto_plan)):
+        runs = [run_step(wp)[0] * 1e3 for _ in range(3)]
+        timed[name] = {"plan": wp.describe(), "step_ms": runs[1:],
+                       "warmup_ms": runs[0]}
+    best = min(trace["measured_wall_s"].items(), key=lambda kv: kv[1])
+    del state, fns
+    torch.cuda.empty_cache()
+    emit({"phase": "auto_train", "arch": "granite-3-2b", "layers": LAYERS,
+          "workers": WORKERS, "global_batch": BATCH, "seq_len": SEQ,
+          "buckets": nb, "wire_dtype": cfg.wire_dtype,
+          "mixed": {"plan": plan.describe(), "steps": AUTO_STEPS,
+                    "step_ms": mixed["step_ms"], "warmup_ms": mixed["warmup_ms"],
+                    "losses": mixed["losses"], "launches": mixed["launches"],
+                    "recovery": mixed["recovery"],
+                    "param_sha256_by_step": mixed["param_sha256_by_step"],
+                    "peak_mem_bytes": mixed["peak_mem_bytes"],
+                    "groups_on_step0_grads": groups},
+          "uniform": {"plan": f"[0:{nb}]=compressed",
+                      "step_ms": uniform["step_ms"],
+                      "equal_to_train": True, "train_step_ms": train["step_ms"],
+                      "param_sha256_by_step": uniform["param_sha256_by_step"]},
+          "controller": {"codec_report": report, "priors": priors,
+                         "replan_every": 2, "steps": len(walls),
+                         "steps_by_window": walls, "decision_trace": trace,
+                         "occupancy": occ_rep, "timed": timed,
+                         "best_uniform": {"wire": best[0],
+                                          "wall_ms": best[1] * 1e3},
+                         "launches": launches["controller"]}})
+    return launches, mixed["param_sha256_by_step"]
+
+
+def dist_auto_rank(group, dev, n_buckets):
+    """One rank of ``dist_auto``: the fixed mixed plan for 2 steps from the
+    phase-4 setup with this rank's worker, as in ``dist_rank``; the last
+    step's collectives replayed alone by operation, and the in-network
+    group's tree (its int32 sketch sum and word OR, in windows of the
+    switch slots, over the P2P tree) replayed alone likewise."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bucketing import make_bucket_plan
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import model_api
+    from repro_torch.net.topology import make_topology, tree_all_reduce
+    from repro_torch.train.loop import run_training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tc = auto_tc()
+    cfg = tc.compression
+    api = model_api(dataclasses.replace(get_arch("granite-3-2b").model,
+                                        n_layers=LAYERS))
+    plan = mixed_plan(n_buckets)
+    params = api.init(tc.seed, dev)
+    bplan = make_bucket_plan(params.leaves(), cfg)
+    log = WireLog(group, bucket_elems=bplan.bucket_elems)
+    digests = []
+
+    def after_step(_line):
+        log.end_step()
+        digests.append(param_digest(params))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+                       steps=AUTO_STEPS, device=dev, params=params,
+                       log_every=1, log_fn=after_step, group=log,
+                       wire_plan=plan)
+    out = {"rank": group.rank, "device": str(dev), "backend": group.backend,
+           "staging": group.staging, "losses": res.losses, "digests": digests,
+           "launches": dict(ops.LAUNCHES),
+           "step_ms": [t * 1e3 for t in res.step_seconds[1:]],
+           "warmup_ms": res.step_seconds[0] * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "recovery": [{k[len("recovery_"):]: int(m[k]) for k in m
+                         if k.startswith("recovery_")} for m in res.metrics]}
+    del res, params
+    torch.cuda.empty_cache()
+    out["collectives"] = replay_collectives(group, log.step_calls, dev)
+    innet = next(g for g in plan.groups if g.wire == "compressed_innet")
+    nbpb = bplan.blocks_per_bucket(cfg)
+    topo = make_topology(cfg.topology, group)
+    bufs = {"innet_tree_sketch_add": torch.zeros(
+                (innet.n_buckets, nbpb * cfg.rows * cfg.lanes),
+                dtype=torch.int32, device=dev),
+            "innet_tree_word_or": torch.zeros(
+                (innet.n_buckets, bplan.words_per_bucket), dtype=torch.int32,
+                device=dev)}
+    tree = {}
+    for name, buf in bufs.items():
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree_all_reduce([buf], topo, "add" if "add" in name else "or",
+                            window_slots=cfg.switch_slots, group=group)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        tree[name] = {"ms_median": statistics.median(ms),
+                      "payload_bytes": buf.numel() * buf.element_size(),
+                      "windows": -(-innet.n_buckets // cfg.switch_slots)}
+    out["innet_tree"] = tree
+    return out
+
+
+def phase_dist_auto(n_buckets, emulated_digests):
+    """W=2 ranks sharing ``cuda:0`` over gloo, as ``dist_train``: the fixed
+    mixed plan of ``auto_train`` for 2 steps. After every step the
+    parameter sha256 must be equal on both ranks and to ``auto_train``'s
+    emulated run, and each rank must have launched what the plan implies
+    for one worker. Prints the last step's collectives replayed alone by
+    operation with their payload bytes a rank, and the in-network
+    group's tree replayed alone."""
+    from repro_torch.launch.ranks import spawn_ranks
+
+    plan = mixed_plan(n_buckets)
+    t0 = time.perf_counter()
+    outs = spawn_ranks(dist_auto_rank, WORKERS, (n_buckets,), device="cuda",
+                       timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    want = plan_launches(plan, 1, AUTO_STEPS)
+    for r, o in enumerate(outs):
+        got = {k: o["launches"][k] for k in o["launches"] if o["launches"][k]}
+        if got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"rank {r}: launch counts {o['launches']}, "
+                                 f"expected {want}")
+        if o["digests"] != emulated_digests:
+            raise AssertionError(f"rank {r}: parameters differ from the "
+                                 "emulated auto_train run")
+        if o["losses"] != outs[0]["losses"]:
+            raise AssertionError("dist_auto: ranks report different losses")
+    emit({"phase": "dist_auto", "arch": "granite-3-2b", "layers": LAYERS,
+          "workers": WORKERS, "procs": WORKERS, "global_batch": BATCH,
+          "seq_len": SEQ, "steps": AUTO_STEPS, "warmup_steps": 1,
+          "plan": plan.describe(), "backend": outs[0]["backend"],
+          "staging": outs[0]["staging"], "wall_s": wall,
+          "losses": outs[0]["losses"],
+          "param_sha256_by_step": outs[0]["digests"],
+          "equal_to_auto_train": True,
+          "step_ms_by_rank": [o["step_ms"] for o in outs],
+          "warmup_ms_by_rank": [o["warmup_ms"] for o in outs],
+          "collectives_ms_median_by_op_by_rank": [
+              o["collectives"]["ms_median_by_op"] for o in outs],
+          "collectives_ms_median_total_by_rank": [
+              o["collectives"]["ms_median"] for o in outs],
+          "collective_calls": outs[0]["collectives"]["calls"],
+          "payload_bytes_per_rank_step": outs[0]["collectives"]["payload_bytes"],
+          "payload_bytes_total_per_rank_step":
+              outs[0]["collectives"]["payload_bytes_total"],
+          "innet_tree_by_rank": [o["innet_tree"] for o in outs],
+          "peak_mem_bytes_by_rank": [o["peak_mem_bytes"] for o in outs],
+          "launches_by_rank": [o["launches"] for o in outs],
+          "recovery": outs[0]["recovery"]})
+    return {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2273,7 +2748,7 @@ def main() -> int:
                     phase="bloom_breakdown")
     del state
     torch.cuda.empty_cache()
-    launches_dist = phase_dist_train(train["losses"])
+    launches_dist, link = phase_dist_train(train["losses"])
     launches_stream = phase_stream_train(dev, tc.compression, train, innet,
                                          shapes_dtypes)
     torch.cuda.empty_cache()
@@ -2290,6 +2765,18 @@ def main() -> int:
     del payload
     torch.cuda.empty_cache()
     recs += recs_q + phase_bloom_stream(cfg_bloom, dev, n_blocks, check)
+    torch.cuda.empty_cache()
+    # the codec's rate: the stream's bytes over the mean of the producer's
+    # and the consumer's full-stream times (main_stream)
+    codec_ms = statistics.mean(r["ms"] for r in recs if r["name"] in (
+        "encode_pack_quantize", "dequant_peel_unpack"))
+    launches_auto, auto_digests = phase_auto_train(
+        dev, train, shapes_dtypes,
+        codec_bps=n_blocks * cfg.block_elems * 4 / (codec_ms / 1e3),
+        link_bps=link["bytes"] / (link["ms"] / 1e3))
+    torch.cuda.empty_cache()
+    launches_dist_auto = phase_dist_auto(
+        cfg.num_buckets(n), auto_digests)
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the
     # standalone kernels from the Bloom train
@@ -2309,7 +2796,9 @@ def main() -> int:
             **{f"stream_train/{k}": v[r["name"]] for k, v in launches_stream.items()},
             **{f"rs_train/{k}": v[r["name"]] for k, v in launches_rs.items()},
             **{f"dist_rs/{k}": v.get(r["name"], 0)
-               for k, v in launches_dist_rs.items()}}
+               for k, v in launches_dist_rs.items()},
+            **{f"auto_train/{k}": v[r["name"]] for k, v in launches_auto.items()},
+            "dist_auto": launches_dist_auto[r["name"]]}
     phase_lossless(api.cfg, tc, dev)
     phase_innet_lossless(api.cfg, dev)
     phase_bloom_lossless(api.cfg, dev)

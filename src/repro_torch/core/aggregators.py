@@ -30,8 +30,21 @@ on one device (:class:`LocalWorkers`), or this process as one of W ranks
   switch tree, a chunk of whole switch windows at a time when streamed;
   the consumer dequantizes in its one launch.
 
-Wire plans, telemetry and the all-to-all exchanges come with later
-slices.
+- :class:`WirePlannedAggregator` — ``auto``: executes a
+  :class:`~repro_torch.core.wireplan.WirePlan` (by default the analytic
+  plan of :mod:`repro_torch.core.costmodel`) and reports each bucket's
+  occupancy for the controller.
+
+Plan and execute: every compressed strategy executes a wire plan. A
+fixed strategy with no plan (or its own trivial one) runs the path
+above unchanged. Otherwise each local worker's stream is packed first
+(sparsify and error feedback run once, before any group), and each group
+of the plan runs on its wire over its rows of every packed stream: a
+``dense`` group as the group's sum of the packed f32 rows, a compressed
+group through its wire's strategy (a delegate) on the group's
+``BucketPlan.group_view`` at the group's global block offset
+(``base_block``), so each group equals the fixed strategy on those
+buckets bit for bit. The all-to-all exchanges come with a later slice.
 
 An aggregator is called as ``agg(grads_w, state)``, where ``grads_w[w]``
 is local worker w's gradient leaves in the reference's flatten order
@@ -50,6 +63,7 @@ width it is one f32 copy of the model a worker).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, List, Sequence
 
 import torch
@@ -64,6 +78,7 @@ from .collectives import (AggregationState, dense_all_reduce,
                           gather_chunk_slices)
 from .streams import (StreamPlan, make_stream_plan, stream_schedule,
                       zero1_gather_skip)
+from .wireplan import WIRES, WirePlan, uniform_plan
 from . import topk as topk_lib
 
 
@@ -87,7 +102,8 @@ def sparsify_leaf(flat: torch.Tensor, res: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class DenseAggregator:
     """Same constructor surface as the compressed strategies; ``cfg`` and
-    ``zero1_dims`` are unused."""
+    ``zero1_dims`` are unused, and a ``wire_plan`` is refused (the dense
+    groups of a plan run inside the compressed strategies)."""
 
     wire = "dense"
 
@@ -95,10 +111,24 @@ class DenseAggregator:
     cfg: Any = None
     mean: bool = True
     zero1_dims: Any = None
+    wire_plan: Any = None
 
     def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
                  state: AggregationState):
+        if self.wire_plan is not None:
+            raise ValueError(
+                "DenseAggregator does not execute wire plans; use the "
+                "'auto' strategy (or a compressed strategy with "
+                "wire_plan=...) for per-bucket-group wires")
         return dense_all_reduce(grads_w, self.group, mean=self.mean), state
+
+
+def _add_stats(stats: Sequence[RecoveryStats]) -> RecoveryStats:
+    """The recovery stats of several groups' consumer launches, added."""
+    return RecoveryStats(nnz=sum(s.nnz for s in stats),
+                         peeled=sum(s.peeled for s in stats),
+                         residual=sum(s.residual for s in stats),
+                         rounds=stats[0].rounds)
 
 
 def _sum_stats(stats: Sequence[RecoveryStats], group) -> RecoveryStats:
@@ -115,9 +145,15 @@ def _sum_stats(stats: Sequence[RecoveryStats], group) -> RecoveryStats:
 @dataclasses.dataclass(frozen=True)
 class CompressedAggregator:
     """pack -> per-leaf sparsify/EF -> encode -> sketch SUM + word OR ->
-    peel -> unpack, over one fused bucket stream."""
+    peel -> unpack, over one fused bucket stream.
+
+    The encode paths take the local workers' streams as ``streams``, one
+    zero-argument callable a worker returning its packed ``(n_buckets,
+    E)`` f32 stream: the one-shot producer packs and encodes one worker
+    at a time, so one stream is held at a time."""
 
     wire = "compressed"
+    collect_telemetry = False    # WirePlannedAggregator sets it
 
     cfg: CompressionConfig
     group: Any           # LocalWorkers or ProcessGroupWorkers
@@ -125,6 +161,13 @@ class CompressedAggregator:
     # Per-leaf ZeRO-1 slice dims (streams.zero_slice_dim; None: unsliced
     # leaf). Only the reduce-scatter wire reads them (the gather skip).
     zero1_dims: Any = None
+    # The per-bucket-group wire plan (None: the uniform plan on this
+    # strategy's own wire, the path above unchanged).
+    wire_plan: Any = None
+    # Global block id of this executor's first bucket: nonzero only on a
+    # group's delegate, whose encode and peel then hash as that slice of
+    # the whole stream's.
+    base_block: int = 0
 
     # ---- phase I -------------------------------------------------------
 
@@ -143,16 +186,16 @@ class CompressedAggregator:
                 r[w].copy_(nr.reshape(r.shape[1:]))
         return plan.pack_flat(flats)
 
-    def _produce(self, grads_w, state, plan, comp):
-        """One-shot phase I: each local worker packed and compressed in
-        turn (one stream held at a time): ``(CompressedLeaf, maxabs)``
-        a worker."""
-        return [comp.compress_wire(self._pack(w, g, state, plan).reshape(-1))
-                for w, g in enumerate(grads_w)]
+    def _produce(self, streams, comp):
+        """One-shot phase I: each local worker's stream packed and
+        compressed in turn (one stream held at a time) at
+        ``base_block``: ``(CompressedLeaf, maxabs)`` a worker."""
+        return [comp.compress_wire(s().reshape(-1), block_offset=self.base_block)
+                for s in streams]
 
     def _stream_plan(self, plan: BucketPlan) -> StreamPlan:
         """The wire-chunk grid (subclasses align it to their wire)."""
-        return make_stream_plan(plan, self.cfg)
+        return make_stream_plan(plan, self.cfg, base_block=self.base_block)
 
     def _reduce_allreduce(self, payload_w):
         """The all-reduce wire for one chunk: the local workers'
@@ -160,7 +203,7 @@ class CompressedAggregator:
         return (self.group.sum([p[0] for p in payload_w]),
                 self.group.bor([p[1] for p in payload_w]))
 
-    def _encode_streamed(self, grads_w, state, plan, comp, splan, reduce_fn,
+    def _encode_streamed(self, streams, comp, splan, reduce_fn,
                          with_maxabs=False):
         """Per-chunk producer launches and wire through the scheduler.
 
@@ -170,8 +213,7 @@ class CompressedAggregator:
         with ``with_maxabs`` also the per-block max) to ``reduce_fn``.
         Returns the reduced payloads stacked on a leading ``n_chunks``
         dim."""
-        views = [splan.chunk_view(self._pack(w, g, state, plan))
-                 for w, g in enumerate(grads_w)]
+        views = [splan.chunk_view(s()) for s in streams]
 
         def enc(i, chunks):
             out = []
@@ -195,14 +237,14 @@ class CompressedAggregator:
         return (sk[:plan.n_buckets * splan.blocks_per_bucket],
                 words[:plan.n_buckets * splan.words_per_bucket])
 
-    def _encode(self, grads_w, state, plan, comp):
+    def _encode(self, streams, plan, comp):
         """Phase I and the wire: the aggregated ``(sketch, words)``."""
         splan = self._stream_plan(plan)
         if not splan.streamed:
-            cs = [c for c, _ in self._produce(grads_w, state, plan, comp)]
+            cs = [c for c, _ in self._produce(streams, comp)]
             return self._reduce_allreduce([(c.sketch, c.index_words)
                                            for c in cs])
-        sks, ws = self._encode_streamed(grads_w, state, plan, comp, splan,
+        sks, ws = self._encode_streamed(streams, comp, splan,
                                         self._reduce_allreduce)
         return self._trim_fused(sks, ws, plan, splan)
 
@@ -213,19 +255,99 @@ class CompressedAggregator:
         and its stats, in one consumer launch."""
         sk, words = payload
         rec, stats = comp.recover(CompressedLeaf(sketch=sk, index_words=words),
-                                  plan.padded, with_stats=True)
+                                  plan.padded, with_stats=True,
+                                  block_offset=self.base_block)
         return rec.reshape(plan.n_buckets, plan.bucket_elems), stats
+
+    # ---- plan / execute ------------------------------------------------
+
+    def _wire_plan(self, plan: BucketPlan, device) -> WirePlan:
+        """The plan this pass executes: the explicit one, else the uniform
+        plan on this strategy's own wire."""
+        if self.wire_plan is not None:
+            if self.wire_plan.n_buckets != plan.n_buckets:
+                raise ValueError(
+                    f"wire_plan covers {self.wire_plan.n_buckets} "
+                    f"buckets, stream has {plan.n_buckets}")
+            return self.wire_plan
+        return uniform_plan(plan.n_buckets, self.wire)
+
+    def _own_path(self, wplan: WirePlan) -> bool:
+        """Whether ``wplan`` is this strategy's own whole-stream path."""
+        return wplan.is_trivial and wplan.groups[0].wire == self.wire
+
+    def _group_delegate(self, wgroup, base_block: int):
+        """The strategy that runs one wire group: the group wire's
+        registry class at the group's global block offset, with the
+        group's chunk grid. A delegate never skips the gather
+        (``zero1_dims=None``): the ZeRO-1 alignment is defined on the
+        whole stream."""
+        cfg = self.cfg if wgroup.stream_chunks is None else \
+            dataclasses.replace(self.cfg, stream_chunks=wgroup.stream_chunks)
+        return AGGREGATORS[wgroup.wire](
+            cfg=cfg, group=self.group, mean=self.mean, zero1_dims=None,
+            base_block=base_block)
+
+    def _run_group(self, streams, plan: BucketPlan, comp):
+        """Encode, wire and recover on this strategy's own wire: the
+        ``(n_buckets, E)`` aggregate and its recovery stats."""
+        payload = self._encode(streams, plan, comp)
+        return self._recover(payload, plan, comp)
+
+    def _execute_plan(self, streams, plan: BucketPlan, comp, device):
+        """The local workers' streams -> the aggregated ``(n_buckets, E)``
+        stream (summed over the workers) and its recovery stats (None
+        where no group peeled).
+
+        This strategy's own trivial plan takes the whole-stream path
+        (one stream packed at a time, the gather skip intact). Otherwise
+        every worker's stream is packed first and each group runs on its
+        rows: a dense group is the group's sum of the packed f32 rows
+        (the mean lands at unpack with every other group's), a compressed
+        group runs through its wire's delegate on the group view at block
+        ``start · blocks_per_bucket``."""
+        wplan = self._wire_plan(plan, device)
+        if self._own_path(wplan):
+            return self._run_group(streams, plan, comp)
+        packed = [s() for s in streams]
+        nbpb = plan.blocks_per_bucket(self.cfg)
+        parts, stats = [], []
+        for g in wplan.groups:
+            rows = [functools.partial(torch.narrow, p, 0, g.start, g.n_buckets)
+                    for p in packed]
+            if g.wire == "dense":
+                parts.append(self.group.sum([r() for r in rows]))
+                continue
+            delegate = self._group_delegate(g, base_block=g.start * nbpb)
+            rec, st = delegate._run_group(
+                rows, plan.group_view(g.start, g.n_buckets),
+                HomomorphicCompressor(delegate.cfg))
+            parts.append(rec)
+            stats.append(st)
+        del packed, rows        # the streams, before the concatenation
+        return torch.cat(parts), (_add_stats(stats) if stats else None)
 
     def _finish(self, rec, stats, plan: BucketPlan, state: AggregationState):
         """Unpack (and mean) the recovered stream, or each local worker's
-        on the gather-skip path (``rec`` a list)."""
+        on the gather-skip path (``rec`` a list); with
+        ``collect_telemetry`` each bucket's non-zero share of the
+        aggregate."""
         W = self.group.workers if self.mean else 1
+        telemetry = None
+        if self.collect_telemetry:
+            # the count times 1/E in f32: the reference's mean, rounded
+            # as XLA rounds it
+            inv = torch.tensor(1.0 / rec.shape[1], dtype=torch.float32,
+                               device=rec.device)
+            telemetry = {"bucket_occupancy":
+                         (rec != 0).sum(1, dtype=torch.float32) * inv}
 
         def unpack(r):
             return plan.unpack(r / W if W > 1 else r)
 
         out = [unpack(r) for r in rec] if isinstance(rec, list) else unpack(rec)
-        return out, AggregationState(residual=state.residual, stats=stats)
+        return out, AggregationState(residual=state.residual, stats=stats,
+                                     telemetry=telemetry)
 
     def __call__(self, grads_w: Sequence[Sequence[torch.Tensor]],
                  state: AggregationState):
@@ -234,9 +356,10 @@ class CompressedAggregator:
                              f"{self.group.local_workers} local workers")
         comp = HomomorphicCompressor(self.cfg)
         plan = make_bucket_plan(grads_w[0], self.cfg)
-        payload = self._encode(grads_w, state, plan, comp)
-        rec, stats = self._recover(payload, plan, comp)
-        del payload
+        streams = [functools.partial(self._pack, w, g, state, plan)
+                   for w, g in enumerate(grads_w)]
+        rec, stats = self._execute_plan(streams, plan, comp,
+                                        grads_w[0][0].device)
         return self._finish(rec, stats, plan, state)
 
 
@@ -299,7 +422,7 @@ class CompressedReduceScatterAggregator(CompressedAggregator):
         stream, and one rank has nothing to scatter)."""
         if self._native_wire() and self.group.workers > 1:
             return make_stream_plan(plan, self.cfg, workers=self.group.workers,
-                                    scatter=True)
+                                    scatter=True, base_block=self.base_block)
         return super()._stream_plan(plan)
 
     def _gather_skip(self, plan: BucketPlan, splan: StreamPlan) -> bool:
@@ -315,6 +438,8 @@ class CompressedReduceScatterAggregator(CompressedAggregator):
         if not (self._native_wire() and self.group.workers > 1):
             return False
         plan = make_bucket_plan(leaves, self.cfg)
+        if self.wire_plan is not None and not self._own_path(self.wire_plan):
+            return False
         splan = self._stream_plan(plan)
         return splan.streamed and self._gather_skip(plan, splan)
 
@@ -324,20 +449,20 @@ class CompressedReduceScatterAggregator(CompressedAggregator):
         return (torch.stack(self.group.sum_scatter([p[0] for p in payload_w])),
                 torch.stack(self.group.bor_scatter([p[1] for p in payload_w])))
 
-    def _encode(self, grads_w, state, plan, comp):
+    def _encode(self, streams, plan, comp):
         self._check_bitmap()
         if not self._native_wire() or self.group.workers == 1:
-            return super()._encode(grads_w, state, plan, comp)
+            return super()._encode(streams, plan, comp)
         splan = self._stream_plan(plan)
         if splan.streamed:
-            return self._encode_streamed(grads_w, state, plan, comp, splan,
+            return self._encode_streamed(streams, comp, splan,
                                          self._reduce_scatter)
         # one-shot: one reduce-scatter of the whole stream, padded to
         # whole per-rank runs of buckets
         W, nbpb, wpb, nb_p = self._rs_geometry(plan)
         pad_b = nb_p - plan.n_buckets
         payload_w = []
-        for c, _ in self._produce(grads_w, state, plan, comp):
+        for c, _ in self._produce(streams, comp):
             sk, words = c.sketch, c.index_words
             if pad_b:    # zero blocks and words peel to exact zeros
                 sk = F.pad(sk, (0, 0, 0, 0, 0, pad_b * nbpb))
@@ -375,7 +500,8 @@ class CompressedReduceScatterAggregator(CompressedAggregator):
             r = group.first_worker + w
             rec, st = comp.recover(
                 CompressedLeaf(sketch=sk_w, index_words=words_w), chunk_elems,
-                with_stats=True, block_offset=r * chunk_b * nbpb)
+                with_stats=True,
+                block_offset=self.base_block + r * chunk_b * nbpb)
             recs.append(rec)
             stats.append([st])
         full = group.gather(recs)[:plan.padded]
@@ -473,13 +599,14 @@ class CompressedInNetworkAggregator(CompressedAggregator):
     def _stream_plan(self, plan: BucketPlan) -> StreamPlan:
         """Chunks span whole ``switch_slots`` bucket windows."""
         return make_stream_plan(plan, self.cfg,
-                                window_buckets=self.cfg.switch_slots)
+                                window_buckets=self.cfg.switch_slots,
+                                base_block=self.base_block)
 
-    def _encode(self, grads_w, state, plan, comp):
+    def _encode(self, streams, plan, comp):
         cfg, group = self.cfg, self.group
         topo = make_topology(cfg.topology, group)       # validates it
         if cfg.wire_dtype == "f32":
-            return super()._encode(grads_w, state, plan, comp)
+            return super()._encode(streams, plan, comp)
         wire = FixedPointWire(workers=group.workers)
         splan = self._stream_plan(plan)
         nbpb = splan.blocks_per_bucket
@@ -501,11 +628,11 @@ class CompressedInNetworkAggregator(CompressedAggregator):
             return (q.reshape(sks[0].shape), w.reshape(words[0].shape), exp)
 
         if not splan.streamed:
-            produced = self._produce(grads_w, state, plan, comp)
+            produced = self._produce(streams, comp)
             return tree_window([(c.sketch, c.index_words, mx)
                                 for c, mx in produced], plan.n_buckets)
         qs, ws, exps = self._encode_streamed(
-            grads_w, state, plan, comp, splan,
+            streams, comp, splan,
             lambda p: tree_window(p, splan.chunk_buckets), with_maxabs=True)
         q, w = self._trim_fused(qs, ws, plan, splan)
         return q, w, exps.reshape(-1)[:plan.n_buckets]
@@ -521,24 +648,56 @@ class CompressedInNetworkAggregator(CompressedAggregator):
         nbpb = plan.blocks_per_bucket(self.cfg)
         rec, stats = comp.recover(
             CompressedLeaf(sketch=q, index_words=words), plan.padded,
-            with_stats=True,
+            with_stats=True, block_offset=self.base_block,
             dequant=(exp.repeat_interleave(nbpb), wire.mantissa_bits))
         return rec.reshape(plan.n_buckets, plan.bucket_elems), stats
 
 
+@dataclasses.dataclass(frozen=True)
+class WirePlannedAggregator(CompressedAggregator):
+    """``auto``: per-bucket-group wire selection (the reference's
+    ``WirePlannedAggregator``). Executes the
+    :class:`~repro_torch.core.wireplan.WirePlan` it is handed
+    (``wire_plan=...``, from the
+    :class:`~repro_torch.core.costmodel.AutoWireController` between
+    steps), or without one the controller's analytic plan (the wire
+    accounting and the ``auto_*`` priors, no telemetry) for the device
+    the gradients lie on. Reports each bucket's occupancy of the
+    aggregate in ``AggregationState.telemetry`` for the controller's
+    feasibility test."""
+
+    wire = "auto"
+    collect_telemetry = True
+
+    def _wire_plan(self, plan: BucketPlan, device) -> WirePlan:
+        if self.wire_plan is not None:
+            return super()._wire_plan(plan, device)
+        from .costmodel import analytic_plan  # late: costmodel imports us
+        return analytic_plan(plan, self.cfg, workers=self.group.workers,
+                             device=device)
+
+
 AGGREGATORS = {"dense": DenseAggregator, "compressed": CompressedAggregator,
                "compressed_rs": CompressedReduceScatterAggregator,
-               "compressed_innet": CompressedInNetworkAggregator}
+               "compressed_innet": CompressedInNetworkAggregator,
+               "auto": WirePlannedAggregator}
+
+# The controller's search space and the fixed strategies are one set.
+assert set(WIRES) == set(AGGREGATORS) - {"auto"}, (
+    f"wireplan.WIRES {WIRES} out of sync with AGGREGATORS "
+    f"{sorted(AGGREGATORS)}")
 
 
 def make_aggregator(name: str, cfg: CompressionConfig, group,
-                    mean: bool = True, zero1_dims=None):
+                    mean: bool = True, zero1_dims=None, wire_plan=None):
     """Build the named strategy (see :data:`AGGREGATORS`) over ``group``;
     ``zero1_dims``: per-leaf ZeRO-1 slice dims, for the reduce-scatter
-    wire's gather skip."""
+    wire's gather skip; ``wire_plan``: a per-bucket-group wire
+    assignment (normally set on ``auto`` by its controller)."""
     if name not in AGGREGATORS:
-        raise ValueError(f"unknown aggregator {name!r}; this slice has "
+        raise ValueError(f"unknown aggregator {name!r}; have "
                          f"{sorted(AGGREGATORS)}")
     return AGGREGATORS[name](
         cfg=cfg, group=group, mean=mean,
-        zero1_dims=None if zero1_dims is None else tuple(zero1_dims))
+        zero1_dims=None if zero1_dims is None else tuple(zero1_dims),
+        wire_plan=wire_plan)

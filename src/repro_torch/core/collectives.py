@@ -465,7 +465,11 @@ class AggregationState:
     """Per-leaf error-feedback residuals, each stacked
     ``(local_workers, *shape)``
     (or ``(0,)`` stubs when error feedback is off), plus the recovery
-    stats of the last compressed aggregation (``None`` for dense)."""
+    stats of the last compressed aggregation (``None`` for dense) and
+    the ``auto`` strategy's ``telemetry`` (a dict with
+    ``bucket_occupancy``, each bucket's non-zero share of the aggregated
+    stream, equal on every rank; ``None`` for the fixed strategies)."""
 
     residual: Any
     stats: Any = None
+    telemetry: Any = None

@@ -147,3 +147,8 @@ class HomomorphicCompressor:
                 comp.index_words, (plan.nb, plan.group, plan.lanes))
             values = torch.where(bits, values, torch.zeros((), device=values.device))
         return from_blocks(values, plan, shape)
+
+    # ---- Wire accounting -------------------------------------------------
+
+    def wire_bytes(self, n: int, grad_bytes_per_elem: int = 2) -> dict:
+        return self.cfg.wire_bytes(n, grad_bytes_per_elem)

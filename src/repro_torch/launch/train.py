@@ -19,8 +19,11 @@ global batch, and a small batch split over the workers cannot take it.
 ``--overlap`` streams the compressed wire bucket by bucket (the
 reference's finest aligned grid), ``--stream-chunks N`` cuts it into N
 chunks; ``--aggregator compressed_rs`` takes the reduce-scatter wire
-(``--rs-wire`` native or emulated), and ``--zero1`` slices the optimizer
-update over the workers. ``--bucket-bytes`` sets the bucket size (a
+(``--rs-wire`` native or emulated), and ``--aggregator auto`` executes
+the cost model's analytic wire plan (a pure function of the config and
+the shapes, so every rank of ``--procs`` computes the same one). The
+optimizer update is sliced over the workers (ZeRO-1, the default) unless
+``--no-zero1``. ``--bucket-bytes`` sets the bucket size (a
 smoke model's stream is one bucket at the default 4 MiB). ``--device cpu`` runs the plain PyTorch
 versions of the codec kernels.
 
@@ -61,8 +64,9 @@ def _train(group, device, args):
                                 ("bucket_bytes", args.bucket_bytes)) if v}
     tc = dataclasses.replace(tc, compression=dataclasses.replace(
         tc.compression, **fields))
-    tc = dataclasses.replace(tc, accum_steps=args.accum_steps,
-                             zero1=args.zero1)
+    tc = dataclasses.replace(tc, accum_steps=args.accum_steps)
+    if args.zero1 is not None:
+        tc = dataclasses.replace(tc, zero1=args.zero1)
     if args.lr:
         tc = dataclasses.replace(tc, optimizer=dataclasses.replace(
             tc.optimizer, lr=args.lr, total_steps=args.steps))
@@ -104,7 +108,7 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--aggregator",
                     choices=["dense", "compressed", "compressed_rs",
-                             "compressed_innet"],
+                             "compressed_innet", "auto"],
                     default=None)
     ap.add_argument("--wire", choices=["f32", "fxp32"], default=None,
                     help="the in-network tier's sketch wire")
@@ -120,8 +124,9 @@ def main(argv=None):
                     default=None, help="compressed_rs: the wire it takes")
     ap.add_argument("--bucket-bytes", type=int, default=None,
                     help="f32 bytes a bucket (the unit a chunk holds whole)")
-    ap.add_argument("--zero1", action="store_true",
-                    help="slice the optimizer update over the workers")
+    ap.add_argument("--zero1", action=argparse.BooleanOptionalAction,
+                    default=None, help="slice the optimizer update over "
+                    "the workers (default: the train config's)")
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--device", default="cuda")

@@ -8,11 +8,11 @@ data-parallel axes (the level sizes, innermost first, that the
 in-network tier's ``tor_spine`` tree maps onto; empty means one level of
 all W). ``remat`` defaults to ``"none"``, the only policy the port runs.
 
-``zero1`` is the reference's ``ShardingProfile.zero1``: the optimizer
-update is sliced over the W workers on each leaf's
-``streams.zero_slice_dim`` and the updates' deltas all-gathered, and on
-ranks each keeps only its slice of the moments. The port's default is
-``False`` (the reference's is ``True``). ``rs_gather_skip`` is the
+``zero1`` is the reference's ``ShardingProfile.zero1``, on by default
+as there: the optimizer update is sliced over the W workers on each
+leaf's ``streams.zero_slice_dim`` and the updates' deltas all-gathered,
+and on ranks each keeps only its slice of the moments; ``False`` takes
+the replicated update. ``rs_gather_skip`` is the
 reference's: with ``compressed_rs`` and ``zero1``, skip the
 recovered-chunk gather where the chunk grid aligns with the ZeRO-1
 slices.
@@ -31,7 +31,8 @@ from .optimizer import OptimizerConfig
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     aggregator: str = "compressed"       # "dense" | "compressed" |
-                                         # "compressed_rs" | "compressed_innet"
+                                         # "compressed_rs" |
+                                         # "compressed_innet" | "auto"
     compression: CompressionConfig = dataclasses.field(
         default_factory=CompressionConfig)
     optimizer: OptimizerConfig = dataclasses.field(
@@ -40,7 +41,7 @@ class TrainConfig:
     accum_steps: int = 1                 # microbatch gradient accumulation
     workers: int = 1                     # data-parallel workers (W)
     dp_levels: Tuple[int, ...] = ()      # DP level sizes, innermost first
-    zero1: bool = False                  # slice the optimizer update over W
+    zero1: bool = True                   # slice the optimizer update over W
     rs_gather_skip: bool = True          # compressed_rs + zero1: skip the
                                          # gather where the grid aligns
     seed: int = 0

@@ -22,7 +22,7 @@ from .step import build_train_step, init_train_state
 @dataclasses.dataclass
 class TrainResult:
     losses: List[float]
-    metrics: List[Dict[str, float]]
+    metrics: List[Dict[str, Any]]
     step_seconds: List[float]      # host clock, each ending in a sync
     final_step: int
     state: Any
@@ -38,20 +38,24 @@ def run_training(api: ModelAPI, tc: TrainConfig, *, global_batch: int,
                  seq_len: int, steps: int, device="cuda",
                  params: Optional[ParamTree] = None, log_every: int = 10,
                  log_fn: Callable[[str], None] = print,
-                 group=None) -> TrainResult:
+                 group=None, wire_plan=None) -> TrainResult:
     """Train ``steps`` steps from a fresh state (``params`` replaces the
     random init); batch ``s`` is the pipeline's batch of step ``s``, and
     ``group`` picks the workers this process runs (default: all
-    ``tc.workers`` emulated here; see ``build_train_step``)."""
+    ``tc.workers`` emulated here) and ``wire_plan`` the aggregator's wire
+    plan (see ``build_train_step``). Vector metrics (the ``auto``
+    strategy's ``bucket_occupancy``) are kept as lists, scalars as
+    floats."""
     device = torch.device(device)
     make_batch = batch_fn(api.cfg, global_batch, seq_len, seed=tc.seed)
     state = init_train_state(api, tc, device, params=params, group=group)
-    step_fn = build_train_step(api, tc, group=group)
+    step_fn = build_train_step(api, tc, group=group, wire_plan=wire_plan)
     losses, all_metrics, secs = [], [], []
     for step in range(steps):
         t0 = time.perf_counter()
         state, metrics = step_fn(state, device_batch(make_batch(step), device))
-        host = {k: float(v) for k, v in metrics.items()}   # syncs the device
+        host = {k: float(v) if v.dim() == 0 else v.tolist()   # syncs the device
+                for k, v in metrics.items()}
         secs.append(time.perf_counter() - t0)
         losses.append(host["loss"])
         all_metrics.append(host)

@@ -7,8 +7,9 @@ The step follows the reference's Algorithm 1 deployment:
      ``[w·B/W, (w+1)·B/W)`` (with optional microbatch accumulation);
   2. the gradients are aggregated across the workers by the strategy
      ``tc.aggregator`` (``"dense"``, ``"compressed"``,
-     ``"compressed_rs"`` or ``"compressed_innet"``); as in the
-     reference, a single worker always aggregates densely;
+     ``"compressed_rs"``, ``"compressed_innet"`` or ``"auto"``, which
+     executes a per-bucket-group wire plan); as in the reference, a
+     single worker always aggregates densely;
   3. the optimizer applies the mean gradient.
 
 The workers are those of a group (``core/collectives``): by default all
@@ -151,11 +152,20 @@ def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
     return gnorm
 
 
-def build_train_step(api: ModelAPI, tc: TrainConfig, group=None):
+def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
+                     wire_plan=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``; ``batch``
     holds the global batch's tensors on the params' device, and the step
     runs the rows of ``group``'s local workers (default: a
-    ``LocalWorkers`` of ``tc.workers`` on ``tc.dp_levels``)."""
+    ``LocalWorkers`` of ``tc.workers`` on ``tc.dp_levels``).
+
+    ``wire_plan``: a :class:`~repro_torch.core.wireplan.WirePlan` applied
+    to the aggregator, how the ``auto`` controller swaps plans in (build
+    the step anew for each plan); ignored where the effective strategy is
+    dense (one worker, or ``tc.aggregator="dense"``). With
+    ``tc.aggregator="auto"`` and no plan the step executes the analytic
+    plan, and the metrics carry the per-bucket ``bucket_occupancy``
+    (a vector) for the controller."""
     W = tc.workers
     if group is None:
         group = LocalWorkers(W, tc.dp_levels)
@@ -173,6 +183,9 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None):
             dims = zero1_dims(leaves, tc)
             agg = agg_lib.make_aggregator(
                 tc.aggregator if W > 1 else "dense", tc.compression, group)
+            if wire_plan is not None and \
+                    not isinstance(agg, agg_lib.DenseAggregator):
+                agg = dataclasses.replace(agg, wire_plan=wire_plan)
             skip = False
             if isinstance(agg, agg_lib.CompressedReduceScatterAggregator) \
                     and tc.zero1 and tc.rs_gather_skip:
@@ -238,6 +251,9 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None):
         if stats is not None:
             out.update(recovery_nnz=stats.nnz, recovery_peeled=stats.peeled,
                        recovery_residual=stats.residual)
+        if agg_state.telemetry is not None:
+            # equal on every rank: computed from the aggregated stream
+            out["bucket_occupancy"] = agg_state.telemetry["bucket_occupancy"]
         state.step += 1
         return state, out
 

@@ -351,7 +351,8 @@ def test_w2_lossless_bloom_tracks_dense_and_reference():
     def port(aggregator):
         tc = TrainConfig(aggregator=aggregator,
                          compression=tcfg(JaxConfig(**lossless)),
-                         optimizer=OptimizerConfig(**MOMENTUM), workers=2, seed=0)
+                         optimizer=OptimizerConfig(**MOMENTUM), workers=2, seed=0,
+                         zero1=False)
         return run_training(model_api(SMOKE), tc, global_batch=B, seq_len=S,
                             steps=6, device="cpu",
                             params=params_from_jax(jparams, "cpu"), log_every=0)

@@ -26,7 +26,9 @@ Pins, all exact unless stated:
   ``tor_spine``) aggregation of dyadic gradients gives every rank the
   emulation's mean and its own worker's residual row;
 - at smoke size, 3 steps at W = 2 for ``dense``, ``compressed`` (bitmap
-  and Bloom) and ``compressed_innet`` fxp32: losses and final parameters
+  and Bloom) and ``compressed_innet`` fxp32, with the ZeRO-1 update (the
+  default; the lossless profile takes the replicated one, as the
+  reference it tracks): losses and final parameters
   (sha256 of their bytes) bit for bit with the ``LocalWorkers`` run on
   one thread here; the lossless profile's losses within rtol 1e-5 of the
   JAX reference
@@ -48,7 +50,14 @@ Pins, all exact unless stated:
 - 3 steps at W = 2 of ``compressed_rs`` with ZeRO-1 (one-shot, and
   streamed with ``overlap``) and of the streamed ``compressed``: losses
   and parameter digests bit for bit with the emulation; at W = 4 the
-  ZeRO-1 parameters identical on every rank.
+  ZeRO-1 parameters identical on every rank;
+- a mixed wire plan (every wire, groups starting off multiples of W and
+  of ``switch_slots``; the f32 wire one-shot, and the fxp32 tree
+  streamed) executed by ``auto`` gives each rank the emulation's mean
+  and residual row, equal to ``compressed``'s; 3 steps at W = 2 of
+  ``auto`` with its analytic plan and with a mixed plan: losses and
+  parameter digests bit for bit with the emulation, and the analytic
+  plan's with ``compressed``'s.
 """
 import concurrent.futures
 import dataclasses
@@ -66,6 +75,7 @@ from repro_torch.core.collectives import (LocalWorkers, ProcessGroupWorkers,
                                           or_allreduce_ring, or_reduce_scatter,
                                           or_reduce_scatter_ring)
 from repro_torch.core.config import CompressionConfig
+from repro_torch.core.wireplan import WireGroup, WirePlan
 from repro_torch.launch.ranks import spawn_ranks
 from repro_torch.net.topology import make_topology, tree_all_reduce
 from repro_torch.train.optimizer import OptimizerConfig
@@ -109,20 +119,34 @@ AGGREGATES = {"compressed": ("compressed", {}),
               "compressed_innet": ("compressed_innet", {}),
               "compressed_overlap": ("compressed", dict(overlap=True)),
               "compressed_rs": ("compressed_rs", {}),
-              "compressed_rs_overlap": ("compressed_rs", dict(overlap=True))}
+              "compressed_rs_overlap": ("compressed_rs", dict(overlap=True)),
+              "auto_mixed": ("auto", dict(lanes=32, bucket_bytes=4 * 480)),
+              "auto_mixed_fxp32_overlap": ("auto", dict(
+                  lanes=32, bucket_bytes=4 * 480, wire_dtype="fxp32",
+                  overlap=True, switch_slots=2))}
+# lanes 32: one 480-element block a bucket, an 11-bucket stream under a
+# plan of every wire whose groups start off multiples of W and slots
+AGG_PLAN = WirePlan(11, (WireGroup(0, 1, "dense"),
+                         WireGroup(1, 3, "compressed_rs"),
+                         WireGroup(4, 1, "compressed"),
+                         WireGroup(5, 3, "compressed_innet"),
+                         WireGroup(8, 3, "compressed_rs")))
 
 
 def _aggregate(name, world, group, grads_w, fields=None, shapes=AGG_SHAPES,
                zero1_dims=None):
     """One aggregation of ``grads_w`` (the group's local workers') with
     error feedback from zero residuals: the mean leaves (one list a local
-    worker on the gather-skip path) and residuals."""
+    worker on the gather-skip path) and residuals; ``auto`` executes
+    ``AGG_PLAN``."""
     from repro_torch.core.aggregators import make_aggregator
     from repro_torch.core.collectives import AggregationState
-    cfg = CompressionConfig(**AGG_CFG, topology="tor_spine" if world == 4
-                            else "flat", **(fields or {}))
+    cfg = CompressionConfig(**{**AGG_CFG, "topology": "tor_spine" if world == 4
+                               else "flat", **(fields or {})})
     res = [torch.zeros((len(grads_w),) + sh) for sh in shapes]
-    out, st = make_aggregator(name, cfg, group, zero1_dims=zero1_dims)(
+    out, st = make_aggregator(
+        name, cfg, group, zero1_dims=zero1_dims,
+        wire_plan=AGG_PLAN if name == "auto" else None)(
         grads_w, AggregationState(residual=res))
     to_np = lambda leaves: [o.numpy() for o in leaves]
     out = [to_np(o) for o in out] if isinstance(out[0], list) else to_np(out)
@@ -168,10 +192,11 @@ def _train_paths(world):
     base = dataclasses.replace(get_arch("granite-3-2b").train, workers=world,
                                accum_steps=1, dp_levels=LEVELS[world])
     comp = base.compression
+    # the replicated update, as the JAX reference's losses it tracks
     lossless = dataclasses.replace(
         base, aggregator="compressed",
         compression=CompressionConfig(**LOSSLESS),
-        optimizer=OptimizerConfig(**MOMENTUM))
+        optimizer=OptimizerConfig(**MOMENTUM), zero1=False)
     rs_zero1 = dataclasses.replace(base, aggregator="compressed_rs", zero1=True)
     # one-block buckets: the smoke model's 14 buckets stream in 14 chunks
     # (7 on the reduce-scatter grid), where 4 MiB buckets would make one
@@ -197,11 +222,20 @@ def _train_paths(world):
             base, aggregator="compressed", compression=streamed),
         "rs_zero1": rs_zero1,
         "rs_zero1_overlap": dataclasses.replace(rs_zero1, compression=streamed),
+        "auto": dataclasses.replace(base, aggregator="auto"),
+        "auto_mixed": dataclasses.replace(
+            base, aggregator="auto", compression=dataclasses.replace(
+                streamed, overlap=False)),
     }
 
 
 EMULATED = ("dense", "bitmap", "bloom", "innet_fxp32", "overlap", "rs_zero1",
-            "rs_zero1_overlap")
+            "rs_zero1_overlap", "auto", "auto_mixed")
+# the 14 one-block buckets of the smoke stream under every wire
+TRAIN_PLANS = {"auto_mixed": WirePlan(14, (WireGroup(0, 2, "dense"),
+                                           WireGroup(2, 3, "compressed_rs"),
+                                           WireGroup(5, 4, "compressed_innet"),
+                                           WireGroup(9, 5, "compressed")))}
 
 
 def _smoke_api():
@@ -210,13 +244,13 @@ def _smoke_api():
     return model_api(get_arch("granite-3-2b").smoke)
 
 
-def _train(tc, group, dev="cpu"):
+def _train(tc, group, dev="cpu", wire_plan=None):
     """3 steps from the smoke model's seed-0 init: losses, the sha256 of
     the final parameters, and the error-feedback residuals' rows."""
     from repro_torch.train.loop import run_training
     res = run_training(_smoke_api(), tc, global_batch=B * tc.workers // 2,
                        seq_len=S, steps=STEPS, device=dev, log_every=0,
-                       group=group)
+                       group=group, wire_plan=wire_plan)
     return {"losses": res.losses, "digest": _digest(res.state.params),
             "residual_rows": [int(t.shape[0]) for t in res.state.residual]}
 
@@ -280,7 +314,7 @@ def _rank(group, dev, world):
     if world in (2, 4):
         out["gather_skip"] = _skip_aggregate(world, group,
                                              [_skip_grads(world)[r]])
-    out["train"] = {name: _train(tc, group, dev)
+    out["train"] = {name: _train(tc, group, dev, TRAIN_PLANS.get(name))
                     for name, tc in _train_paths(world).items()}
     return out
 
@@ -290,7 +324,9 @@ def _emulate():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return {name: _train(_train_paths(2)[name], None) for name in EMULATED}
+        return {name: _train(_train_paths(2)[name], None,
+                             wire_plan=TRAIN_PLANS.get(name))
+                for name in EMULATED}
     finally:
         torch.set_num_threads(threads)
 
@@ -543,6 +579,39 @@ def test_streamed_training_equals_unstreamed(runs):
                             ("rs_zero1_overlap", "rs_zero1")):
         assert emu[streamed]["digest"] == emu[plain]["digest"]
         assert emu[streamed]["losses"] == emu[plain]["losses"]
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+@pytest.mark.parametrize("name", ["auto_mixed", "auto_mixed_fxp32_overlap"])
+def test_mixed_plan_aggregate_equals_emulation(runs, world, name):
+    """``AGG_PLAN`` over ranks gives each rank the emulation's mean and
+    its own worker's residual row, and the emulation equals the fixed
+    ``compressed`` strategy (dyadic values: every wire is exact)."""
+    agg, fields = AGGREGATES[name]
+    grads = _agg_grads(world)
+    local = LocalWorkers(world, LEVELS[world])
+    want, want_res = _aggregate(agg, world, local, grads, fields)
+    plain, plain_res = _aggregate("compressed", world, local, grads,
+                                  dict(lanes=32, bucket_bytes=4 * 480))
+    for a, b in zip(want, plain):
+        assert a.tobytes() == b.tobytes()
+    for a, b in zip(want_res, plain_res):
+        assert a.tobytes() == b.tobytes()
+    for r, out in enumerate(runs(world)):
+        got, res = out["aggregate"][name]
+        for a, b in zip(got, want):
+            assert a.tobytes() == b.tobytes(), name
+        for a, b in zip(res, want_res):
+            np.testing.assert_array_equal(a[0], b[r])
+
+
+def test_auto_training_equals_compressed(runs):
+    """``auto``'s analytic plan at the smoke stream (one 4 MiB bucket) is
+    ``compressed`` on the plan path: bit for bit the fixed strategy."""
+    emu = runs("emulated")
+    assert emu["auto"]["digest"] == emu["bitmap"]["digest"]
+    assert emu["auto"]["losses"] == emu["bitmap"]["losses"]
+    assert emu["auto_mixed"]["digest"] != emu["auto"]["digest"]
 
 
 def test_w4_zero1_stays_replicated(runs):

@@ -225,7 +225,8 @@ def test_w2_lossless_compressed_tracks_dense_and_reference(jparams):
     def port(aggregator):
         tc = TrainConfig(aggregator=aggregator,
                          compression=CompressionConfig(**LOSSLESS),
-                         optimizer=OptimizerConfig(**MOMENTUM), workers=2, seed=0)
+                         optimizer=OptimizerConfig(**MOMENTUM), workers=2, seed=0,
+                         zero1=False)
         return run_training(model_api(CFG), tc, global_batch=B, seq_len=S,
                             steps=6, device="cpu",
                             params=params_from_jax(jparams, "cpu"), log_every=0)
