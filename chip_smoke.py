@@ -202,11 +202,51 @@ codec's rate from phase 6 and the link's from phase 18):
     recovered-chunk gather, the exponent max) and the in-network group's
     P2P tree, with their bytes a rank.
 
+The MoE slice (deepseek-moe-16b, the expert-parallel all-to-all
+exchange; after phase 24, the granite phases' memory freed, apart from
+25, which runs after phase 13):
+
+25. kernels_a2a — rows 1 and 2 at the exchange's geometry (ratio 2.5,
+    rows 6, c 512, G 2) against their plain versions on 2048 blocks at
+    offset ids, fully dense (1024 peels a block): dyadic bit for bit,
+    Gaussian to phase 3's tolerance, words and residual exactly, every
+    value peeled; ``exchange_wire`` equal to the producer; two sources'
+    2-lane stacks through the plain lane merge into the consumer, each
+    lane at its block offset, equal to the sources' sum bit for bit.
+    Then both kernels' and plain times and the bound at the MoE train's
+    shapes (the producer on one source's 8192-block stack, the consumer
+    on one 4096-block merged lane).
+26. moe_train — deepseek-moe-16b at full width (d_model 2048, 16 heads,
+    64 routed experts of d_ff 1408, top-6, 2 shared, vocab 102400),
+    depth 28 -> 2, bf16, W=2 emulated with ``ep_workers=2``, global
+    batch 8 x 1024, aggregator ``compressed`` (ratio 0.1, top-k 4%),
+    AdamW with ZeRO-1, under ``ep_exchange`` none, dense and compressed,
+    one warm-up and three timed steps each. Launches zeroed just before
+    each run: rows 1 / 2 run 2 / 1 a step under none and dense, 2 + 8 /
+    1 + 8 under compressed (a producer a source and a consumer a
+    receiving rank a MoE layer a worker). Losses of dense and compressed
+    within rtol 1e-2 of none's; compressed's parameter sha256 equal to
+    dense's after every step; peak memory, step ms.
+27. moe_breakdown — the MoE stages, forward only, at the step's shapes
+    (attention, routing and dispatch, expert products, local combine,
+    shared experts; the exchange's pack, producer, lane merge, consumer,
+    unpack + gather), then the DP aggregator's stages and the optimizer
+    as phase 5 times them, beside the step ms.
+28. dist_a2a — W=2 ranks sharing ``cuda:0`` over gloo (host-staged): the
+    dense and compressed exchanges standalone on one MoE layer's payload
+    (``(2, 2048, 2048)`` f32 a rank, dyadic), fused and in 2 chunks, 2
+    steps each: merged lanes equal to the sources' sum and to each other
+    bit for bit, the bytes a rank sends equal to ``strategy_wire_bytes``'
+    ``dense_alltoall`` / ``compressed_alltoall`` ``rank_payload_bytes``,
+    each rank's launches one producer and one consumer a chunk; the lane
+    merges replayed alone by payload kind.
+
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path (the ``auto``
-phases' too), ``dist_train``'s, ``dist_rs``'s and ``dist_auto``'s summed
-over the ranks, for the three peel kernels the rounds histogram,
+phases' and the MoE trains' too), ``dist_train``'s, ``dist_rs``'s,
+``dist_auto``'s and ``dist_a2a``'s summed over the ranks, rows 1 and 2
+with their ``kernels_a2a`` times under ``a2a``, for the three peel kernels the rounds histogram,
 for the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
@@ -587,6 +627,25 @@ def bound(nbytes, nops):
     return (max(tb, to), "bytes" if tb >= to else "operations")
 
 
+def codec_bytes_ops(nb, cfg, nnz_in, nnz, n_res, rounds):
+    """(producer bytes, producer ops, consumer bytes, consumer ops) of
+    ``nb`` blocks: each input read once, each output written once. The
+    data-dependent work: sign x value + add per (non-zero, hash) of the
+    input's ``nnz_in`` non-zeros, the max over the sketch and the
+    non-zero test for the bitmap; the peel's initial degrees, one degree
+    test per (set bit, hash, round) of the aggregate's ``nnz`` set bits
+    until the fixpoint (``rounds``), 9 ops per peeled element (3 sign
+    products, 3 subtractions, 3 decrements) and 10 per median estimate
+    (``n_res``)."""
+    G, c, R = cfg.group, cfg.lanes, cfg.rows
+    n_el = nb * G * c
+    enc_bytes = n_el * 4 + nb * 4 + nb * R * c * 4 + n_el // 8 + nb * 4
+    dec_bytes = nb * R * c * 4 + n_el // 8 + nb * 4 + n_el * 4 + n_el
+    enc_ops = 6 * nnz_in + nb * R * c + n_el
+    dec_ops = 3 * nnz + 3 * nnz * rounds + 9 * (nnz - n_res) + 10 * n_res
+    return enc_bytes, enc_ops, dec_bytes, dec_ops
+
+
 def block_rounds(peel, nb, dev, plain_rounds):
     """Each block's rounds to its fixpoint in one run of ``peel(counter)``
     (a peel kernel's wrapper writing its per-block counter), as a
@@ -702,7 +761,7 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     del xs
     torch.cuda.empty_cache()
 
-    G, c, R = cfg.group, cfg.lanes, cfg.rows
+    G, c = cfg.group, cfg.lanes
     n_el = nb * G * c
     nnz0 = int((x0 != 0).sum())
     nnz = int(index_lib.popcount(w))
@@ -724,15 +783,8 @@ def phase_main_stream(cfg, dev, n_blocks, check):
           "plain_per_round_per_block": per_round,
           "sha256_sketch_words_maxabs": enc_digests,
           "sha256_values_residual": digests})
-    enc_bytes = n_el * 4 + nb * 4 + nb * R * c * 4 + n_el // 8 + nb * 4
-    dec_bytes = nb * R * c * 4 + n_el // 8 + nb * 4 + n_el * 4 + n_el
-    # data-dependent work: sign x value + add per (non-zero, hash), the
-    # max over the sketch and the non-zero test for the bitmap; the peel's
-    # initial degrees, one degree test per (set bit, hash, round) until the
-    # fixpoint, 9 ops per peeled element (3 sign products, 3 subtractions,
-    # 3 decrements) and 10 per median estimate
-    enc_ops = 6 * nnz0 + nb * R * c + n_el
-    dec_ops = 3 * nnz + 3 * nnz * rounds + 9 * (nnz - n_res) + 10 * n_res
+    enc_bytes, enc_ops, dec_bytes, dec_ops = codec_bytes_ops(
+        nb, cfg, nnz0, nnz, n_res, rounds)
 
     hists = {"encode_pack_quantize": None, "dequant_peel_unpack": hist}
     extra = {"encode_pack_quantize": {
@@ -810,12 +862,15 @@ class BloomObserver:
 
 
 def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
-                want=None, emit_line=True, wire_plan=None, steps=STEPS):
+                want=None, emit_line=True, wire_plan=None, steps=STEPS,
+                arch_name="granite-3-2b", layers=LAYERS):
     """The main path: ``compressed`` (``wire="f32"``) or, with
     ``wire="fxp32"``, ``compressed_innet`` on the fxp32 wire; ``fields``
     override the config's compression fields (the Bloom path:
     ``index="bloom"``, a 0.1% top-k; the streamed paths: ``overlap``),
-    ``tc_fields`` its train fields (``aggregator``, ``zero1``),
+    ``tc_fields`` its train fields (``aggregator``, ``zero1``,
+    ``ep_exchange``, ``ep_workers``), ``arch_name`` and ``layers`` the
+    model and its depth,
     ``wire_plan`` the aggregator's wire plan, and ``want`` the launch
     counts the run of ``steps`` steps must give (default: the unstreamed
     paths'). The launch counters are zeroed just before the run and read
@@ -827,8 +882,8 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
     from repro_torch.models.registry import model_api
     from repro_torch.train.loop import run_training
 
-    arch = get_arch("granite-3-2b")
-    mcfg = dataclasses.replace(arch.model, n_layers=LAYERS)
+    arch = get_arch(arch_name)
+    mcfg = dataclasses.replace(arch.model, n_layers=layers)
     innet = wire == "fxp32"
     tc = dataclasses.replace(
         arch.train, workers=WORKERS, accum_steps=1, remat="none",
@@ -882,15 +937,16 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
         if r["nnz"] != r["peeled"] + r["residual"]:
             raise AssertionError("recovery stats do not add up")
     n_params = sum(p.numel() for p in res.state.params.leaves())
-    out = {"phase": phase, "arch": "granite-3-2b", "dtype": mcfg.dtype,
+    out = {"phase": phase, "arch": arch_name, "dtype": mcfg.dtype,
            "params": n_params,
-           "reduced": {"n_layers": f"{arch.model.n_layers} -> {LAYERS}"},
+           "reduced": {"n_layers": f"{arch.model.n_layers} -> {layers}"},
            "workers": WORKERS, "global_batch": BATCH, "seq_len": SEQ,
            "aggregator": tc.aggregator, "wire": wire,
            "index": tc.compression.index, "topk_ratio": tc.compression.topk_ratio,
            "topology": tc.compression.topology,
            "switch_slots": tc.compression.switch_slots,
            "overlap": tc.compression.overlap, "zero1": tc.zero1,
+           "ep_exchange": tc.ep_exchange, "ep_workers": tc.ep_workers,
            "steps": steps, "warmup_steps": 1,
            "step_ms": [s * 1e3 for s in res.step_seconds[1:]],
            "warmup_ms": res.step_seconds[0] * 1e3,
@@ -914,7 +970,8 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
     return out, launches, api, tc, res.state
 
 
-def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown"):
+def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown",
+                    loss_kw=None, extra=None):
     """CUDA-event time of each stage of the train step, run one at a time
     on the trained state at the step's shapes (median of 5), so the
     stages can be set against the measured step time. On the fxp32
@@ -922,7 +979,8 @@ def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown"):
     agreement and quantization, the windowed switch tree and the dequant
     consumer; with the Bloom index the producer's parts (encode kernel,
     ``bloom_build``, the max) and the consumer's (``bloom_query``, peel
-    kernel) are timed apart."""
+    kernel) are timed apart. ``loss_kw`` goes to the model's loss (the
+    MoE path's ``ep_exchange``), ``extra`` into the printed line."""
     import torch
     from repro_torch.core import index as index_lib
     from repro_torch.core.aggregators import sparsify_leaf
@@ -947,7 +1005,7 @@ def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown"):
 
     def fwd_bwd(w=0):
         rows = {k: v[w * per: (w + 1) * per] for k, v in batch.items()}
-        loss, _ = api.loss(params.tree(), rows)
+        loss, _ = api.loss(params.tree(), rows, **(loss_kw or {}))
         return torch.autograd.grad(loss, leaves)
 
     grads_w = [fwd_bwd(w) for w in range(W)]
@@ -1061,7 +1119,7 @@ def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown"):
            "stages_ms": {k: {"per_call": ms, "calls": n, "per_step": n * ms}
                          for k, (n, ms) in stages.items()},
            "sum_of_stages_ms": total, "worker0_sent_fraction": sent,
-           "worker0_zero_residual_selection": selection}
+           "worker0_zero_residual_selection": selection, **(extra or {})}
     emit(out)
     return out
 
@@ -2700,6 +2758,427 @@ def phase_dist_auto(n_buckets, emulated_digests):
     return {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
 
 
+# ----------------------------------------------------------------------
+# The MoE slice: the expert-parallel all-to-all exchange
+# ----------------------------------------------------------------------
+
+MOE_ARCH, MOE_LAYERS, EP_WORKERS = "deepseek-moe-16b", 2, 2
+MOE_SETTINGS = ("none", "dense", "compressed")
+
+
+def exchange_cfg():
+    """The exchange codec the train step builds for deepseek-moe-16b: its
+    train config's compression at ratio 2.5 with top-k and error
+    feedback off (rows 6, c 512, G 2, 1024-element blocks)."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(MOE_ARCH).train.compression, ratio=2.5,
+                               topk_ratio=None, error_feedback=False)
+
+
+def phase_kernels_a2a(dev, check):
+    """Rows 1 and 2 at the exchange's geometry (ratio 2.5, rows 6, c 512,
+    G 2) against their plain versions: 2048 blocks at offset ids, fully
+    dense (every bit set: 1024 peels a block), dyadic bit for bit and
+    Gaussian to phase 3's tolerance, words and residual exactly, every
+    value peeled. Then two sources' (2 lanes x 1024 blocks) stacks
+    through the producer, the plain lane merge and the consumer, each
+    lane at its ``lane_start_block``: the merged lanes equal the sources'
+    sum bit for bit. Then the kernel and plain times and the bound at
+    the MoE train's shapes: the producer on one source's stack (8192
+    blocks), the consumer on one merged lane (4096 blocks). Returns the
+    ``a2a`` entries of the two kernel rows."""
+    import torch
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.collectives import LocalWorkers
+    from repro_torch.core.compressor import HomomorphicCompressor
+    from repro_torch.core.peeling import peel_blocks
+    from repro_torch.kernels import ops, ref
+
+    cfg = exchange_cfg()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2525)
+    nb, G, c = CHECK_BLOCKS, cfg.group, cfg.lanes
+    ids = torch.arange(nb, dtype=torch.int32, device=dev) + CHECK_OFFSET
+    for kind in ("dyadic", "gauss"):
+        xb = make_blocks(cfg, nb, 1.0, kind, gen)
+        exact = kind == "dyadic"
+        sk, w, _ = check.producer(xb, ids, cfg, exact)
+        vals, res = check.consumer(sk, w, ids, cfg, exact)
+        nnz, n_res = int(index_lib.popcount(w)), int(res.sum())
+        if nnz != xb.numel() or n_res:
+            raise AssertionError(f"kernels_a2a {kind}: {nnz} of {xb.numel()} "
+                                 f"bits set, {n_res} estimated")
+        if exact and not torch.equal(vals.reshape(xb.shape), xb):
+            raise AssertionError("kernels_a2a: the dense dyadic payload did "
+                                 "not peel back to itself")
+        emit({"phase": "kernels_a2a", "case": f"{kind}@1.0", "blocks": nb,
+              "group": G, "agree": True, "nnz": nnz, "residual": n_res,
+              "values_equal_input": bool(torch.equal(vals.reshape(xb.shape), xb))})
+    # two sources, two lanes of 1024 blocks each, through the lane merge
+    comp = HomomorphicCompressor(cfg)
+    lane_nb = nb // 2
+    xs = [make_blocks(cfg, nb, 1.0, "dyadic", gen) for _ in range(2)]
+    enc = []
+    for x in xs:
+        sk, w, _ = check.producer(x, ids, cfg, True)
+        leaf, _ = comp.exchange_wire(x.reshape(2, 1, lane_nb * G * c), CHECK_OFFSET)
+        if not (torch.equal(leaf.sketch.reshape(sk.shape), sk)
+                and torch.equal(leaf.index_words.reshape(w.shape), w)):
+            raise AssertionError("exchange_wire differs from the producer")
+        enc.append(leaf)
+    group = LocalWorkers(2)
+    msk = group.lane_sum([e.sketch for e in enc], "add")
+    mwd = group.lane_sum([e.index_words for e in enc], "or")
+    for d in range(2):
+        lane_ids = ids[d * lane_nb:(d + 1) * lane_nb]
+        vals, res = check.consumer(msk[d], mwd[d].reshape(lane_nb, -1), lane_ids,
+                                   cfg, True)
+        want = xs[0][d * lane_nb:(d + 1) * lane_nb] + xs[1][d * lane_nb:(d + 1) * lane_nb]
+        if not torch.equal(vals.reshape(want.shape), want) or int(res.sum()):
+            raise AssertionError(f"kernels_a2a: merged lane {d} != the sum")
+    emit({"phase": "kernels_a2a", "case": "2 sources x 2 lanes, lane merge",
+          "blocks": nb, "agree": True, "merged_equal_sum": True})
+    del xs, enc, msk, mwd
+    # times at the MoE train's shapes
+    from repro_torch.configs import get_arch
+    T_blk = BATCH * SEQ // WORKERS // EP_WORKERS
+    lane_blocks = T_blk * get_arch(MOE_ARCH).model.d_model // cfg.block_elems
+    pnb = EP_WORKERS * lane_blocks
+    pids = torch.arange(pnb, dtype=torch.int32, device=dev)
+    x = make_blocks(cfg, pnb, 1.0, "dyadic", gen)
+    sk, w, _ = ops.encode_pack_quantize(x, pids, cfg)
+    lsk, lw, lids = sk[:lane_blocks], w[:lane_blocks], pids[:lane_blocks]
+    bits = index_lib.unpack_bits(lw.reshape(-1), (lane_blocks, G, c))
+    rounds = peel_blocks(lsk, bits, lids, cfg).rounds_used
+    del bits
+    _, res = ops.dequant_peel_unpack(lsk, lw, lids, cfg)
+    nnz = int(index_lib.popcount(lw))
+    eb, eo, _, _ = codec_bytes_ops(pnb, cfg, int((x != 0).sum()), 0, 0, 0)
+    _, _, db, do = codec_bytes_ops(lane_blocks, cfg, 0, nnz, int(res.sum()), rounds)
+    out = {}
+    for name, kfn, pfn, nbytes, nops, n in [
+        ("encode_pack_quantize", lambda: ops.encode_pack_quantize(x, pids, cfg),
+         lambda: ref.encode_pack_quantize_ref(x, pids, cfg), eb, eo, pnb),
+        ("dequant_peel_unpack", lambda: ops.dequant_peel_unpack(lsk, lw, lids, cfg),
+         lambda: ref.dequant_peel_unpack_ref(lsk, lw, lids, cfg), db, do,
+         lane_blocks)]:
+        b_ms, b_by = bound(nbytes, nops)
+        blocks, smem = ops.kernel_occupancy(name, cfg, dev)
+        out[name] = {"geometry": {"ratio": cfg.ratio, "rows": cfg.rows,
+                                  "lanes": c, "group": G},
+                     "blocks": n, "ms": cuda_ms(kfn, 10),
+                     "plain_ms": cuda_ms(pfn, 3, warmup=1), "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "ops": nops,
+                     "blocks_per_sm": blocks, "smem_bytes": smem,
+                     "plain_rounds_to_fixpoint": rounds}
+    emit({"phase": "kernels_a2a", "timed": out})
+    del x, sk, w, lsk, lw
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_want(name, steps=STEPS):
+    """Row 1 and row 2 launches of ``steps`` MoE train steps: the DP
+    aggregator's W producers and one consumer a step, and with the
+    compressed exchange one producer a source and one consumer a
+    receiving rank a MoE layer a worker (one chunk each)."""
+    ex = MOE_LAYERS * WORKERS * EP_WORKERS if name == "compressed" else 0
+    return {"encode_pack_quantize": (WORKERS + ex) * steps,
+            "dequant_peel_unpack": (1 + ex) * steps}
+
+
+def phase_moe_train(dev):
+    """deepseek-moe-16b at full width (depth 28 -> 2, bf16), W=2 emulated,
+    ``ep_workers=2``, global batch 8 x 1024, aggregator ``compressed``
+    (ratio 0.1, top-k 4%), AdamW with ZeRO-1, one warm-up and three
+    timed steps, under each ``ep_exchange``. Launch counters zeroed just
+    before each run and read just after (``moe_want``). The losses of
+    ``dense`` and ``compressed`` must lie within rtol 1e-2 of ``none``'s
+    (the wire regroups each token's six terms, and the trajectories part
+    from there), and ``compressed``'s parameter digests must equal
+    ``dense``'s after every step (at G 2 the compressed wire reads every
+    value back exactly). Returns the launches by setting and the
+    compressed run's (line, api, tc, state) for the breakdown."""
+    import torch
+    lines, launches = {}, {}
+    for name in MOE_SETTINGS:
+        torch.cuda.empty_cache()
+        line, launches[name], api, tc, state = phase_train(
+            dev, phase=f"moe_train/{name}", arch_name=MOE_ARCH,
+            layers=MOE_LAYERS, want=moe_want(name), emit_line=False,
+            tc_fields={"ep_exchange": name, "ep_workers": EP_WORKERS})
+        lines[name] = line
+        if name != "compressed":
+            del state
+        else:
+            kept = (line, api, tc, state)
+        del api, tc
+    base = lines["none"]["losses"]
+    for name in ("dense", "compressed"):
+        lines[name]["loss_rel_diff_vs_none"] = [
+            abs(a - b) / abs(b) for a, b in zip(lines[name]["losses"], base)]
+    lines["compressed"]["digests_equal_dense"] = (
+        lines["compressed"]["param_sha256_by_step"]
+        == lines["dense"]["param_sha256_by_step"])
+    for name in MOE_SETTINGS:
+        emit(lines[name])
+    for name in ("dense", "compressed"):
+        if max(lines[name]["loss_rel_diff_vs_none"]) > 1e-2:
+            raise AssertionError(f"moe_train/{name}: losses off none's by more "
+                                 "than rtol 1e-2")
+    if not lines["compressed"]["digests_equal_dense"]:
+        raise AssertionError("moe_train: the compressed exchange's parameters "
+                             "differ from the dense exchange's")
+    return launches, kept
+
+
+def phase_moe_breakdown(api, tc, state, step_ms, dev):
+    """CUDA-event time of each MoE stage at the step's shapes (layer 0's
+    weights, worker 0's rows, the layer's real input), forward only: the
+    attention, the routing and dispatch, the expert products, the local
+    combine, the shared experts, and the compressed exchange's pack,
+    producer, lane merge, consumer and unpack + gather (calls a step:
+    layers x workers, x EP sources for what runs a source or a receiving
+    rank). They break down ``forward_backward``; then the DP
+    aggregator's stages and the optimizer as ``phase_breakdown`` times
+    them, with the exchange in the forward."""
+    import torch
+    from repro_torch.core.aggregators import CompressedAllToAllExchange
+    from repro_torch.core.collectives import LocalWorkers, sketch_all_to_all
+    from repro_torch.core.compressor import CompressedLeaf, HomomorphicCompressor
+    from repro_torch.core.streams import make_alltoall_stream_plan
+    from repro_torch.data.pipeline import batch_fn
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _layer
+    from repro_torch.train.loop import device_batch
+
+    cfg, m = api.cfg, api.cfg.moe
+    tree = state.params.tree()
+    p0 = _layer(tree["layers"], 0)
+    tokens = device_batch(batch_fn(cfg, BATCH, SEQ, seed=tc.seed)(0), dev)[
+        "tokens"][:BATCH // WORKERS]
+    per_step = MOE_LAYERS * WORKERS
+    group = LocalWorkers(EP_WORKERS)
+    ex = CompressedAllToAllExchange(cfg=exchange_cfg(), group=group)
+    comp = HomomorphicCompressor(ex.cfg)
+    with torch.no_grad():
+        x0 = tree["embed"][tokens]
+        pos = torch.arange(SEQ, device=dev)[None, :]
+        h1 = L.rmsnorm(x0, p0["ln1"], cfg.norm_eps)
+        attn = lambda: L.attention_train(h1, p0["attn"], cfg, positions=pos)
+        x1 = x0 + attn()
+        h = L.rmsnorm(x1, p0["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
+        p = p0["moe"]
+        T, D, E = h.shape[0], cfg.d_model, m.num_experts
+
+        def route_dispatch():
+            rt = L.moe_route(h, p, m)
+            return rt, L._Dispatch.apply(h, rt.gather_idx, rt.tok_slots)
+
+        rt, xg = route_dispatch()
+        experts = lambda: L.moe_experts(xg.reshape(E, rt.capacity, D), p)
+        y = experts()
+
+        def combine():
+            contrib = torch.cat([y.float() * rt.slot_w[:, None],
+                                 y.new_zeros(1, D, dtype=torch.float32)])
+            return contrib, L._combine(contrib, rt.tok_slots)
+
+        contrib, _ = combine()
+        payloads = L.moe_partials(contrib, rt, group)
+        plan = ex._plan(payloads)
+        splan = make_alltoall_stream_plan(plan, ex.cfg, lanes=EP_WORKERS)
+        stacks = [ex._pack(pl, plan) for pl in payloads]
+        leaves = [comp.exchange_wire(st, splan.chunk_start_block(0))[0]
+                  for st in stacks]
+        merge = lambda: sketch_all_to_all([l.sketch for l in leaves],
+                                          [l.index_words for l in leaves], group)
+        msk, mwd = merge()
+
+        def consumer(r=0):
+            return comp.recover(CompressedLeaf(sketch=msk[r], index_words=mwd[r]),
+                                splan.chunk_elems,
+                                block_offset=splan.lane_start_block(0, r))
+
+        recs = [consumer(r) for r in range(EP_WORKERS)]
+        unpack_gather = lambda: group.gather([plan.unpack(r.reshape(
+            plan.n_buckets, plan.bucket_elems))[0] for r in recs])[:T]
+        wire = group.gather([o[0] for o in ex(payloads)])[:T]
+        exact = bool(torch.equal(unpack_gather(), wire))
+        del wire
+        moe = {"attention": (per_step, cuda_ms(attn, 5, 1)),
+               "router_dispatch": (per_step, cuda_ms(route_dispatch, 5, 1)),
+               "expert_products": (per_step, cuda_ms(experts, 5, 1)),
+               "local_combine": (per_step, cuda_ms(combine, 5, 1)),
+               "shared_experts": (per_step, cuda_ms(lambda: L.mlp(h, p["shared"]),
+                                                    5, 1)),
+               "exchange_pack": (per_step * EP_WORKERS, cuda_ms(
+                   lambda: ex._pack(payloads[0], plan), 5, 1)),
+               "exchange_producer": (per_step * EP_WORKERS, cuda_ms(
+                   lambda: comp.exchange_wire(stacks[0], 0), 5, 1)),
+               "exchange_lane_merge": (per_step, cuda_ms(merge, 5, 1)),
+               "exchange_consumer": (per_step * EP_WORKERS, cuda_ms(consumer, 5, 1)),
+               "exchange_unpack_gather": (per_step, cuda_ms(unpack_gather, 5, 1))}
+        del payloads, stacks, leaves, msk, mwd, recs, xg, y, contrib
+    torch.cuda.empty_cache()
+    ep_ex = tc.ep_exchange
+    from repro_torch.core.aggregators import make_exchange
+    return phase_breakdown(
+        api, tc, state, step_ms, dev, phase="moe_breakdown",
+        loss_kw={"ep_exchange": make_exchange(ep_ex, exchange_cfg(),
+                                              LocalWorkers(EP_WORKERS))},
+        extra={"moe_stages_ms": {k: {"per_call": ms, "calls": n,
+                                     "per_step": n * ms}
+                                 for k, (n, ms) in moe.items()},
+               "moe_stages_note": "forward only; inside forward_backward",
+               "exchange_tokens": T, "exchange_capacity": rt.capacity,
+               "exchange_payload": [EP_WORKERS, plan.n_buckets, plan.bucket_elems],
+               "staged_exchange_equal_exchange": exact})
+
+
+def dist_a2a_rank(group, dev):
+    """One rank of ``dist_a2a``: the dense and the compressed exchange
+    standalone on one MoE layer's payload (``(W, T_blk, D)`` f32, dyadic
+    and fully dense), fused and in 2 chunks, 2 steps each. Every source's
+    payload is made from its own seed here, so each rank checks its
+    merged lane against the sources' sum. The P2P sends of each exchange
+    are counted by bytes (``collectives.exchange`` wrapped); the lane
+    merges of each payload kind are then replayed alone (host clock
+    around a synchronise, median of 3). Launch counters zeroed at the
+    start, read at the end."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.aggregators import make_exchange
+    from repro_torch.kernels import ops
+
+    W, r = group.workers, group.rank
+    T_blk = BATCH * SEQ // WORKERS // W
+    D = get_arch(MOE_ARCH).model.d_model
+    sent = []
+    p2p = coll.exchange
+
+    def counted(level, sends=(), recvs=()):
+        sent.append(sum(t.numel() * t.element_size() for t, _ in sends))
+        return p2p(level, sends, recvs)
+
+    def payload(src, step):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(9000 + 10 * step + src)
+        shape = (W, T_blk, D)
+        sign = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.5,
+                           -1.0, 1.0)
+        e = torch.randint(-2, 3, shape, generator=gen, device=dev)
+        return sign * torch.exp2(e.to(torch.float32))
+
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    out = {"rank": r, "backend": group.backend, "staging": group.staging,
+           "runs": {}}
+    coll.exchange = counted
+    try:
+        for chunks in (None, 2):
+            cfg = dataclasses.replace(exchange_cfg(), stream_chunks=chunks)
+            merged = {}
+            for name in ("dense", "compressed"):
+                ex = make_exchange(name, cfg, group)
+                steps_ms, bytes_by_step = [], []
+                for step in range(2):
+                    pay = payload(r, step)
+                    want = sum(payload(s_, step)[r] for s_ in range(W))
+                    sent.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = ex([[pay]])[0][0]
+                    torch.cuda.synchronize()
+                    steps_ms.append((time.perf_counter() - t0) * 1e3)
+                    bytes_by_step.append(sum(sent))
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"rank {r}: {name} x{chunks} step "
+                                             f"{step}: merged lane != the sum")
+                    merged[name] = got
+                out["runs"][f"{name}/{'fused' if chunks is None else chunks}"] = {
+                    "ms": steps_ms, "payload_bytes_per_rank": bytes_by_step}
+            if not torch.equal(merged["dense"], merged["compressed"]):
+                raise AssertionError(f"rank {r}: dense and compressed differ")
+    finally:
+        coll.exchange = p2p
+    out["launches"] = dict(ops.LAUNCHES)
+    # the lane merges alone, by payload kind, on zero buffers
+    cfg = exchange_cfg()
+    lane_blocks = T_blk * D // cfg.block_elems
+    nbk = cfg.num_buckets(T_blk * D)
+    bufs = {"dense_lane_sum": (torch.zeros(W, nbk, cfg.bucket_elems_for(T_blk * D),
+                                           device=dev), "add"),
+            "sketch_lane_sum": (torch.zeros(W, lane_blocks, cfg.rows, cfg.lanes,
+                                            device=dev), "add"),
+            "word_lane_or": (torch.zeros(W, lane_blocks * cfg.block_elems // 32,
+                                         dtype=torch.int32, device=dev), "or")}
+    out["lane_merge_ms_median"] = {}
+    for op, (b, combine) in bufs.items():
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group.lane_sum([b], combine)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["lane_merge_ms_median"][op] = statistics.median(times)
+    out["lane_merge_payload_bytes"] = {
+        op: b.numel() * b.element_size() for op, (b, _) in bufs.items()}
+    return out
+
+
+def phase_dist_a2a():
+    """W=2 ranks sharing ``cuda:0`` over gloo (host-staged), as
+    ``dist_train``: the dense and compressed exchanges standalone on one
+    MoE layer's payload a rank, dyadic, fused and in 2 chunks. Fails
+    unless every rank's merged lane equals the sources' sum bit for bit
+    and the two wires agree, each rank launched one producer and one
+    consumer a chunk a compressed run, and the bytes a rank sent equal
+    ``strategy_wire_bytes``' ``dense_alltoall`` / ``compressed_alltoall``
+    ``rank_payload_bytes`` to the byte. Returns the launches summed over
+    the ranks."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.ranks import spawn_ranks
+
+    t0 = time.perf_counter()
+    outs = spawn_ranks(dist_a2a_rank, EP_WORKERS, (), device="cuda",
+                       timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    n = EP_WORKERS * (BATCH * SEQ // WORKERS // EP_WORKERS) \
+        * get_arch(MOE_ARCH).model.d_model
+    acct = exchange_cfg().strategy_wire_bytes(n, EP_WORKERS, grad_bytes_per_elem=4)
+    want_bytes = {"dense": acct["dense_alltoall"]["rank_payload_bytes"],
+                  "compressed": acct["compressed_alltoall"]["rank_payload_bytes"]}
+    steps, n_chunks = 2, min(2, exchange_cfg().num_buckets(n // EP_WORKERS))
+    want_launches = {"encode_pack_quantize": (1 + n_chunks) * steps,
+                     "dequant_peel_unpack": (1 + n_chunks) * steps}
+    for o in outs:
+        for key, run in o["runs"].items():
+            if any(b != want_bytes[key.split("/")[0]]
+                   for b in run["payload_bytes_per_rank"]):
+                raise AssertionError(f"dist_a2a {key}: rank {o['rank']} sent "
+                                     f"{run['payload_bytes_per_rank']} B, "
+                                     f"accounting {want_bytes}")
+        got = {k: v for k, v in o["launches"].items() if v}
+        if got != want_launches:
+            raise AssertionError(f"dist_a2a: rank {o['rank']} launches {got}, "
+                                 f"expected {want_launches}")
+    emit({"phase": "dist_a2a", "arch": MOE_ARCH, "procs": EP_WORKERS,
+          "payload_shape": [EP_WORKERS, BATCH * SEQ // WORKERS // EP_WORKERS,
+                            get_arch(MOE_ARCH).model.d_model],
+          "backend": outs[0]["backend"], "staging": outs[0]["staging"],
+          "wall_s": wall, "merged_equal_sum": True, "dense_equal_compressed": True,
+          "rank_payload_bytes": want_bytes,
+          "strategy_wire_bytes": {k: acct[k] for k in ("dense_alltoall",
+                                                       "compressed_alltoall")},
+          "runs_by_rank": [o["runs"] for o in outs],
+          "lane_merge_ms_median_by_rank": [o["lane_merge_ms_median"] for o in outs],
+          "lane_merge_payload_bytes": outs[0]["lane_merge_payload_bytes"],
+          "launches_by_rank": [o["launches"] for o in outs]})
+    return {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2728,6 +3207,7 @@ def main() -> int:
     phase_kernels(cfg, dev, check)
     phase_kernels_q(cfg, dev, check)
     phase_kernels_std(cfg_bloom, dev, check)
+    a2a = phase_kernels_a2a(dev, check)
     torch.cuda.empty_cache()
 
     train, launches, api, tc, state = phase_train(dev)
@@ -2777,6 +3257,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_dist_auto = phase_dist_auto(
         cfg.num_buckets(n), auto_digests)
+    torch.cuda.empty_cache()
+    launches_moe, (moe_line, moe_api, moe_tc, state) = phase_moe_train(dev)
+    phase_moe_breakdown(moe_api, moe_tc, state, moe_line["step_ms"], dev)
+    del state
+    torch.cuda.empty_cache()
+    launches_dist_a2a = phase_dist_a2a()
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the
     # standalone kernels from the Bloom train
@@ -2798,7 +3284,11 @@ def main() -> int:
             **{f"dist_rs/{k}": v.get(r["name"], 0)
                for k, v in launches_dist_rs.items()},
             **{f"auto_train/{k}": v[r["name"]] for k, v in launches_auto.items()},
-            "dist_auto": launches_dist_auto[r["name"]]}
+            "dist_auto": launches_dist_auto[r["name"]],
+            **{f"moe_train/{k}": v[r["name"]] for k, v in launches_moe.items()},
+            "dist_a2a": launches_dist_a2a[r["name"]]}
+        if r["name"] in a2a:
+            r["a2a"] = a2a[r["name"]]
     phase_lossless(api.cfg, tc, dev)
     phase_innet_lossless(api.cfg, dev)
     phase_bloom_lossless(api.cfg, dev)

@@ -6,7 +6,8 @@ import importlib
 
 from .base import ArchSpec
 
-_MODULES = {"granite-3-2b": "granite_3_2b"}
+_MODULES = {"granite-3-2b": "granite_3_2b",
+            "deepseek-moe-16b": "deepseek_moe_16b"}
 
 
 def list_archs():

@@ -44,7 +44,15 @@ of the plan runs on its wire over its rows of every packed stream: a
 group through its wire's strategy (a delegate) on the group's
 ``BucketPlan.group_view`` at the group's global block offset
 (``base_block``), so each group equals the fixed strategy on those
-buckets bit for bit. The all-to-all exchanges come with a later slice.
+buckets bit for bit.
+
+The expert-parallel all-to-all exchanges (:data:`EXCHANGES`, built by
+:func:`make_exchange`) are no gradient aggregators: the MoE layer calls
+one inside its forward, each local worker an EP rank with a ``(W,
+...)`` payload, lane d for rank d, and each receives its lane merged
+over the sources. :class:`DenseAllToAllExchange` ships the packed f32
+lanes; :class:`CompressedAllToAllExchange` their sketches and words,
+merged by the lane sum and OR, peeled at the receiving rank.
 
 An aggregator is called as ``agg(grads_w, state)``, where ``grads_w[w]``
 is local worker w's gradient leaves in the reference's flatten order
@@ -73,12 +81,13 @@ from repro_torch.net.fixedpoint import FixedPointWire
 from repro_torch.net.topology import make_topology, tree_all_reduce
 from .config import CompressionConfig
 from .compressor import CompressedLeaf, HomomorphicCompressor, RecoveryStats
-from .bucketing import BucketPlan, make_bucket_plan
-from .collectives import (AggregationState, dense_all_reduce,
-                          gather_chunk_slices)
-from .streams import (StreamPlan, make_stream_plan, stream_schedule,
-                      zero1_gather_skip)
-from .wireplan import WIRES, WirePlan, uniform_plan
+from .bucketing import BucketPlan, make_bucket_plan, make_dest_bucket_plans
+from .collectives import (AggregationState, alltoall_lane_sum,
+                          dense_all_reduce, gather_chunk_slices,
+                          sketch_all_to_all)
+from .streams import (StreamPlan, make_alltoall_stream_plan, make_stream_plan,
+                      stream_schedule, zero1_gather_skip)
+from .wireplan import WIRES, WirePlan, pattern_wires, uniform_plan
 from . import topk as topk_lib
 
 
@@ -701,3 +710,177 @@ def make_aggregator(name: str, cfg: CompressionConfig, group,
         cfg=cfg, group=group, mean=mean,
         zero1_dims=None if zero1_dims is None else tuple(zero1_dims),
         wire_plan=wire_plan)
+
+
+# ----------------------------------------------------------------------
+# Expert-parallel all-to-all exchanges (the permute pattern)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DenseAllToAllExchange:
+    """Plain expert-parallel all-to-all over the shared bucket grid, the
+    parity baseline of the compressed exchange (the reference's).
+
+    Called as ``ex(payloads)``: ``payloads[w]`` is local worker w's leaf
+    list (an EP rank's payload), each leaf ``(W, ...)`` with lane d for
+    EP rank d (rank-major). Returns one leaf list a local worker, the
+    leaves without the lane axis: worker r's is ``sum_s payload_s[r]``.
+    Every lane packs into one per-destination :class:`BucketPlan` (the
+    compressed wire's padding, so the two compare bit for bit) and the
+    packed f32 stacks merge by :func:`alltoall_lane_sum`. ``group`` stands
+    in for the reference's mesh and ``ep_axes``: its W workers are the EP
+    ranks.
+    """
+
+    wire = "dense"          # the pattern_wires("alltoall") entry executed
+    pattern = "alltoall"
+
+    cfg: CompressionConfig
+    group: Any           # LocalWorkers or ProcessGroupWorkers
+
+    @property
+    def workers(self) -> int:
+        return self.group.workers
+
+    def _plan(self, payloads) -> BucketPlan:
+        if len(payloads) != self.group.local_workers:
+            raise ValueError(f"{len(payloads)} payloads for "
+                             f"{self.group.local_workers} local workers")
+        return make_dest_bucket_plans(payloads[0], self.cfg,
+                                      n_dests=self.workers)[0]
+
+    def _pack(self, payload, plan: BucketPlan) -> torch.Tensor:
+        """A lane leaf list -> its ``(W, n_buckets, E)`` packed f32 stack."""
+        return torch.stack([plan.pack_flat([l[d].reshape(-1) for l in payload])
+                            for d in range(self.workers)])
+
+    def __call__(self, payloads):
+        plan = self._plan(payloads)
+        merged = alltoall_lane_sum([self._pack(p, plan) for p in payloads],
+                                   self.group, "add")
+        return [plan.unpack(m) for m in merged]
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedAllToAllExchange(DenseAllToAllExchange):
+    """Compressed expert-parallel all-to-all (the reference's): each chunk
+    of the per-destination grid (:func:`make_alltoall_stream_plan`)
+    encodes in ONE producer pass a source
+    (:meth:`HomomorphicCompressor.exchange_wire`, every lane at once,
+    chunk-major block ids from ``chunk_start_block``), the sketch and word
+    lanes merge by :func:`sketch_all_to_all` (sum and OR: what arrives is
+    the compressed form of ``sum_s payload_s[r]``), and each receiving
+    rank peels its merged lane in ONE consumer pass a chunk at
+    ``lane_start_block(chunk, rank)``. ``cfg.overlap`` /
+    ``cfg.stream_chunks`` drive the chunks through
+    :func:`stream_schedule`, each chunk's merge issued while the next
+    encodes. Equal to :class:`DenseAllToAllExchange` bit for bit where
+    the peel is exact (ratio 2.5 covers a fully occupied block; dyadic
+    payloads make every sum exact)."""
+
+    wire = "compressed"
+
+    def __call__(self, payloads):
+        cfg, group = self.cfg, self.group
+        if cfg.index != "bitmap":
+            raise ValueError(
+                "the all-to-all exchange requires index='bitmap' (a "
+                "Bloom filter hashes global coordinates and cannot be "
+                "sliced per destination lane)")
+        comp = HomomorphicCompressor(cfg)
+        plan = self._plan(payloads)
+        splan = make_alltoall_stream_plan(plan, cfg, lanes=self.workers)
+        views = [splan.chunk_view(self._pack(p, plan)) for p in payloads]
+
+        def enc(i, slabs):                  # one (W, cb, E) slab a source
+            leaves = [comp.exchange_wire(slab, splan.chunk_start_block(i))[0]
+                      for slab in slabs]
+            return [(l.sketch, l.index_words) for l in leaves]
+
+        def red(payload_w):
+            sks, wds = sketch_all_to_all([p[0] for p in payload_w],
+                                         [p[1] for p in payload_w], group)
+            return torch.stack(sks), torch.stack(wds)
+
+        # (n_chunks, local_workers, ...): each local worker's merged lane
+        sks, wds = stream_schedule(list(zip(*views)), enc, red, group=group)
+        out = []
+        for w in range(group.local_workers):
+            r = group.first_worker + w
+            rec = torch.stack([comp.recover(
+                CompressedLeaf(sketch=sks[j, w], index_words=wds[j, w]),
+                splan.chunk_elems, block_offset=splan.lane_start_block(j, r))
+                for j in range(splan.n_chunks)])
+            out.append(plan.unpack(rec.reshape(plan.n_buckets,
+                                               plan.bucket_elems)))
+        return out
+
+
+class _ExchangeFn(torch.autograd.Function):
+    """An exchange as a differentiable function of its payloads (the
+    reference's ``_exchange_vjp``). The exchange is linear, ``out_r =
+    sum_s payload_s[r]``, but the peel is not differentiable, so the
+    backward is the exact linear transpose and runs no exchange: the
+    output cotangents of every EP rank gathered back onto the lane axis,
+    ``d payload_s[d] = d out_d`` for every source s."""
+
+    @staticmethod
+    def forward(ctx, exchange, n_leaves, *flat):
+        ctx.exchange, ctx.n_leaves = exchange, n_leaves
+        payloads = [list(flat[i:i + n_leaves])
+                    for i in range(0, len(flat), n_leaves)]
+        return tuple(t for leaves in exchange(payloads) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group, n = ctx.exchange.group, ctx.n_leaves
+        local = group.local_workers
+        lanes = [group.gather([grads[w * n + i][None] for w in range(local)])
+                 for i in range(n)]
+        return (None, None) + tuple(lanes) * local
+
+
+@dataclasses.dataclass(frozen=True)
+class _GradExchange:
+    """What :func:`make_exchange` hands the model: the executor behind
+    :class:`_ExchangeFn`, its surface passed through."""
+
+    exchange: Any
+
+    @property
+    def workers(self) -> int:
+        return self.exchange.workers
+
+    @property
+    def group(self):
+        return self.exchange.group
+
+    @property
+    def wire(self) -> str:
+        return self.exchange.wire
+
+    def __call__(self, payloads):
+        n = len(payloads[0])
+        flat = _ExchangeFn.apply(self.exchange, n,
+                                 *[t for p in payloads for t in p])
+        return [list(flat[i:i + n]) for i in range(0, len(flat), n)]
+
+
+# The permute-pattern executors, keyed by the wire names the plan layer
+# validates for pattern="alltoall"; a registry apart from AGGREGATORS.
+EXCHANGES = {"dense": DenseAllToAllExchange,
+             "compressed": CompressedAllToAllExchange}
+
+assert set(EXCHANGES) == set(pattern_wires("alltoall")), (
+    f"wireplan alltoall wires {pattern_wires('alltoall')} out of sync "
+    f"with EXCHANGES {sorted(EXCHANGES)}")
+
+
+def make_exchange(name: str, cfg: CompressionConfig, group):
+    """Build the named all-to-all exchange (see :data:`EXCHANGES`) over
+    ``group``'s workers as EP ranks: a differentiable callable from one
+    lane leaf list a local worker to one merged leaf list a local worker,
+    with ``workers``, ``group`` and ``wire`` exposed."""
+    if name not in EXCHANGES:
+        raise ValueError(f"unknown exchange {name!r}; have {sorted(EXCHANGES)}")
+    return _GradExchange(exchange=EXCHANGES[name](cfg=cfg, group=group))

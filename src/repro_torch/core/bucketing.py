@@ -21,6 +21,9 @@ Per-bucket views, as the reference's:
 - ``group_view`` — a plan over a run of buckets as one flat pseudo-leaf;
 - ``residual_slices`` — one worker's error-feedback residual runs per
   bucket (the port keeps residuals as ``(local_workers, *shape)``).
+
+:func:`make_dest_bucket_plans` is the all-to-all exchange's grid: one
+plan a destination lane, all of one geometry.
 """
 
 from __future__ import annotations
@@ -165,3 +168,29 @@ def make_bucket_plan(leaves: Sequence[Any], cfg: CompressionConfig
         shapes=tuple(shape_list), dtypes=dtypes, sizes=tuple(sizes),
         offsets=tuple(offsets), total=off, bucket_elems=bucket_elems,
         n_buckets=-(-off // bucket_elems))
+
+
+def make_dest_bucket_plans(payload: Sequence[torch.Tensor],
+                           cfg: CompressionConfig,
+                           n_dests: int | None = None) -> Tuple[BucketPlan, ...]:
+    """Per-destination bucket plans for the all-to-all pattern (the
+    reference's): ``payload``'s leaves carry a leading destination axis
+    (one slice a destination EP rank); returns one :class:`BucketPlan` a
+    destination, built over the slices' shapes and shared by every lane,
+    on the bucket grid of the aggregators. The exchange ships one stacked
+    ``(W, n_buckets, E)`` payload, a lane a destination, so a ragged
+    destination axis is rejected."""
+    leaves = list(payload)
+    if not leaves:
+        raise ValueError("empty all-to-all payload")
+    dests = {int(l.shape[0]) for l in leaves}
+    if len(dests) != 1:
+        raise ValueError(
+            "all-to-all payload leaves disagree on the destination axis "
+            f"(leading dim): {sorted(dests)}")
+    W = dests.pop()
+    if n_dests is not None and n_dests != W:
+        raise ValueError(
+            f"payload carries {W} destination slices but the exchange "
+            f"has {n_dests} destination ranks")
+    return (make_bucket_plan([l[0] for l in leaves], cfg),) * W

@@ -39,7 +39,12 @@ The OR all-reduce primitives are the reference's
   ring's first phase alone, shifted so rank i ends on its own chunk i,
   over the levels outermost first (the rank-major assignment);
   :func:`reduce_scatter` is the same with any in-place combiner;
-- :func:`gather_chunk_slices`: the inverse of a per-chunk scatter.
+- :func:`gather_chunk_slices`: the inverse of a per-chunk scatter;
+- :func:`alltoall_lane_sum` / :func:`sketch_all_to_all`: the all-to-all
+  lane merge of the expert-parallel exchange, rank r receiving the sum
+  (or OR) over the sources of their lane r: on one level the
+  reference's native leg, W − 1 P2P rounds; on several its emulated
+  leg, the whole stack reduced and this rank's lane sliced.
 
 Every exchange posts its send and its receive together
 (``dist.batch_isend_irecv``), so no ring step waits on a blocking send.
@@ -161,6 +166,15 @@ class LocalWorkers:
     def issuer(self) -> InlineIssue:
         """A streamed aggregation's reduces run inline: they are local."""
         return InlineIssue()
+
+    def lane_sum(self, parts: Sequence[torch.Tensor], combine: str
+                 ) -> List[torch.Tensor]:
+        """The all-to-all lane merge: ``parts[s]`` is worker s's ``(W,
+        ...)`` stack, lane d destined for worker d; worker r receives lane
+        r summed (``"add"``) or ORed (``"or"``) over the sources in order
+        s = 0..W-1, as :meth:`sum` folds."""
+        full = (self.sum if combine == "add" else self.bor)(parts)
+        return list(full.unbind(0))
 
 
 class DPLevel(NamedTuple):
@@ -444,10 +458,74 @@ class ProcessGroupWorkers:
                                         + tuple(x.shape[1:]))
         return out.to(x.device)
 
+    def lane_sum(self, parts: Sequence[torch.Tensor], combine: str
+                 ) -> List[torch.Tensor]:
+        """The all-to-all lane merge of this rank's ``(W, ...)`` stack:
+        lane r summed (``"add"``) or ORed (``"or"``) over the ranks lands
+        at rank r. On one level, the reference's native leg: own lane
+        first, then at offset k = 1..W-1 this rank sends lane ``(i+k) % W``
+        to rank ``(i+k) % W`` and combines what rank ``(i-k) % W`` sends,
+        in that order. On several levels, its emulated leg: the whole
+        stack summed (``all_reduce``) or ORed (:func:`or_allreduce`),
+        then this rank's lane."""
+        x = self._one(parts)
+        if len(self.levels) > 1:
+            full = self.sum([x]) if combine == "add" else self.bor([x])
+            return [full[self.rank]]
+        level = self.dp_levels[0]
+        W, i = level.size, level.index
+        wire = self.to_wire(x)
+        out = wire[i].clone()
+        recv = torch.empty_like(out)
+        for k in range(1, W):
+            exchange(level, sends=[(wire[(i + k) % W], (i + k) % W)],
+                     recvs=[(recv, (i - k) % W)])
+            if combine == "or":
+                out |= recv
+            else:
+                out += recv
+        return [out.to(x.device)]
+
     def issuer(self) -> CommThread:
         """A streamed aggregation's reduces run on one communication
         thread, in chunk order (:class:`repro_torch.core.streams.CommThread`)."""
         return CommThread()
+
+
+def alltoall_lane_sum(parts: Sequence[torch.Tensor], group,
+                      combine: str = "add") -> List[torch.Tensor]:
+    """Merge stacked all-to-all lanes (the reference's
+    ``alltoall_lane_sum``): ``parts[w]`` is local worker w's ``(W, ...)``
+    stack, lane d its payload for worker d (rank-major); returns one
+    merged lane a local worker, worker r's being ``combine_s x_s[r]``
+    over every source s: the sum of the sketches (``"add"``) or the OR of
+    the words (``"or"``). See ``LocalWorkers.lane_sum`` and
+    ``ProcessGroupWorkers.lane_sum`` for the order of the combines."""
+    if combine not in ("add", "or"):
+        raise ValueError(f"combine must be 'add' or 'or', got {combine!r}")
+    W = group.workers
+    for x in parts:
+        if x.shape[0] != W:
+            raise ValueError(f"all-to-all payload has {x.shape[0]} lanes but "
+                             f"the group has {W} ranks")
+    if len(parts) != group.local_workers:
+        raise ValueError(f"{len(parts)} payloads for {group.local_workers} "
+                         "local workers")
+    if W == 1:
+        return [parts[0][0]]
+    return group.lane_sum(parts, combine)
+
+
+def sketch_all_to_all(sketches: Sequence[torch.Tensor],
+                      words: Sequence[torch.Tensor], group):
+    """The compressed all-to-all (the reference's ``sketch_all_to_all``):
+    ``sketches[w]`` ``(W, *sketch_shape)`` and ``words[w]`` ``(W,
+    n_words)`` are local worker w's lanes; returns (merged sketches,
+    merged words), one a local worker: the sum of every source's sketch
+    of that worker's lane and the OR of their words, the compressed form
+    of ``sum_s payload_s[r]``."""
+    return (alltoall_lane_sum(sketches, group, "add"),
+            alltoall_lane_sum(words, group, "or"))
 
 
 def dense_all_reduce(grads_w: Sequence[Sequence[torch.Tensor]],

@@ -84,6 +84,30 @@ class HomomorphicCompressor:
         """Wire payload only — see :meth:`compress_wire`."""
         return self.compress_wire(x, block_offset=block_offset)[0]
 
+    def exchange_wire(self, lane_buckets: torch.Tensor, block_offset: int = 0
+                      ) -> Tuple[CompressedLeaf, torch.Tensor]:
+        """One producer pass over one chunk of the all-to-all payload,
+        ``(lanes, chunk_buckets, bucket_elems)`` laid out chunk-major, so
+        the whole stack is one contiguous block range from
+        ``block_offset``. Every lane encodes in one :meth:`compress_wire`
+        pass and the lanes are reshaped views of it: sketch ``(lanes,
+        lane_blocks, rows, lanes_c)``, words ``(lanes, lane_words)``,
+        maxabs ``(lanes, lane_blocks)``. Lane ``d`` equals compressing
+        lane ``d`` alone at ``block_offset + d * lane_blocks``, so every
+        source's sketch of a destination's slab adds homomorphically."""
+        lanes, nb_c, elems = lane_buckets.shape
+        if elems % self.cfg.block_elems:
+            raise ValueError(
+                f"bucket_elems {elems} is not a whole number of sketch "
+                f"blocks ({self.cfg.block_elems})")
+        comp, maxabs = self.compress_wire(lane_buckets.reshape(-1),
+                                          block_offset=block_offset)
+        lane_blocks = (nb_c * elems) // self.cfg.block_elems
+        sk = comp.sketch.reshape((lanes, lane_blocks) + tuple(comp.sketch.shape[1:]))
+        wd = comp.index_words.reshape(lanes, -1)
+        return (CompressedLeaf(sketch=sk, index_words=wd),
+                maxabs.reshape(lanes, lane_blocks))
+
     # ---- Phase II — recovery -------------------------------------------
 
     def recover(self, comp: CompressedLeaf, n: int, shape=None,

@@ -26,7 +26,9 @@ The reference's ``repro.core.streams``, in eager PyTorch:
   chunks already hold every value its optimizer slice reads, so the
   reduce-scatter wire may skip the recovered-chunk gather.
 
-The reference's ``AllToAllStreamPlan`` belongs to the all-to-all slice.
+- :class:`AllToAllStreamPlan` / :func:`make_alltoall_stream_plan` — the
+  all-to-all exchange's chunk grid: every chunk carries the same run of
+  buckets of every destination lane, block ids chunk-major.
 """
 
 from __future__ import annotations
@@ -211,6 +213,109 @@ def make_stream_plan(plan: BucketPlan, cfg: CompressionConfig, *,
         raise ValueError(f"stream_chunks must be >= 1, got {req}")
     n_chunks = min(req, nb)
     return grid(n_chunks, -(-nb // n_chunks), 1)
+
+
+# ----------------------------------------------------------------------
+# The all-to-all chunk grid
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AllToAllStreamPlan:
+    """Static chunk grid of the all-to-all exchange (the reference's).
+
+    The payload is ``lanes`` per-destination runs of ``n_buckets``
+    buckets each, on one shared :class:`BucketPlan`. A chunk carries
+    ``chunk_buckets`` buckets of every lane, and its producer encodes the
+    stacked ``(lanes, chunk_buckets, E)`` slab in one pass. Block ids are
+    chunk-major: bucket ``j`` of lane ``d`` in chunk ``c`` encodes at
+    global bucket ``(c * lanes + d) * chunk_buckets + j``, so each
+    chunk's producer covers one contiguous block range and every lane a
+    fixed offset inside it; one chunk is plain lane-major offsets
+    ``d * n_buckets``.
+    """
+
+    lanes: int            # W destination ranks
+    n_buckets: int        # buckets a destination
+    bucket_elems: int
+    blocks_per_bucket: int
+    words_per_bucket: int
+    n_chunks: int
+    chunk_buckets: int
+    base_block: int = 0
+
+    def __post_init__(self):
+        if self.lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {self.lanes}")
+        if self.n_chunks * self.chunk_buckets != self.n_buckets:
+            raise ValueError(
+                f"chunk grid {self.n_chunks} x {self.chunk_buckets} does "
+                f"not tile the per-destination bucket run "
+                f"({self.n_buckets} buckets)")
+
+    @property
+    def chunk_elems(self) -> int:
+        return self.chunk_buckets * self.bucket_elems
+
+    @property
+    def streamed(self) -> bool:
+        return self.n_chunks > 1
+
+    def chunk_start_block(self, chunk: int) -> int:
+        """Global block id of chunk ``chunk``'s first block (lane 0): the
+        producer's ``block_offset`` for the stacked slab."""
+        return self.base_block + chunk * (
+            self.lanes * self.chunk_buckets * self.blocks_per_bucket)
+
+    def lane_start_block(self, chunk: int, lane: int) -> int:
+        """Global block id of lane ``lane``'s first block inside chunk
+        ``chunk``: the consumer's offset at the receiving rank."""
+        return self.chunk_start_block(chunk) + \
+            lane * (self.chunk_buckets * self.blocks_per_bucket)
+
+    def chunk_view(self, lane_buckets: torch.Tensor) -> torch.Tensor:
+        """``(lanes, n_buckets, E) -> (n_chunks, lanes, chunk_buckets,
+        E)``: the per-chunk stacked slabs."""
+        if tuple(lane_buckets.shape) != (self.lanes, self.n_buckets,
+                                         self.bucket_elems):
+            raise ValueError(
+                f"lane buckets shape {tuple(lane_buckets.shape)} != "
+                f"({self.lanes}, {self.n_buckets}, {self.bucket_elems})")
+        return lane_buckets.reshape(
+            self.lanes, self.n_chunks, self.chunk_buckets,
+            self.bucket_elems).transpose(0, 1)
+
+
+def make_alltoall_stream_plan(plan: BucketPlan, cfg: CompressionConfig, *,
+                              lanes: int,
+                              base_block: int = 0) -> AllToAllStreamPlan:
+    """Resolve the chunk grid of one all-to-all exchange (the
+    reference's rules and errors). ``plan`` is the per-destination plan
+    every lane shares. The count is ``cfg.stream_chunks`` where set, else
+    ``cfg.overlap`` picks a bucket a chunk and no overlap one fused
+    chunk; it must divide the per-destination bucket run, since the
+    lanes interleave chunk-major and a ragged tail chunk would shift
+    every later lane's block ids."""
+    if lanes < 1:
+        raise ValueError(f"lanes must be >= 1, got {lanes}")
+    nb = plan.n_buckets
+    streaming = cfg.overlap or cfg.stream_chunks is not None
+    req = cfg.stream_chunks if cfg.stream_chunks is not None \
+        else (nb if streaming else 1)
+    if req < 1:
+        raise ValueError(f"stream_chunks must be >= 1, got {req}")
+    req = min(req, nb)
+    if nb % req:
+        raise ValueError(
+            f"stream_chunks={req} misaligns the all-to-all lane grid: "
+            f"the permute wire interleaves all {lanes} destination lanes "
+            f"chunk-major, so the chunk count must divide the "
+            f"per-destination bucket count n_buckets = {nb} "
+            f"(valid counts: divisors of {nb})")
+    return AllToAllStreamPlan(
+        lanes=lanes, n_buckets=nb, bucket_elems=plan.bucket_elems,
+        blocks_per_bucket=plan.blocks_per_bucket(cfg),
+        words_per_bucket=plan.words_per_bucket,
+        n_chunks=req, chunk_buckets=nb // req, base_block=base_block)
 
 
 # ----------------------------------------------------------------------

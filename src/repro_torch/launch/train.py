@@ -27,6 +27,12 @@ optimizer update is sliced over the workers (ZeRO-1, the default) unless
 smoke model's stream is one bucket at the default 4 MiB). ``--device cpu`` runs the plain PyTorch
 versions of the codec kernels.
 
+``--arch deepseek-moe-16b`` trains the MoE family; ``--ep-exchange
+{none,dense,compressed}`` picks the wire of its expert-parallel combine
+and ``--ep-workers N`` the EP ranks each worker's forward emulates
+(``--procs`` with ``--ep-workers`` above 1 raises: the ``dp x ep``
+process layout is not built yet).
+
 ``--procs W`` runs the W workers as W spawned processes, one rank each
 (:mod:`repro_torch.launch.ranks`): gloo where the ranks share a device
 (the CPU, or one card), NCCL with rank r on ``cuda:r`` where there are W
@@ -64,7 +70,9 @@ def _train(group, device, args):
                                 ("bucket_bytes", args.bucket_bytes)) if v}
     tc = dataclasses.replace(tc, compression=dataclasses.replace(
         tc.compression, **fields))
-    tc = dataclasses.replace(tc, accum_steps=args.accum_steps)
+    tc = dataclasses.replace(tc, accum_steps=args.accum_steps,
+                             ep_exchange=args.ep_exchange,
+                             ep_workers=args.ep_workers)
     if args.zero1 is not None:
         tc = dataclasses.replace(tc, zero1=args.zero1)
     if args.lr:
@@ -84,6 +92,7 @@ def _train(group, device, args):
         "overlap": tc.compression.overlap,
         "stream_chunks": tc.compression.stream_chunks,
         "rs_wire": tc.compression.rs_wire, "zero1": tc.zero1,
+        "ep_exchange": tc.ep_exchange, "ep_workers": tc.ep_workers,
         "device": args.device,
         "first_loss": res.losses[0], "last_loss": res.losses[-1],
         "losses": res.losses, "steps": res.final_step,
@@ -127,6 +136,11 @@ def main(argv=None):
     ap.add_argument("--zero1", action=argparse.BooleanOptionalAction,
                     default=None, help="slice the optimizer update over "
                     "the workers (default: the train config's)")
+    ap.add_argument("--ep-exchange", choices=["none", "dense", "compressed"],
+                    default="none", help="wire of the MoE expert-parallel "
+                    "combine")
+    ap.add_argument("--ep-workers", type=int, default=1,
+                    help="EP ranks each data-parallel worker emulates")
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--device", default="cuda")

@@ -1,8 +1,8 @@
 """Model architecture configuration.
 
-Field for field the reference's ``ModelConfig``; this slice builds the
-dense family only (``models/transformer.py`` raises on the others), so
-``moe`` and ``ssm`` stay opaque here.
+Field for field the reference's ``ModelConfig`` and ``MoEConfig``. The
+port builds the dense and moe families (``models/transformer.py`` raises
+on the others), so ``ssm`` stays opaque here.
 """
 
 from __future__ import annotations
@@ -11,6 +11,19 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    shared_experts: int = 0
+    expert_d_ff: int = 0          # per-expert FFN width
+    capacity_factor: float = 1.25
+    capacity_factor_decode: float = 2.0   # decode batches are small; give
+                                          # routing more headroom
+    router_aux_coef: float = 0.01
+    every_k_layers: int = 1       # 1 = every layer is MoE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +41,7 @@ class ModelConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    moe: Any = None
+    moe: Optional[MoEConfig] = None
     ssm: Any = None
     attn_period: int = 0
     attn_offset: int = 4

@@ -1,8 +1,9 @@
-"""Family -> model function dispatch (dense family in this slice).
+"""Family -> model function dispatch (the dense and moe families).
 
   api = model_api(cfg)
   params = api.init(seed, device)                  # ParamTree
-  loss, metrics = api.loss(params.tree(), batch, remat="none")
+  loss, metrics = api.loss(params.tree(), batch, remat="none",
+                           ep_exchange=None)
 """
 
 from __future__ import annotations
@@ -22,10 +23,10 @@ class ModelAPI:
 
 
 def model_api(cfg: ModelConfig) -> ModelAPI:
-    T._require_dense(cfg)
+    T._require_ported(cfg)
     return ModelAPI(
         cfg=cfg,
         init=lambda seed, device="cuda": T.init_lm(seed, cfg, device),
-        loss=lambda tree, batch, remat="none": T.lm_loss(
-            tree, cfg, batch, remat=remat),
+        loss=lambda tree, batch, remat="none", ep_exchange=None: T.lm_loss(
+            tree, cfg, batch, remat=remat, ep_exchange=ep_exchange),
     )

@@ -34,6 +34,14 @@ each worker's gradient is then exact on its own coordinates only, and
 the grad norm is ``sqrt`` of the sum over the workers of their squared
 norms. Parameters, moments and error-feedback residuals are updated in
 place.
+
+With ``tc.ep_exchange`` set, a MoE model and ``tc.ep_workers > 1``, each
+worker's forward runs the MoE combine through that exchange over a
+``LocalWorkers(tc.ep_workers)`` of EP ranks, at the reference's
+exchange codec: ``tc.compression`` at ratio 2.5 with top-k and error
+feedback off, where a fully dense payload peels exactly. On ranks
+(``ProcessGroupWorkers``) ``ep_workers > 1`` raises: it needs a ``dp x
+ep`` process layout the launcher does not build yet.
 """
 
 from __future__ import annotations
@@ -175,6 +183,18 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
                          f"{tc.dp_levels or (W,)}")
     ocfg = tc.optimizer
     built = {}
+    ep_exchange = None
+    if tc.ep_workers > 1 and not isinstance(group, LocalWorkers):
+        raise NotImplementedError(
+            f"ep_workers={tc.ep_workers} on ranks needs a dp x ep process "
+            "layout (launch/ranks.py), which a later slice of the port "
+            "adds; emulate the EP ranks with LocalWorkers instead")
+    if tc.ep_exchange != "none" and api.cfg.moe is not None \
+            and tc.ep_workers > 1:
+        ex_cfg = dataclasses.replace(tc.compression, ratio=2.5,
+                                     topk_ratio=None, error_feedback=False)
+        ep_exchange = agg_lib.make_exchange(tc.ep_exchange, ex_cfg,
+                                            LocalWorkers(tc.ep_workers))
 
     def aggregator_for(leaves):
         """The step's aggregator, the leaves' ZeRO-1 dims and whether the
@@ -199,7 +219,8 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
         leaves = params.leaves()
 
         def loss_grads(b):
-            loss, metrics = api.loss(params.tree(), b, remat=tc.remat)
+            loss, metrics = api.loss(params.tree(), b, remat=tc.remat,
+                                     ep_exchange=ep_exchange)
             grads = torch.autograd.grad(loss, leaves)
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 

@@ -57,7 +57,14 @@ Pins, all exact unless stated:
   and residual row, equal to ``compressed``'s; 3 steps at W = 2 of
   ``auto`` with its analytic plan and with a mixed plan: losses and
   parameter digests bit for bit with the emulation, and the analytic
-  plan's with ``compressed``'s.
+  plan's with ``compressed``'s;
+- the dense and compressed all-to-all exchanges, fused and in 2 chunks,
+  on dyadic payloads over 2 steps: every rank's merged lane equal to
+  numpy's ``sum_s payload_s[r]`` and to ``LocalWorkers``' bit for bit,
+  at W = 2 and 3 on one level (the P2P leg) and W = 4 on levels (2, 2)
+  (the emulated leg); the backward gathers every rank's cotangent onto
+  the lane axis; a train step with ``ep_workers > 1`` on ranks raises
+  ``NotImplementedError``.
 """
 import concurrent.futures
 import dataclasses
@@ -175,6 +182,44 @@ def _rs_payloads(world, r):
     return (torch.from_numpy(_words(world, (world * 5, 3), 21)[r]),
             torch.from_numpy(_dyadic(world, world * 7 * 4, 22)[r]
                              .reshape(world * 7, 4)))
+
+
+# the exchange codec of the reference driver's all-to-all check: ratio
+# 2.5 (G 2, 256-element blocks), 2 buckets a destination
+A2A_CFG = dict(ratio=2.5, lanes=128, rows=6, rounds=10, chunk_blocks=8,
+               topk_ratio=None, error_feedback=False, bucket_bytes=2 * 768 * 4)
+A2A_N = 2 * 1536
+
+
+def _a2a_payloads(world, step):
+    """Every source's ``(W, A2A_N)`` lanes: 90% dyadic non-zeros a lane."""
+    r = np.random.default_rng(500 + step)
+    out = np.zeros((world, world, A2A_N), np.float32)
+    for s in range(world):
+        for d in range(world):
+            idx = r.choice(A2A_N, size=int(A2A_N * 0.9), replace=False)
+            out[s, d, idx] = (r.choice([-1.0, 1.0], size=idx.size)
+                              * np.exp2(r.integers(-2, 3, size=idx.size)))
+    return out
+
+
+def _exchanges(world, group):
+    """(name, chunks) -> each step's merged lanes of the group's local
+    workers, stacked."""
+    from repro_torch.core.aggregators import make_exchange
+    out = {}
+    for chunks in (None, 2):
+        cfg = CompressionConfig(**A2A_CFG, stream_chunks=chunks)
+        for name in ("dense", "compressed"):
+            ex = make_exchange(name, cfg, group)
+            steps = []
+            for step in range(2):
+                pay = _a2a_payloads(world, step)
+                got = ex([[torch.from_numpy(pay[s])] for s in range(
+                    group.first_worker, group.first_worker + group.local_workers)])
+                steps.append(np.stack([g[0].numpy() for g in got]))
+            out[name, chunks] = steps
+    return out
 
 
 def _digest(params):
@@ -316,6 +361,24 @@ def _rank(group, dev, world):
                                              [_skip_grads(world)[r]])
     out["train"] = {name: _train(tc, group, dev, TRAIN_PLANS.get(name))
                     for name, tc in _train_paths(world).items()}
+    out["a2a"] = _exchanges(world, group)
+    from repro_torch.core.aggregators import make_exchange
+    pay = torch.from_numpy(_a2a_payloads(world, 0)[r]).requires_grad_()
+    ct = torch.from_numpy(_dyadic(world, A2A_N, 24)[r])
+    merged = make_exchange("compressed", CompressionConfig(**A2A_CFG),
+                           group)([[pay]])[0][0]
+    out["a2a_grad"] = torch.autograd.grad((merged * ct).sum(), pay)[0].numpy()
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.step import build_train_step
+    moe = get_arch("deepseek-moe-16b")
+    try:
+        build_train_step(model_api(moe.smoke), dataclasses.replace(
+            moe.train, workers=world, dp_levels=LEVELS[world], ep_workers=2,
+            ep_exchange="compressed"), group=group)
+        out["ep_on_ranks"] = None
+    except NotImplementedError as e:
+        out["ep_on_ranks"] = str(e)
     return out
 
 
@@ -618,3 +681,29 @@ def test_w4_zero1_stays_replicated(runs):
     outs = runs(4)
     assert len({out["train"]["rs_zero1"]["digest"] for out in outs}) == 1
     assert all(np.isfinite(outs[0]["train"]["rs_zero1"]["losses"]))
+
+
+# ----------------------------------------------------------------------
+# the all-to-all exchange on ranks
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_exchanges_on_ranks_equal_numpy_and_emulation(runs, world):
+    local = _exchanges(world, LocalWorkers(world, LEVELS[world]))
+    outs = runs(world)
+    for key, steps in local.items():
+        for step, emulated in enumerate(steps):
+            want = _a2a_payloads(world, step).sum(axis=0)
+            np.testing.assert_array_equal(emulated, want)
+            for r, o in enumerate(outs):
+                np.testing.assert_array_equal(o["a2a"][key][step][0], want[r],
+                                              err_msg=str((key, step, r)))
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_exchange_backward_and_ep_refusal_on_ranks(runs, world):
+    ct = _dyadic(world, A2A_N, 24)
+    for o in runs(world):
+        np.testing.assert_array_equal(o["a2a_grad"], ct)
+        assert o["ep_on_ranks"] is not None
+        assert "dp x ep process layout" in o["ep_on_ranks"]
