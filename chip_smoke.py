@@ -241,12 +241,48 @@ exchange; after phase 24, the granite phases' memory freed, apart from
     each rank's launches one producer and one consumer a chunk; the lane
     merges replayed alone by payload kind.
 
+The elastic aggregation service (``repro_torch.elastic``, the serve
+launcher's ``--elastic`` rounds; after phase 28, the MoE phases' memory
+freed):
+
+29. kernels_elastic — rows 1, 2 and 4 at the elastic geometry (ratio 1,
+    c 128, rows 6, G 6, rounds 10) against their plain versions on 2048
+    blocks at offset ids 500,000 inside the 580,550-block stream: four
+    clients' payloads at 10% density, their sum into the f32 consumer and
+    their W = 4 fxp32 quantization (M = 28) into the dequant consumer;
+    dyadic at 10% and 40% bit for bit, Gaussian at 10% to phase 3's
+    tolerance, words and residual exactly. Then on the full stream, the
+    shape the elastic path gives each row (the producer on one client's
+    10% stream and on a 4-client aggregate's, both consumers on the
+    aggregate): each row against plain again, dyadic bit for bit and
+    Gaussian to phase 3's tolerance, and each kernel's and plain time and
+    its bound, with blocks an SM, shared-memory bytes and the full
+    stream's max_abs_err; the f32 consumer's per-block rounds histogram
+    and its time with the rounds capped at 0, 1, 2 and 10.
+30. elastic — ``repro_torch.launch.serve.run_elastic`` on the card:
+    granite-3-2b at full width, depth 40 -> 4, as the gradient template
+    (425 buckets of 1,049,088 elements, 580,550 blocks), cohort 4 with a
+    client joining at round 1, 3 rounds, ``--straggle``; f32 and fxp32,
+    each unsharded (n_shards 1, batch 1) and sharded (n_shards 4, batch
+    4). Every round: folded + deferred = W (0 lost); the fxp32 budget
+    28 at W = 4 and 27 at W = 5; a round-0 payload refused as stale in
+    round 1; rows 1 / 2 / 4 launched W times (the clients' producers) and
+    once a shard for the close and for each deferred payload; on fxp32
+    the folded int32 sketch equal to an int64 sum of the folded payloads;
+    each sharded close equal to the unsharded one bit for bit; on round 0
+    (dyadic gradients) the unsharded close equal to the plain versions'
+    on the same folded state. Per round: each client's propose ms, the
+    fold ms a payload, the close ms and the consumer's share of it, the
+    payload bytes and the peak memory.
+
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path (the ``auto``
 phases' and the MoE trains' too), ``dist_train``'s, ``dist_rs``'s,
 ``dist_auto``'s and ``dist_a2a``'s summed over the ranks, rows 1 and 2
-with their ``kernels_a2a`` times under ``a2a``, for the three peel kernels the rounds histogram,
+with their ``kernels_a2a`` times under ``a2a``, rows 1, 2 and 4 with
+their ``kernels_elastic`` times under ``elastic`` and every row's
+launches on each ``elastic`` arm, for the three peel kernels the rounds histogram,
 for the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
@@ -3179,6 +3215,405 @@ def phase_dist_a2a():
           "launches_by_rank": [o["launches"] for o in outs]})
     return {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
 
+ELASTIC_COHORT, ELASTIC_ROUNDS, ELASTIC_SHARDS = 4, 3, 4
+ELASTIC_OFFSET = 500_000       # a block range inside the elastic stream
+ELASTIC_ARMS = (("f32", 1), ("f32", ELASTIC_SHARDS), ("fxp32", 1),
+                ("fxp32", ELASTIC_SHARDS))
+
+
+def elastic_cfg(wire="f32"):
+    """The serve launcher's elastic codec (``repro_torch.launch.serve``):
+    ratio 1, c 128, rows 6 (G 6, 768-element blocks), 10 rounds, exact
+    top-k 10% with error feedback, 4 MiB buckets."""
+    from repro_torch.core.config import CompressionConfig
+    return CompressionConfig(ratio=1.0, lanes=128, rows=6, rounds=10,
+                             chunk_blocks=8, topk_ratio=0.1, topk_exact=True,
+                             error_feedback=True, wire_dtype=wire)
+
+
+def elastic_blocks(n_params):
+    cfg = elastic_cfg()
+    return (cfg.num_buckets(n_params) * cfg.bucket_elems_for(n_params)
+            // cfg.block_elems)
+
+
+def phase_kernels_elastic(dev, check, n_params):
+    """Rows 1, 2 and 4 at the elastic service's geometry (c 128, G 6,
+    rows 6, rounds 10) against their plain versions on 2048 blocks at
+    offset ids inside the 580,550-block stream: one client's payload at
+    10% density into the producer, the sum of four clients' (W = 4, M = 28
+    exponents from the producer's maxabs) into both consumers; dyadic at
+    10% and 40% bit for bit, Gaussian at 10% to phase 3's tolerance, words
+    and residual exactly, the dequant leg equal to ``decode`` + the f32
+    kernel bit for bit. Then each kernel's time, its plain version's and
+    its bound on the full stream (the producer on one client's 10%
+    stream, the consumers on a 4-client aggregate's, 34.4% dense), with
+    blocks an SM and shared-memory bytes, and the f32 consumer's per-block
+    rounds histogram and its time with the rounds capped at 0, 1, 2 and
+    ``cfg.rounds``. Before the times, each row is held against its plain
+    version on the full stream too: the producer on one client's 10%
+    stream and on the aggregate's, both consumers on the aggregate,
+    dyadic bit for bit and Gaussian to phase 3's tolerance; each timed
+    record carries the full stream's ``max_abs_err``. Returns the
+    ``elastic`` entries of the three rows."""
+    import torch
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.collectives import LocalWorkers
+    from repro_torch.core.peeling import peel_blocks
+    from repro_torch.kernels import ops, ref
+    from repro_torch.net.fixedpoint import FixedPointWire
+
+    cfg = elastic_cfg()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2929)
+    W = ELASTIC_COHORT
+    group, wire = LocalWorkers(W), FixedPointWire(W)
+    M, G, c, R = wire.mantissa_bits, cfg.group, cfg.lanes, cfg.rows
+    nb = CHECK_BLOCKS
+    ids = torch.arange(nb, dtype=torch.int32, device=dev) + ELASTIC_OFFSET
+    for kind, frac in [("dyadic", 0.1), ("dyadic", 0.4), ("gauss", 0.1)]:
+        exact = kind == "dyadic"
+        check.q_steps = 0
+        xs = [make_blocks(cfg, nb, frac, kind, gen) for _ in range(W)]
+        enc = [check.producer(x, ids, cfg, exact) for x in xs]
+        sk = group.sum([e[0] for e in enc])
+        w = group.bor([e[1] for e in enc])
+        _, res = check.consumer(sk, w, ids, cfg, exact)
+        e = wire.exponents_from_maxabs(group.max([f[2] for f in enc]))
+        q = group.sum([wire.encode(f[0].reshape(nb, -1), e).reshape(f[0].shape)
+                       for f in enc])
+        _, res_q = check.consumer_dq(q, w, ids, cfg, wire, e, exact)
+        emit({"phase": "kernels_elastic", "case": f"{kind}@{frac}x{W}",
+              "blocks": nb, "block_offset": ELASTIC_OFFSET,
+              "geometry": {"ratio": cfg.ratio, "rows": R, "lanes": c, "group": G},
+              "mantissa_bits": M, "agree": True,
+              "nnz": int(index_lib.popcount(w)), "residual": int(res.sum()),
+              "residual_dq": int(res_q.sum())})
+        del xs, enc, sk, w, q
+    # the full stream, the shape the main path gives each row: held
+    # against the plain versions (dyadic bit for bit, Gaussian to phase
+    # 3's tolerance, words and residual exactly), then timed
+    nbf = elastic_blocks(n_params)
+    fids = torch.arange(nbf, dtype=torch.int32, device=dev)
+    full = Checker()
+    for kind in ("dyadic", "gauss"):
+        exact = kind == "dyadic"
+        x = make_blocks(cfg, nbf, 0.1, kind, gen)
+        full.producer(x, fids, cfg, exact)
+        if exact:
+            del x
+        xa = make_blocks(cfg, nbf, 1 - 0.9 ** W, kind, gen)
+        ska, wa, mxa = full.producer(xa, fids, cfg, exact)
+        del xa
+        ea = wire.exponents_from_maxabs(mxa)
+        qa = wire.encode(ska.reshape(nbf, -1), ea).reshape(ska.shape)
+        full.consumer(ska, wa, fids, cfg, exact)
+        full.consumer_dq(qa, wa, fids, cfg, wire, ea, exact)
+        emit({"phase": "kernels_elastic", "case": f"full {kind}", "blocks": nbf,
+              "agree": True, "max_abs_err": {
+                  k: full.err[k] for k in ("encode_pack_quantize",
+                                           "dequant_peel_unpack",
+                                           "dequant_peel_unpack_dq")}})
+        if exact:
+            del ska, wa, mxa, qa
+            torch.cuda.empty_cache()
+    for k, v in full.err.items():
+        check.err[k] = max(check.err[k], v)
+    nnz_in = int((x != 0).sum())
+    nnz = int(index_lib.popcount(wa))
+    bits = index_lib.unpack_bits(wa.reshape(-1), (nbf, G, c))
+    rounds = peel_blocks(ska, bits, fids, cfg).rounds_used
+    del bits
+    n_res = int(ops.dequant_peel_unpack(ska, wa, fids, cfg)[1].sum())
+    # where the f32 consumer's time goes: each block's rounds to its
+    # fixpoint, and its time with the rounds capped
+    from repro_torch.kernels.sketch_wire import dequant_peel_unpack_cuda
+    hist = block_rounds(lambda r: dequant_peel_unpack_cuda(
+        ska, wa, fids, cfg, block_rounds=r), nbf, dev, rounds)
+    by_rounds = ms_by_rounds(lambda k: ops.dequant_peel_unpack(ska, wa, fids, k),
+                             cfg, (0, 1, 2, cfg.rounds))
+    eb, eo, db, do = codec_bytes_ops(nbf, cfg, nnz_in, nnz, n_res, rounds)
+    # the dequant leg also reads the (nb,) exponents and scales each cell
+    dqb, dqo = db + nbf * 4, do + 2 * nbf * R * c
+    out = {}
+    for name, kfn, pfn, nbytes, nops, pit in [
+        ("encode_pack_quantize", lambda: ops.encode_pack_quantize(x, fids, cfg),
+         lambda: ref.encode_pack_quantize_ref(x, fids, cfg), eb, eo, 5),
+        ("dequant_peel_unpack", lambda: ops.dequant_peel_unpack(ska, wa, fids, cfg),
+         lambda: ref.dequant_peel_unpack_ref(ska, wa, fids, cfg), db, do, 3),
+        ("dequant_peel_unpack_dq",
+         lambda: ops.dequant_peel_unpack(qa, wa, fids, cfg, exponents=ea,
+                                         mantissa_bits=M),
+         lambda: ref.dequant_peel_unpack_ref(qa, wa, fids, cfg, exponents=ea,
+                                             mantissa_bits=M), dqb, dqo, 3)]:
+        b_ms, b_by = bound(nbytes, nops)
+        blocks, smem = ops.kernel_occupancy(name, cfg, dev)
+        out[name] = {"geometry": {"ratio": cfg.ratio, "rows": R, "lanes": c,
+                                  "group": G},
+                     "blocks": nbf, "ms": cuda_ms(kfn, 10),
+                     "plain_ms": cuda_ms(pfn, pit, warmup=1), "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "ops": nops,
+                     "blocks_per_sm": blocks,
+                     "threads_per_block": ops.kernel_threads(name, cfg),
+                     "smem_bytes": smem, "max_abs_err": full.err[name],
+                     "input_density": (
+                         0.1 if name == "encode_pack_quantize" else nnz / x.numel()),
+                     "plain_rounds_to_fixpoint": rounds}
+    emit({"phase": "kernels_elastic", "timed": out, "aggregate_nnz": nnz,
+          "estimated": n_res, "consumer_block_rounds_hist": hist,
+          "consumer_ms_by_rounds_cap": by_rounds})
+    del x, ska, wa, mxa, qa
+    torch.cuda.empty_cache()
+    return out
+
+
+class ConsumerTimer:
+    """CUDA-event times of every consumer call (``ops.dequant_peel_unpack``,
+    both legs) made while it is entered, in call order: ``ms(a, b)`` sums
+    calls ``a`` to ``b``, a round's close's share of the kernel. It wraps
+    the op while entered, and nothing else; leaving restores it."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.events, self.orig = [], ops.dequant_peel_unpack
+
+        def timed(*a, **k):
+            import torch
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.orig(*a, **k)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+        ops.dequant_peel_unpack = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.dequant_peel_unpack = self.orig
+
+    def ms(self, a, b):
+        import torch
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[a:b])
+
+
+def plain_close(srv, chunk_buckets=32):
+    """The open round's close recomputed from its folded state with the
+    plain versions (``use_pallas="never"``), a run of buckets at a time at
+    its global block offset; for an unsharded round without a carried
+    residual."""
+    import torch
+    from repro_torch.core.compressor import CompressedLeaf, HomomorphicCompressor
+    eng, st = srv.pending_state()
+    comp = HomomorphicCompressor(dataclasses.replace(eng.cfg, use_pallas="never"))
+    nbk, E, bpb = eng.contract.n_buckets, eng.contract.bucket_elems, \
+        eng.blocks_per_bucket
+    out = torch.empty((nbk, E), dtype=torch.float32, device=st.sketch.device)
+    for b0 in range(0, nbk, chunk_buckets):
+        b1 = min(b0 + chunk_buckets, nbk)
+        dq = None
+        if eng.fxp32:
+            dq = (st.exponents[b0:b1].repeat_interleave(bpb),
+                  eng.contract.mantissa_bits)
+        out[b0:b1] = comp.recover(
+            CompressedLeaf(sketch=st.sketch[b0 * bpb:b1 * bpb],
+                           index_words=st.index_words[b0:b1].reshape(-1)),
+            (b1 - b0) * E, block_offset=b0 * bpb, dequant=dq).reshape(b1 - b0, E)
+    return out
+
+
+def check_int64_fold(srv, payloads, chunk_blocks=1 << 16):
+    """The fxp32 round's folded int32 sketch (each shard's, flushed) against
+    an independent int64 sum of the folded clients' quantized payloads."""
+    import torch
+    eng, st = srv.pending_state()
+    if hasattr(eng, "engines"):
+        parts = list(zip(eng.engines, st.shard_states))
+    else:
+        parts = [(eng, st)]
+    folded = sorted(st.clients)
+    for e, s in parts:
+        for a in range(0, e.n_blocks, chunk_blocks):
+            b = min(a + chunk_blocks, e.n_blocks)
+            g0, g1 = e.block_offset + a, e.block_offset + b
+            want = torch.zeros(s.sketch[a:b].shape, dtype=torch.int64,
+                               device=s.sketch.device)
+            for cl in folded:
+                want += payloads[cl].sketch[g0:g1]
+            if not torch.equal(s.sketch[a:b].to(torch.int64), want):
+                raise AssertionError(f"elastic: folded int32 sketch != int64 sum "
+                                     f"of the payloads at blocks {g0}..{g1}")
+    return len(folded)
+
+
+class ElasticHooks:
+    """``run_elastic``'s hooks for one arm of ``phase_elastic``: round 0's
+    gradients dyadic (from a seeded generator on the card); round 0's
+    close held against the plain versions on the same folded state
+    (unsharded arms); a round-0 payload submitted in round 1 must be
+    refused as stale; on fxp32 the folded int32 sketch against an
+    independent int64 sum; each round's launches of rows 1, 2 and 4
+    against the expected counts; the consumer's share of the close (from
+    ``timer``, a :class:`ConsumerTimer` entered around the run); each
+    round's stream kept for the sharded arm to be held against. It
+    implements all of ``repro_torch.launch.serve.RoundHooks``."""
+
+    def __init__(self, dev, wire, n_shards, timer, ref_streams=None):
+        import torch
+        from repro_torch.kernels import ops
+        self.dev, self.wire, self.n_shards = dev, wire, n_shards
+        self.ref_streams, self.streams, self.rounds = ref_streams, [], []
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(3030)
+        self.mark = dict(ops.LAUNCHES)
+        self.stale, self.plain, self.timer, self.first = None, None, timer, 0
+
+    def grads(self, rnd, client, shapes):
+        import torch
+        from repro_torch.models.params import unflatten_tree
+        if rnd != 0:
+            return None
+        g, out = self.gen, []
+        for path, sh in shapes:
+            keep = torch.rand(sh, generator=g, device=self.dev) < 1 / 3
+            sign = torch.where(torch.rand(sh, generator=g, device=self.dev) < 0.5,
+                               -1.0, 1.0)
+            e = torch.randint(-2, 3, sh, generator=g, device=self.dev)
+            out.append((path, torch.where(keep, sign * torch.exp2(e.float()), 0.0)))
+        return unflatten_tree(out)
+
+    def before_close(self, rnd, srv, contract, payloads):
+        from repro_torch.elastic import StaleContractError
+        rec = {"round": rnd, "plain_checked": False, "int64_checked": 0}
+        if rnd == 0:
+            self.stale = payloads[1]
+            if self.n_shards == 1:
+                self.plain = plain_close(srv)
+                rec["plain_checked"] = True
+        elif rnd == 1:
+            try:
+                srv.submit(self.stale)
+            except StaleContractError:
+                rec["stale_refused"] = True
+            else:
+                raise AssertionError("elastic: a stale payload was folded")
+            self.stale = None
+        if self.wire == "fxp32":
+            rec["int64_checked"] = check_int64_fold(srv, payloads)
+        self.rounds.append(rec)
+        self.first = len(self.timer.events)
+
+    def after_close(self, rnd, srv, stream, rep):
+        import torch
+        from repro_torch.kernels import ops
+        rec = self.rounds[-1]
+        last = len(self.timer.events)
+        rec["consumer_ms"] = self.timer.ms(self.first, last)
+        rec["consumer_calls"] = last - self.first
+        if self.plain is not None:
+            if not torch.equal(stream, self.plain):
+                raise AssertionError(f"elastic {self.wire}: the kernel close "
+                                     "differs from the plain close")
+            self.plain = None
+        now = dict(ops.LAUNCHES)
+        got = {k: now[k] - self.mark[k] for k in now}
+        self.mark = now
+        cons = "dequant_peel_unpack_dq" if self.wire == "fxp32" \
+            else "dequant_peel_unpack"
+        want = dict.fromkeys(now, 0)
+        want["encode_pack_quantize"] = rep.workers
+        want[cons] = (1 + rep.deferred) * self.n_shards
+        if got != want:
+            raise AssertionError(f"elastic {self.wire}/{self.n_shards}: round "
+                                 f"{rnd} launches {got}, expected {want}")
+        rec["launches"] = {k: v for k, v in got.items() if v}
+        if self.ref_streams is not None:
+            rec["equal_to_unsharded"] = torch.equal(stream, self.ref_streams[rnd])
+            if not rec["equal_to_unsharded"]:
+                raise AssertionError(f"elastic {self.wire}: sharded round {rnd} "
+                                     "differs from the unsharded close")
+        else:
+            self.streams.append(stream)
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+
+
+def phase_elastic(dev, n_params):
+    """The serve launcher's ``run_elastic`` on the card: granite-3-2b at
+    full width (depth 40 -> 4) as the gradient template, cohort 4 with a
+    client joining at round 1, 3 rounds, ``--straggle`` (client 0 past the
+    deadline in round 1, deferred into round 2's residual); the f32 and
+    fxp32 wires, each unsharded (n_shards 1, batch 1) and then sharded
+    (n_shards 4, batch 4), the hooks of :class:`ElasticHooks` checking
+    every round. Fails unless every round accounts for every payload
+    (folded + deferred, 0 lost), the fxp32 budget re-prices 28 -> 27 at
+    W = 5, each sharded close equals the unsharded one bit for bit, and
+    the launches are W producers a round and a consumer a shard for the
+    close and for each deferred payload. Returns the launches by arm."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_parser, run_elastic
+    from repro_torch.models.registry import model_api
+
+    mcfg = dataclasses.replace(get_arch("granite-3-2b").model, n_layers=LAYERS)
+    params = model_api(mcfg).init(0, dev)
+    if sum(p.numel() for p in params.leaves()) != n_params:
+        raise AssertionError("elastic: the template is not the train phases'")
+    launches, ref_streams = {}, None
+    for wire, shards in ELASTIC_ARMS:
+        arm = f"{wire}/shards{shards}"
+        args = build_parser().parse_args([
+            "--arch", "granite-3-2b", "--layers", str(LAYERS), "--elastic",
+            "--cohort", str(ELASTIC_COHORT), "--rounds", str(ELASTIC_ROUNDS),
+            "--wire", wire, "--straggle", "--shards", str(shards),
+            "--device", str(dev)])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        with ConsumerTimer() as timer:
+            hooks = ElasticHooks(dev, wire, shards, timer,
+                                 ref_streams if shards > 1 else None)
+            srv, records = run_elastic(args, mcfg, params, hooks=hooks)
+        wall = time.perf_counter() - t0
+        launches[arm] = dict(ops.LAUNCHES)
+        ms = [r["mantissa_bits"] for r in records]
+        if wire == "fxp32" and ms != [28, 27, 27]:
+            raise AssertionError(f"elastic: mantissa budgets {ms}, expected "
+                                 "[28, 27, 27]")
+        for r in records:
+            if r["folded"] + r["deferred"] != r["workers"]:
+                raise AssertionError(f"elastic {arm}: round {r['round']} lost "
+                                     "a payload")
+        if [(r["deferred"], r["rejected_stale"], r["residual_carried_in"])
+                for r in records] != [(0, 0, False), (1, 1, False), (0, 0, True)]:
+            raise AssertionError(f"elastic {arm}: deferrals, stale refusals and "
+                                 "carried residuals are not as scheduled")
+        for r, h in zip(records, hooks.rounds):
+            r.update(h)
+            folded = r["folded"]
+            emit({"phase": "elastic", "arm": arm, **{
+                k: v for k, v in r.items() if k != "propose_ms"},
+                "propose_ms_median": statistics.median(r["propose_ms"]),
+                "propose_ms": r["propose_ms"],
+                "fold_ms_per_payload": r["fold_ms"] / folded})
+        emit({"phase": "elastic", "arm": arm, "arch": "granite-3-2b",
+              "params": n_params, "reduced": {"n_layers": f"40 -> {LAYERS}"},
+              "buckets": srv.plan.n_buckets, "bucket_elems": srv.plan.bucket_elems,
+              "blocks": elastic_blocks(n_params), "wall_s": wall,
+              "payloads_accounted": sum(r["folded"] + r["deferred"]
+                                        for r in records), "lost": 0,
+              "launches": {k: v for k, v in launches[arm].items() if v},
+              "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+        ref_streams = hooks.streams if shards == 1 else None
+        del srv, records, hooks
+    del params, ref_streams
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3263,6 +3698,9 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     launches_dist_a2a = phase_dist_a2a()
+    torch.cuda.empty_cache()
+    elastic_k = phase_kernels_elastic(dev, check, n)
+    launches_elastic = phase_elastic(dev, n)
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the
     # standalone kernels from the Bloom train
@@ -3286,9 +3724,12 @@ def main() -> int:
             **{f"auto_train/{k}": v[r["name"]] for k, v in launches_auto.items()},
             "dist_auto": launches_dist_auto[r["name"]],
             **{f"moe_train/{k}": v[r["name"]] for k, v in launches_moe.items()},
-            "dist_a2a": launches_dist_a2a[r["name"]]}
+            "dist_a2a": launches_dist_a2a[r["name"]],
+            **{f"elastic/{k}": v[r["name"]] for k, v in launches_elastic.items()}}
         if r["name"] in a2a:
             r["a2a"] = a2a[r["name"]]
+        if r["name"] in elastic_k:
+            r["elastic"] = elastic_k[r["name"]]
     phase_lossless(api.cfg, tc, dev)
     phase_innet_lossless(api.cfg, dev)
     phase_bloom_lossless(api.cfg, dev)

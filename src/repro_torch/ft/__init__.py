@@ -1,3 +1,11 @@
-"""Fault tolerance: the switch's straggler timeout and retransmit
-policy. Failure injection, straggler monitors and elastic re-meshing come
-with the fault-tolerance and elastic slices."""
+"""Fault tolerance: failure injection and detection, stragglers, the
+switch's timeout and retransmit policy (with its per-shard view), and
+elastic sizing."""
+from .failures import (FailureSimulator, InjectedFailure, RecoveryPolicy,
+                       ShardRetransmitView, StragglerMonitor,
+                       SwitchRetransmitPolicy, SwitchStragglerTimeout,
+                       elastic_data_parallel, elastic_mesh)
+__all__ = ["FailureSimulator", "InjectedFailure", "RecoveryPolicy",
+           "ShardRetransmitView", "StragglerMonitor",
+           "SwitchRetransmitPolicy", "SwitchStragglerTimeout",
+           "elastic_data_parallel", "elastic_mesh"]

@@ -155,7 +155,7 @@ class SwitchModel:
                                   or partials.min(initial=0) < _INT32_MIN):
                 raise OverflowError(
                     f"window {window}: a running {self.ports}-port sum "
-                    "overflows a 32-bit switch register: the stream was "
+                    "overflows a 32-bit switch register — the stream was "
                     "not sized by FixedPointWire for this port count")
             out_sk[w0:w1] = partials[-1].astype(np.int32)
             out_bm[w0:w1] = np.bitwise_or.reduce(bm[:, w0:w1], axis=0)
@@ -175,7 +175,7 @@ class SwitchModel:
                 int(partial_min) < int(_INT32_MIN):
             raise OverflowError(
                 f"window {window}: a running {ports}-port sum "
-                "overflows a 32-bit switch register: the stream was "
+                "overflows a 32-bit switch register — the stream was "
                 "not sized by FixedPointWire for this port count")
 
     def account_batched_fold(self, n_chunks: int, k_ports: int,
