@@ -275,6 +275,33 @@ freed):
     fold ms a payload, the close ms and the consumer's share of it, the
     payload bytes and the peak memory.
 
+The training job whole (``remat`` policies, checkpoints and recovery
+in ``run_training``; after phase 30; every train phase above already
+runs the ``block`` remat default):
+
+31. remat — granite-3-2b as phase 4 under ``none`` and ``dots``, and
+    deepseek-moe-16b as ``moe_train/compressed`` under ``none``: after
+    every step the parameter sha256 and the losses equal the ``block``
+    run's (phase 4, phase 26), and the launches the same counts (the
+    MoE exchange's 2 + 8 producers and 1 + 8 consumers a step: the
+    recompute leaves the exchange out). Peak memory and step ms of each
+    policy beside ``block``'s.
+32. ckpt_train — phase 4's train through ``run_training`` with a
+    checkpoint every 2 steps into a temporary directory under
+    ``build/`` (the free space for two checkpoints checked first) and a
+    failure injected at step 3: one restart, five losses (step 2 again
+    after its checkpoint is restored, the loss equal to its first pass
+    bit for bit), the final parameter sha256 equal to phase 4's, W
+    producers and one consumer a step run. The checkpoint's bytes (18 B
+    a parameter), each save's blocking host copy and background write,
+    the view's and the restore's time.
+33. dist_ckpt — W=2 ranks sharing ``cuda:0`` over gloo train phase 4's
+    first two steps and checkpoint (every rank gathers, rank 0 writes);
+    the emulated workers restore it and train steps 2-3. The ranks'
+    losses and parameters equal phase 4's, one producer and one
+    consumer a step a rank, the restored run's final sha256 equal to
+    phase 4's; the gathers' time over gloo, the save and the restore.
+
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path (the ``auto``
@@ -282,8 +309,9 @@ phases' and the MoE trains' too), ``dist_train``'s, ``dist_rs``'s,
 ``dist_auto``'s and ``dist_a2a``'s summed over the ranks, rows 1 and 2
 with their ``kernels_a2a`` times under ``a2a``, rows 1, 2 and 4 with
 their ``kernels_elastic`` times under ``elastic`` and every row's
-launches on each ``elastic`` arm, for the three peel kernels the rounds histogram,
-for the three encode kernels the phase stamps; a peel kernel below 48
+launches on each ``elastic`` arm and in phases 31-33 (``dist_ckpt``'s
+ranks summed), for the three peel kernels the rounds histogram, for
+the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
 CPU fallback: without a CUDA device the script exits non-zero before
@@ -922,7 +950,7 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
     mcfg = dataclasses.replace(arch.model, n_layers=layers)
     innet = wire == "fxp32"
     tc = dataclasses.replace(
-        arch.train, workers=WORKERS, accum_steps=1, remat="none",
+        arch.train, workers=WORKERS, accum_steps=1,
         aggregator="compressed_innet" if innet else "compressed",
         compression=dataclasses.replace(arch.train.compression, wire_dtype=wire,
                                         **(fields or {})))
@@ -1041,7 +1069,8 @@ def phase_breakdown(api, tc, state, step_ms, dev, phase="breakdown",
 
     def fwd_bwd(w=0):
         rows = {k: v[w * per: (w + 1) * per] for k, v in batch.items()}
-        loss, _ = api.loss(params.tree(), rows, **(loss_kw or {}))
+        loss, _ = api.loss(params.tree(), rows, remat=tc.remat,
+                           **(loss_kw or {}))
         return torch.autograd.grad(loss, leaves)
 
     grads_w = [fwd_bwd(w) for w in range(W)]
@@ -1765,7 +1794,7 @@ def dist_rank(group, dev):
            "staging": group.staging, "arms": {}}
     for aggregator in ("compressed", "dense"):
         tc = dataclasses.replace(arch.train, workers=WORKERS, accum_steps=1,
-                                 remat="none", aggregator=aggregator)
+                                 aggregator=aggregator)
         log = WireLog(group)
         params = api.init(tc.seed, dev)
         digests = []
@@ -2199,7 +2228,7 @@ def dist_rs_rank(group, dev, shapes_dtypes):
             ("rs_zero1", {}, {"aggregator": "compressed_rs", "zero1": True}),
             ("overlap", {"overlap": True}, {"aggregator": "compressed"})):
         tc = dataclasses.replace(
-            arch.train, workers=WORKERS, accum_steps=1, remat="none",
+            arch.train, workers=WORKERS, accum_steps=1,
             compression=dataclasses.replace(arch.train.compression, **fields),
             **tc_fields)
         log = WireLog(group, timed=name == "overlap")
@@ -2395,7 +2424,7 @@ def auto_tc():
     from repro_torch.configs import get_arch
     arch = get_arch("granite-3-2b")
     return dataclasses.replace(
-        arch.train, workers=WORKERS, accum_steps=1, remat="none",
+        arch.train, workers=WORKERS, accum_steps=1,
         aggregator="auto", compression=dataclasses.replace(
             arch.train.compression, wire_dtype="fxp32"))
 
@@ -2433,7 +2462,7 @@ def step0_grads(api, tc, dev):
     for w in range(WORKERS):
         loss, _ = api.loss(params.tree(), {k: v[w * per:(w + 1) * per]
                                            for k, v in batch.items()},
-                           remat="none")
+                           remat=tc.remat)
         grads_w.append([g.detach() for g in
                         torch.autograd.grad(loss, params.leaves())])
     return grads_w
@@ -3614,6 +3643,250 @@ def phase_elastic(dev, n_params):
     return launches
 
 
+REMAT_ARMS = ("none", "dots")    # phase 31's policies beside the block default
+CKPT_EVERY, CKPT_FAIL_AT = 2, 3  # ckpt_train: checkpoints at 2 and 4, a failure at 3
+
+
+def phase_remat(dev, train, moe_line):
+    """granite-3-2b as phase 4 (whose train runs the ``block`` default)
+    under each of ``REMAT_ARMS``, and deepseek-moe-16b as
+    ``moe_train/compressed`` (``block``) under ``none``: after every step
+    the parameter sha256 must equal the ``block`` run's, and the launches
+    (the DP aggregator's rows 1 and 2, and on the MoE path the exchange's
+    2 + 8 producers and 1 + 8 consumers a step) the same counts, which
+    ``phase_train`` holds. Per policy the peak memory and step ms beside
+    ``block``'s."""
+    import torch
+    t0 = time.perf_counter()
+    arms = {"granite/block": train}
+    runs = [(f"granite/{r}", {"remat": r}, {}) for r in REMAT_ARMS]
+    runs.append(("deepseek/none", {"remat": "none", "ep_exchange": "compressed",
+                                   "ep_workers": EP_WORKERS},
+                 {"arch_name": MOE_ARCH, "layers": MOE_LAYERS,
+                  "want": moe_want("compressed")}))
+    arms["deepseek/block"] = moe_line
+    launches = {}
+    for name, tc_fields, kw in runs:
+        torch.cuda.empty_cache()
+        line, launches[name], _, _, state = phase_train(
+            dev, phase=f"remat/{name}", tc_fields=tc_fields, emit_line=False,
+            **kw)
+        del state
+        arms[name] = line
+    out = {"phase": "remat", "wall_s": time.perf_counter() - t0, "arms": {}}
+    for name, line in arms.items():
+        model = name.split("/")[0]
+        block = arms[f"{model}/block"]
+        out["arms"][name] = {
+            "peak_mem_bytes": line["peak_mem_bytes"], "step_ms": line["step_ms"],
+            "mean_step_ms": statistics.mean(line["step_ms"]),
+            "launches": line["launches"],
+            "digests_equal_block": line["param_sha256_by_step"]
+            == block["param_sha256_by_step"],
+            "losses_equal_block": line["losses"] == block["losses"]}
+    emit(out)
+    for name, arm in out["arms"].items():
+        if not (arm["digests_equal_block"] and arm["losses_equal_block"]):
+            raise AssertionError(f"remat/{name}: parameters or losses differ "
+                                 "from the block run's")
+    return launches
+
+
+def disk_room(path, need):
+    """Raise unless the file system of ``path`` has ``need`` bytes free."""
+    import shutil
+    free = shutil.disk_usage(path).free
+    if free < need:
+        raise RuntimeError(f"{free} bytes free under {path}, {need} needed")
+    return free
+
+
+def ckpt_tc():
+    """The train config of the checkpoint phases: phase 4's."""
+    from repro_torch.configs import get_arch
+    arch = get_arch("granite-3-2b")
+    return dataclasses.replace(arch.train, workers=WORKERS, accum_steps=1)
+
+
+def ckpt_bytes(n_params):
+    """A granite checkpoint's nominal size: 18 B a parameter (bf16 2,
+    AdamW's f32 moments 8, both workers' f32 residual rows 8)."""
+    return n_params * 18
+
+
+def phase_ckpt_train(dev, train):
+    """``run_training`` of phase 4's setup with a checkpoint every
+    ``CKPT_EVERY`` steps into a temporary directory under ``build/``
+    (free space for two checkpoints checked first) and a failure
+    injected at step ``CKPT_FAIL_AT``: one restart, five losses (step 2
+    run again after the step-2 checkpoint is restored, its loss equal to
+    its first pass bit for bit, the others equal to phase 4's), the final
+    parameter sha256 equal to phase 4's, W producers and one consumer a
+    step executed. The checkpoints' bytes, each save's blocking host copy
+    and background write, and the restore's time."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.ft.failures import FailureSimulator
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.loop import run_training
+
+    arch = get_arch("granite-3-2b")
+    api = model_api(dataclasses.replace(arch.model, n_layers=LAYERS))
+    tc = ckpt_tc()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    nominal = ckpt_bytes(train["params"])
+    free = disk_room(build, 2 * nominal + (1 << 30))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+                           steps=STEPS, device=dev, ckpt_dir=d,
+                           ckpt_every=CKPT_EVERY, log_every=0,
+                           failure_sim=FailureSimulator(
+                               fail_at_steps=(CKPT_FAIL_AT,)))
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        digest = param_digest(res.state.params)
+        res.state = None
+    executed = len(res.losses)
+    want = {**dict.fromkeys(launches, 0),
+            "encode_pack_quantize": WORKERS * executed,
+            "dequant_peel_unpack": executed}
+    saves = [e for e in res.ckpt_events if e["kind"] == "save"]
+    restores = [e for e in res.ckpt_events if e["kind"] == "restore"]
+    replay = CKPT_FAIL_AT - CKPT_FAIL_AT % CKPT_EVERY
+    out = {"phase": "ckpt_train", "arch": "granite-3-2b",
+           "reduced": {"n_layers": f"{arch.model.n_layers} -> {LAYERS}"},
+           "workers": WORKERS, "steps": STEPS, "ckpt_every": CKPT_EVERY,
+           "fail_at": CKPT_FAIL_AT, "restarts": res.restarts,
+           "final_step": res.final_step, "losses": res.losses,
+           "replayed_loss_equal": res.losses[replay + 1] == res.losses[replay],
+           "losses_equal_train": res.losses[:replay + 1] + res.losses[replay + 2:]
+           == train["losses"],
+           "final_param_sha256": digest,
+           "digest_equal_train": digest == train["param_sha256_by_step"][-1],
+           "launches": launches, "wall_s": wall,
+           "step_ms": [t * 1e3 for t in res.step_seconds],
+           "nominal_ckpt_bytes": nominal, "disk_free_bytes": free,
+           "views": [e for e in res.ckpt_events if e["kind"] == "view"],
+           "saves": saves, "restores": restores,
+           "straggler_events": res.straggler_events,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    if launches != want:
+        raise AssertionError(f"ckpt_train: launch counts {launches}, "
+                             f"expected {want}")
+    if not (res.restarts == 1 and executed == STEPS + 1
+            and out["replayed_loss_equal"] and out["losses_equal_train"]
+            and out["digest_equal_train"] and len(restores) == 1
+            and [e["step"] for e in saves] == [2, 4]):
+        raise AssertionError("ckpt_train: the restored run differs from "
+                             "phase 4's uninterrupted one")
+    return launches
+
+
+def dist_ckpt_rank(group, dev, ckpt_dir):
+    """One rank of ``dist_ckpt``: phase 4's train for 2 steps with a
+    checkpoint at step 2 (the gathers on every rank, the files from rank
+    0), its launches and the gathers' time (the loop's ``view`` event:
+    host clock; gloo's staging copies wait for the card)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.loop import run_training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = get_arch("granite-3-2b")
+    api = model_api(dataclasses.replace(arch.model, n_layers=LAYERS))
+    tc = ckpt_tc()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ, steps=2,
+                       device=dev, ckpt_dir=ckpt_dir, ckpt_every=2,
+                       log_every=0, group=group)
+    launches = dict(ops.LAUNCHES)
+    gather_ms = [e["ms"] for e in res.ckpt_events if e["kind"] == "view"]
+    return {"rank": group.rank, "backend": group.backend,
+            "staging": group.staging, "losses": res.losses,
+            "launches": launches, "gather_ms": gather_ms,
+            "digest": param_digest(res.state.params),
+            "ckpt_events": res.ckpt_events,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_dist_ckpt(dev, train):
+    """W=2 ranks sharing ``cuda:0`` over gloo (as ``dist_train``) train
+    phase 4's setup for 2 steps and checkpoint; ``LocalWorkers`` then
+    restores the checkpoint and trains steps 2-3. The ranks' losses must
+    equal phase 4's first two, each rank launch one producer and one
+    consumer a step, and the restored run's final parameter sha256 equal
+    phase 4's. The gathers' time over gloo, the save and the restore."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.models.registry import model_api
+    from repro_torch.train.loop import run_training
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    disk_room(build, ckpt_bytes(train["params"]) + (1 << 30))
+    arch = get_arch("granite-3-2b")
+    api = model_api(dataclasses.replace(arch.model, n_layers=LAYERS))
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        t0 = time.perf_counter()
+        outs = spawn_ranks(dist_ckpt_rank, WORKERS, (d,), device="cuda",
+                           timeout=DIST_TIMEOUT)
+        ranks_wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        res = run_training(api, ckpt_tc(), global_batch=BATCH, seq_len=SEQ,
+                           steps=STEPS, device=dev, ckpt_dir=d,
+                           ckpt_every=STEPS + 1, log_every=0)
+        launches = dict(ops.LAUNCHES)
+        digest = param_digest(res.state.params)
+        res.state = None
+    rank_want = {**dict.fromkeys(outs[0]["launches"], 0),
+                 "encode_pack_quantize": 2, "dequant_peel_unpack": 2}
+    want = {**dict.fromkeys(launches, 0),
+            "encode_pack_quantize": WORKERS * 2, "dequant_peel_unpack": 2}
+    out = {"phase": "dist_ckpt", "workers": WORKERS,
+           "backend": outs[0]["backend"], "staging": outs[0]["staging"],
+           "wall_s": time.perf_counter() - t_phase, "ranks_wall_s": ranks_wall,
+           "ranks": [{k: o[k] for k in ("rank", "losses", "launches",
+                                        "gather_ms", "ckpt_events",
+                                        "peak_mem_bytes")} for o in outs],
+           "restored": {"losses": res.losses, "launches": launches,
+                        "ckpt_events": res.ckpt_events,
+                        "step_ms": [t * 1e3 for t in res.step_seconds]},
+           "final_param_sha256": digest,
+           "digest_equal_train": digest == train["param_sha256_by_step"][-1]}
+    emit(out)
+    for o in outs:
+        if o["launches"] != rank_want or o["losses"] != train["losses"][:2] \
+                or o["digest"] != train["param_sha256_by_step"][1]:
+            raise AssertionError(f"dist_ckpt: rank {o['rank']} differs from "
+                                 "phase 4's first two steps")
+    if launches != want or res.losses != train["losses"][2:] \
+            or not out["digest_equal_train"]:
+        raise AssertionError("dist_ckpt: the restored run differs from "
+                             "phase 4's uninterrupted one")
+    summed = {k: sum(o["launches"][k] for o in outs) for k in rank_want}
+    return {"ranks": summed, "restored": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3701,6 +3974,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     elastic_k = phase_kernels_elastic(dev, check, n)
     launches_elastic = phase_elastic(dev, n)
+    torch.cuda.empty_cache()
+    launches_remat = phase_remat(dev, train, moe_line)
+    torch.cuda.empty_cache()
+    launches_ckpt = phase_ckpt_train(dev, train)
+    torch.cuda.empty_cache()
+    launches_dist_ckpt = phase_dist_ckpt(dev, train)
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the
     # standalone kernels from the Bloom train
@@ -3725,7 +4004,11 @@ def main() -> int:
             "dist_auto": launches_dist_auto[r["name"]],
             **{f"moe_train/{k}": v[r["name"]] for k, v in launches_moe.items()},
             "dist_a2a": launches_dist_a2a[r["name"]],
-            **{f"elastic/{k}": v[r["name"]] for k, v in launches_elastic.items()}}
+            **{f"elastic/{k}": v[r["name"]] for k, v in launches_elastic.items()},
+            **{f"remat/{k}": v[r["name"]] for k, v in launches_remat.items()},
+            "ckpt_train": launches_ckpt[r["name"]],
+            **{f"dist_ckpt/{k}": v.get(r["name"], 0)
+               for k, v in launches_dist_ckpt.items()}}
         if r["name"] in a2a:
             r["a2a"] = a2a[r["name"]]
         if r["name"] in elastic_k:

@@ -27,6 +27,13 @@ optimizer update is sliced over the workers (ZeRO-1, the default) unless
 smoke model's stream is one bucket at the default 4 MiB). ``--device cpu`` runs the plain PyTorch
 versions of the codec kernels.
 
+As the reference's launcher: ``--steps`` defaults to 100,
+``--compression-ratio`` sets the sketch's ratio, and ``--ckpt-dir``
+checkpoints every ``--ckpt-every`` steps (default 50) and resumes from
+the latest checkpoint there (with ``--procs`` too: the checkpoint is the
+same whatever the layout). ``--smoke`` also turns remat off (the
+config's default is ``block``).
+
 ``--arch deepseek-moe-16b`` trains the MoE family; ``--ep-exchange
 {none,dense,compressed}`` picks the wire of its expert-parallel combine
 and ``--ep-workers N`` the EP ranks each worker's forward emulates
@@ -67,12 +74,15 @@ def _train(group, device, args):
                                 ("overlap", args.overlap),
                                 ("stream_chunks", args.stream_chunks),
                                 ("rs_wire", args.rs_wire),
-                                ("bucket_bytes", args.bucket_bytes)) if v}
+                                ("bucket_bytes", args.bucket_bytes),
+                                ("ratio", args.compression_ratio)) if v}
     tc = dataclasses.replace(tc, compression=dataclasses.replace(
         tc.compression, **fields))
     tc = dataclasses.replace(tc, accum_steps=args.accum_steps,
                              ep_exchange=args.ep_exchange,
                              ep_workers=args.ep_workers)
+    if args.smoke:
+        tc = dataclasses.replace(tc, remat="none")
     if args.zero1 is not None:
         tc = dataclasses.replace(tc, zero1=args.zero1)
     if args.lr:
@@ -82,7 +92,9 @@ def _train(group, device, args):
     res = run_training(model_api(cfg), tc, global_batch=args.global_batch,
                        seq_len=args.seq_len, steps=args.steps,
                        device=device, group=group,
-                       log_every=0 if quiet else 10)
+                       ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                       log_every=0 if quiet else 10,
+                       log_fn=(lambda _: None) if quiet else print)
     return {
         "arch": args.arch, "layers": cfg.n_layers, "workers": tc.workers,
         "procs": args.procs or 1,
@@ -93,13 +105,16 @@ def _train(group, device, args):
         "stream_chunks": tc.compression.stream_chunks,
         "rs_wire": tc.compression.rs_wire, "zero1": tc.zero1,
         "ep_exchange": tc.ep_exchange, "ep_workers": tc.ep_workers,
-        "device": args.device,
-        "first_loss": res.losses[0], "last_loss": res.losses[-1],
-        "losses": res.losses, "steps": res.final_step,
+        "ratio": tc.compression.ratio, "remat": tc.remat,
+        "device": args.device, "ckpt_dir": args.ckpt_dir,
+        "first_loss": res.losses[0] if res.losses else None,
+        "last_loss": res.losses[-1] if res.losses else None,
+        "losses": res.losses, "restarts": res.restarts,
+        "final_step": res.final_step, "steps": res.final_step,
     }
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -112,13 +127,18 @@ def main(argv=None):
                     help="run the W workers as this many processes")
     ap.add_argument("--timeout", type=float, default=3600.0,
                     help="seconds the spawned ranks may take in all")
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--aggregator",
                     choices=["dense", "compressed", "compressed_rs",
                              "compressed_innet", "auto"],
                     default=None)
+    ap.add_argument("--compression-ratio", type=float, default=None,
+                    help="sketch size over the stream's size")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint here, and resume from the latest")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--wire", choices=["f32", "fxp32"], default=None,
                     help="the in-network tier's sketch wire")
     ap.add_argument("--index", choices=["bitmap", "bloom"], default=None,
@@ -144,6 +164,11 @@ def main(argv=None):
     ap.add_argument("--accum-steps", type=int, default=1)
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
     args = ap.parse_args(argv)
     if args.procs is not None:
         if args.workers not in (None, args.procs):

@@ -11,21 +11,32 @@ Entry points:
   lm_loss(tree, cfg, batch, ...)      -> (loss, metrics)
 
 ``ep_exchange`` (the expert-parallel combine wire, from
-``core.aggregators.make_exchange``) reaches every MoE layer. Only
-``remat="none"`` runs in this port; other values raise.
+``core.aggregators.make_exchange``) reaches every MoE layer. ``remat``
+takes the reference's policies (:data:`REMAT_POLICIES`, see
+:func:`lm_hidden`); any other value raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt_lib
 
 from .config import ModelConfig
 from .params import ParamTree
 from . import layers as L
 
 PORTED_FAMILIES = ("dense", "moe")
+REMAT_POLICIES = ("none", "block", "block_nocse", "dots")
+# products with no batch dims: ``x @ W`` on a 2-D or 3-D ``x`` (folded to
+# 2-D) dispatches to ``aten.mm`` (a forward of the smoke configs, under a
+# dispatch mode: granite 15 ``mm`` and 4 ``bmm``, deepseek 17 and 10);
+# ``aten.addmm`` is a product with its bias fused, which no layer here
+# takes; batched products (attention scores and values, the experts'
+# ``torch.bmm``) dispatch to ``aten.bmm``
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _require_ported(cfg: ModelConfig):
@@ -87,21 +98,85 @@ def _layer(stacked: Dict, i: int) -> Dict:
             for k, v in stacked.items()}
 
 
+def _dots_policy(ctx, func, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    products with no batch dims that take part in autograd, recompute
+    everything else."""
+    if func in _DOTS_SAVED and torch.is_grad_enabled():
+        return ckpt_lib.CheckpointPolicy.MUST_SAVE
+    return ckpt_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class _Remat:
+    """One checkpointed block call: its ``context_fn`` and whether the
+    backward's recompute is running (``recomputing``)."""
+
+    def __init__(self, policy: str):
+        self.policy, self.recomputing = policy, False
+
+    @contextlib.contextmanager
+    def _recompute(self, inner):
+        self.recomputing = True
+        try:
+            with inner:
+                yield
+        finally:
+            self.recomputing = False
+
+    def context_fn(self):
+        if self.policy == "dots":
+            fwd, rec = ckpt_lib.create_selective_checkpoint_contexts(_dots_policy)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, self._recompute(rec)
+
+
 def lm_hidden(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
               remat: str = "none", ep_exchange=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token embedding through all blocks and the final norm -> (x, aux),
-    ``aux`` the sum of the layers' MoE load-balance losses."""
+    ``aux`` the sum of the layers' MoE load-balance losses.
+
+    ``remat`` is the reference's policy. Under ``"none"`` autograd keeps
+    every block's intermediates. Under ``"block"`` and ``"block_nocse"``
+    each block call is a non-reentrant
+    ``torch.utils.checkpoint.checkpoint``: the forward keeps the block's
+    inputs only and the backward runs the block again. The two are the
+    same here: their difference in the reference is whether XLA may CSE
+    the recompute with the forward, and eager PyTorch has no CSE.
+    ``"dots"`` mirrors ``dots_with_no_batch_dims_saveable`` through
+    ``create_selective_checkpoint_contexts``: the outputs of ``aten.mm``
+    and ``aten.addmm`` (every ``x @ W``: the projections, the MLP and the
+    router) are kept, and ``aten.bmm`` (attention scores and values, the
+    routed experts) and the elementwise ops recomputed. Non-reentrant,
+    since the step takes its gradients with ``torch.autograd.grad``,
+    which reentrant checkpoints refuse. The values and gradients equal
+    ``"none"``'s bit for bit.
+
+    The recompute leaves out ``ep_exchange``: the wire's value is spliced
+    in detached and the backward needs nothing from it (JAX's remat drops
+    a ``stop_gradient`` value from its recompute the same way), so the
+    exchange's kernels and collectives run once a step under every
+    policy."""
     _require_ported(cfg)
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: only 'none' is supported in this port")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; have {list(REMAT_POLICIES)}")
     x = tree["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = _attn_block(x, _layer(tree["layers"], i), cfg, positions,
-                           ep_exchange=ep_exchange)
+        p = _layer(tree["layers"], i)
+        if remat == "none":
+            x, a = _attn_block(x, p, cfg, positions, ep_exchange=ep_exchange)
+        else:
+            rm = _Remat(remat)
+
+            def block(x, p=p, rm=rm):
+                ex = None if rm.recomputing else ep_exchange
+                return _attn_block(x, p, cfg, positions, ep_exchange=ex)
+
+            x, a = ckpt_lib.checkpoint(block, x, use_reentrant=False,
+                                       context_fn=rm.context_fn)
         aux = aux + a
     return L.rmsnorm(x, tree["final_norm"], cfg.norm_eps), aux
 

@@ -6,7 +6,14 @@ in for the data-parallel world (W workers, emulated on one device or run
 as W ranks: see ``core/collectives``) and ``dp_levels`` for the mesh's
 data-parallel axes (the level sizes, innermost first, that the
 in-network tier's ``tor_spine`` tree maps onto; empty means one level of
-all W). ``remat`` defaults to ``"none"``, the only policy the port runs.
+all W).
+
+``remat`` is the reference's memory policy, ``"block"`` by default as
+there: ``"none"``, ``"block"`` and ``"block_nocse"`` (one checkpoint a
+transformer block; the same in eager PyTorch) and ``"dots"`` (a block's
+products with no batch dims saved, the rest recomputed); see
+``models/transformer.lm_hidden``. Where the reference runs any other
+value as ``"none"``, the port raises.
 
 ``ep_exchange`` is the reference's: the wire of the MoE layers'
 expert-parallel combine (``"none"`` keeps the local combine;
@@ -46,7 +53,8 @@ class TrainConfig:
         default_factory=CompressionConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)
-    remat: str = "none"
+    remat: str = "block"                 # "none" | "block" |
+                                         # "block_nocse" | "dots"
     accum_steps: int = 1                 # microbatch gradient accumulation
     workers: int = 1                     # data-parallel workers (W)
     dp_levels: Tuple[int, ...] = ()      # DP level sizes, innermost first
@@ -70,9 +78,10 @@ class TrainConfig:
                 f"{['none'] + sorted(EXCHANGES)}")
         if self.ep_workers < 1:
             raise ValueError(f"ep_workers must be >= 1, got {self.ep_workers}")
-        if self.remat != "none":
-            raise ValueError(
-                f"remat={self.remat!r}: only 'none' is supported in this port")
+        from repro_torch.models.transformer import REMAT_POLICIES
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat {self.remat!r}; have "
+                             f"{list(REMAT_POLICIES)}")
         if self.workers < 1 or self.accum_steps < 1:
             raise ValueError("workers and accum_steps must be >= 1")
         if self.dp_levels and math.prod(self.dp_levels) != self.workers:

@@ -42,6 +42,10 @@ exchange codec: ``tc.compression`` at ratio 2.5 with top-k and error
 feedback off, where a fully dense payload peels exactly. On ranks
 (``ProcessGroupWorkers``) ``ep_workers > 1`` raises: it needs a ``dp x
 ep`` process layout the launcher does not build yet.
+
+:func:`state_view` gives the state without its layout (whole moments,
+every worker's residual row), as a checkpoint holds it, and
+:func:`load_state_view` puts such a state back into any layout.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ import torch
 from repro_torch.core import aggregators as agg_lib
 from repro_torch.core.collectives import AggregationState, LocalWorkers
 from repro_torch.core.streams import zero_slice_dim
-from repro_torch.models.params import ParamTree
+from repro_torch.models.params import ParamTree, unflatten_tree
 from repro_torch.models.registry import ModelAPI
 from .config import TrainConfig
 from . import optimizer as opt_lib
@@ -106,6 +110,90 @@ def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
         residual = [torch.zeros((0,), dtype=torch.float32, device=p.device)
                     for p in leaves]
     return TrainState(params=params, opt=opt, residual=residual, step=0)
+
+
+def state_view(state: TrainState, tc: TrainConfig, group=None) -> TrainState:
+    """The state with no layout, as a checkpoint holds it: the
+    reference's ``TrainState`` tree, every leaf whole.
+
+    ``params`` and ``residual`` are nested dicts on the reference's
+    paths and ``opt`` one such dict a moment, so the checkpoint's leaf
+    paths are the reference's; ``step`` is an int32 scalar. A rank's
+    ZeRO-1 moment slices and its local workers' residual rows are
+    gathered over ``group`` (``group.gather``, as ``apply_update``
+    gathers its deltas): every rank of a group must call this together.
+    On ``LocalWorkers`` (``group`` None) the leaves are the live tensors
+    themselves."""
+    params = state.params
+    leaves = params.leaves()
+    whole = group is None or group.local_workers == group.workers
+
+    def tree(ts):
+        return unflatten_tree(list(zip(params.paths, ts)))
+
+    def moment(m, p, d):
+        if whole or d is None or m.shape == p.shape:
+            return m
+        return group.gather([m.movedim(d, 0).contiguous()]).movedim(0, d)
+
+    def rows(r):
+        return r if whole or r.numel() == 0 else group.gather([r])
+
+    dims = zero1_dims(leaves, tc)
+    opt = {k: tree([moment(m, p, d) for m, p, d in zip(ms, leaves, dims)])
+           for k, ms in state.opt.items()}
+    return TrainState(params=tree(leaves), opt=opt,
+                      residual=tree([rows(r) for r in state.residual]),
+                      step=torch.tensor(state.step, dtype=torch.int32))
+
+
+def view_paths(state: TrainState) -> List[str]:
+    """The leaf paths of :func:`state_view`'s tree, in flatten order."""
+    names = [".".join(p) for p in state.params.paths]
+    return ([f"params.{n}" for n in names]
+            + [f"opt.{k}.{n}" for k in sorted(state.opt) for n in names]
+            + [f"residual.{n}" for n in names] + ["step"])
+
+
+def load_state_view(state: TrainState, leaves: Sequence[torch.Tensor],
+                    tc: TrainConfig, group=None) -> None:
+    """The inverse of :func:`state_view`: ``leaves`` (whole, on any
+    device, in :func:`view_paths` order) narrowed to this group's
+    ZeRO-1 slice of each moment and its local workers' residual rows,
+    and copied into the live tensors in place (``build_train_step`` keeps
+    references to them); ``state.step`` set. A leaf of another shape or
+    dtype raises."""
+    params = state.params.leaves()
+    moms = sorted(state.opt)
+    want = (2 + len(moms)) * len(params) + 1
+    if len(leaves) != want:
+        raise ValueError(f"{len(leaves)} leaves for a state of {want}")
+    src = iter(leaves)
+    first = 0 if group is None else group.first_worker
+
+    def put(dst, x, what):
+        if tuple(x.shape) != tuple(dst.shape) or x.dtype != dst.dtype:
+            raise ValueError(f"{what}: {tuple(x.shape)} {x.dtype} for "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(x)
+
+    with torch.no_grad():
+        for p in params:
+            put(p, next(src), "param")
+        for k in moms:
+            for i, (m, p, d) in enumerate(zip(state.opt[k], params,
+                                              zero1_dims(params, tc))):
+                x = next(src)
+                if d is not None and m.shape != p.shape:
+                    blk = m.shape[d]
+                    x = x.narrow(d, first * blk, blk)
+                put(m, x, f"moment {k}[{i}]")
+        for i, r in enumerate(state.residual):
+            x = next(src)
+            if r.numel():
+                x = x.narrow(0, first, r.shape[0])
+            put(r, x, f"residual[{i}]")
+        state.step = int(next(src))
 
 
 def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],

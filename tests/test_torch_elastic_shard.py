@@ -309,13 +309,13 @@ def test_randomized_parity_sweep(J):
 
 
 def test_sharded_batched_fold_property(J):
-    """The hypothesis property of the reference, with few examples:
+    """The hypothesis property of the reference, at its 12 examples:
     Gaussian gradients, random cohorts, shard counts, microbatch sizes
     and arrival permutations, both wires."""
     hyp = pytest.importorskip("hypothesis")
     st = hyp.strategies
 
-    @hyp.settings(max_examples=3, deadline=None, derandomize=True)
+    @hyp.settings(max_examples=12, deadline=None, derandomize=True)
     @hyp.given(data=st.data(), wire=st.sampled_from(["f32", "fxp32"]),
                n_clients=st.integers(2, 7), batch_size=st.integers(1, 8),
                seed=st.integers(0, 2**31))

@@ -67,6 +67,16 @@ EX = dict(ratio=2.5, topk_ratio=None, error_feedback=False, lanes=128,
 TOL = dict(rtol=1e-5, atol=1e-7)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The port's side runs on one intra-op thread: its tensors are small,
+    and the suite's parallel workers already fill the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jparams():
     return jax.tree.map(np.asarray, j_init_lm(jax.random.PRNGKey(0), JCFG))

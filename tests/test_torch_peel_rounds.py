@@ -19,12 +19,14 @@ the reference's own ``atol=1e-5`` (the two frameworks sum scatter
 contributions in their own orders); masks exactly.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import CompressionConfig as JaxConfig
@@ -45,6 +47,16 @@ GAUSS_ATOL = 1e-5
 # different rounds: empty, sparse (lossless, one or two rounds), near the
 # peeling threshold (many rounds), overfull (stuck at once), every bit set
 MIX = (0.0, 0.01, 0.15, 0.30, 0.60, 1.0)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The port's side runs on one intra-op thread: its tensors are small,
+    and the suite's parallel workers already fill the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tcfg(jc, **kw):
@@ -81,9 +93,16 @@ def jax_peel(jc, xb, ids, rounds):
     y = encode_blocks(torch.from_numpy(xb), torch.from_numpy(ids), tcfg(jc)).numpy()
     rows_flat = jnp.asarray(jhash.batch_rows(jc.group, jc.rows, jc.seed).reshape(-1))
     signs = jnp.asarray(jhash.batch_signs(jc.group, jc.seed))
-    v, b = peel_tile(jnp.asarray(ids), rows_flat, signs, jnp.asarray(y),
-                     jnp.asarray(xb != 0), cfg)
+    v, b = jit_peel_tile(cfg)(jnp.asarray(ids), rows_flat, signs,
+                              jnp.asarray(y), jnp.asarray(xb != 0))
     return np.asarray(v), np.asarray(b)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_peel_tile(cfg):
+    """``peel_tile`` jitted with ``cfg`` static: one compiled function a
+    geometry and cap (eagerly, every call re-dispatches each op)."""
+    return jax.jit(functools.partial(peel_tile, cfg=cfg))
 
 
 def assert_values(got, want, kind):
