@@ -302,6 +302,47 @@ runs the ``block`` remat default):
     consumer a step a rank, the restored run's final sha256 equal to
     phase 4's; the gathers' time over gloo, the save and the restore.
 
+Serving (``repro_torch.serve``: prefill, KV-cache decode, the continuous
+batcher; after phase 33, its memory freed). No codec kernel runs on this
+path: the launch counters are zeroed just before each phase and must
+read 0 just after.
+
+34. serve — granite-3-2b at full width and full depth (40 layers), bf16,
+    random weights from seed 0 (its init's peak on a line of its own):
+    ``ServeEngine.generate`` on 8 prompts of 512 tokens (from
+    ``default_rng(0)``), 64 new tokens, ``max_len`` 584; then the
+    ``ContinuousBatcher`` over 16 requests (prompt ``u % 8``) in 8 slots
+    for 192 decode steps: all 16 complete with 64 tokens each, the second
+    wave decoding past ``max_len`` (clamped writes). Then, outside the
+    counted run: a second ``generate`` with tokens equal to the first,
+    through ``ServeClock`` (the engine's own loop, its model calls
+    wrapped), timed with CUDA events around the prefill and each decode
+    call and keeping the logits. Random weights make rows repeat a
+    token, so the checks hold logits: the first wave's decode calls
+    against ``generate``'s (inputs equal, logits within a bound), the
+    second wave's slots 0 and 7 against a batch-1 engine fed the slot's
+    tokens at the positions the shared position implies (576 on, past
+    ``max_len``), the prompt's last 3 tokens decoded against its prefill,
+    each within a bound from the card's readings; one request through a
+    batch-1 batcher equal to a batch-1 ``generate`` call for call, logits
+    bit for bit. The decode step's kernels come from two profiled
+    ``generate`` runs (5 and 1 new tokens), their difference. Prints
+    prefill ms, decode ms a step (each, and the median) beside the bound
+    (weights + the whole KV cache at 3.35 TB/s), tokens/s of ``generate``
+    and of the batcher (host clock after a synchronise), the peak memory
+    after a reset that follows init, the distinct tokens of each row, and
+    the sha256 of the tokens and of the completions.
+35. serve_moe — deepseek-moe-16b likewise at full width and full depth
+    (28 layers), 32 new tokens, no batcher; MoE decode routes at
+    ``capacity_factor_decode`` 2.0 (C = 2 at B = 8); its decode/prefill
+    check runs on the same weights with both capacity factors E / K, so
+    that no token drops.
+36. serve_consistency — the reference's prefill/decode check
+    (``tests/test_decode_consistency.py``) at full width, f32, depth 4,
+    B 2: prefill 64 tokens, decode 3, the logits equal to the prefill of
+    67 tokens within atol 2e-3; granite-3-2b, and deepseek-moe-16b with
+    both capacity factors E / K (no token drops).
+
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path (the ``auto``
@@ -309,8 +350,8 @@ phases' and the MoE trains' too), ``dist_train``'s, ``dist_rs``'s,
 ``dist_auto``'s and ``dist_a2a``'s summed over the ranks, rows 1 and 2
 with their ``kernels_a2a`` times under ``a2a``, rows 1, 2 and 4 with
 their ``kernels_elastic`` times under ``elastic`` and every row's
-launches on each ``elastic`` arm and in phases 31-33 (``dist_ckpt``'s
-ranks summed), for the three peel kernels the rounds histogram, for
+launches on each ``elastic`` arm, in phases 31-33 (``dist_ckpt``'s
+ranks summed) and in phases 34-36 (0), for the three peel kernels the rounds histogram, for
 the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
@@ -3031,7 +3072,7 @@ def phase_moe_breakdown(api, tc, state, step_ms, dev):
         pos = torch.arange(SEQ, device=dev)[None, :]
         h1 = L.rmsnorm(x0, p0["ln1"], cfg.norm_eps)
         attn = lambda: L.attention_train(h1, p0["attn"], cfg, positions=pos)
-        x1 = x0 + attn()
+        x1 = x0 + attn()[0]
         h = L.rmsnorm(x1, p0["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
         p = p0["moe"]
         T, D, E = h.shape[0], cfg.d_model, m.num_experts
@@ -3887,6 +3928,416 @@ def phase_dist_ckpt(dev, train):
     return {"ranks": summed, "restored": launches}
 
 
+SERVE_BATCH, SERVE_PROMPT = 8, 512      # batch generate: 8 prompts of 512
+SERVE_NEW = {"granite-3-2b": 64, "deepseek-moe-16b": 32}
+SERVE_REQUESTS = 16                     # continuous: 2 x batch requests
+CONSISTENCY_LAYERS, CONSISTENCY_B, CONSISTENCY_S = 4, 2, 64
+
+
+def zero_launches():
+    from repro_torch.kernels import ops
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+
+
+def read_launches(phase):
+    """The launch counters after a serving run: serving runs none of the
+    six kernels, so any launch fails the phase."""
+    from repro_torch.kernels import ops
+    launches = dict(ops.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: serving launched a codec kernel "
+                             f"{launches}")
+    return launches
+
+
+def tokens_digest(rows):
+    """sha256 of generated tokens: each row (a completion's uid, then its
+    tokens) as int32 bytes, in order."""
+    import numpy as np
+    h = hashlib.sha256()
+    for r in rows:
+        h.update(np.asarray(r, dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
+class ServeClock:
+    """Times a ``ServeEngine``'s own loop: while it is entered, the engine
+    holds a ``ModelAPI`` whose ``prefill`` and ``decode`` record a CUDA
+    event before and after the model's call and, with ``keep``, a copy of
+    the input tokens and the logits (as f32) that the call returns. Every
+    ``generate`` or batcher run in between goes through the engine's own
+    code; the engine's api comes back on exit."""
+
+    def __init__(self, eng, keep=False):
+        self.eng, self.keep, self.api = eng, keep, eng.api
+        self.calls = []     # {"kind", "pos", "start", "end", "tok", "logits"}
+
+    def _wrap(self, kind, fn):
+        import torch
+
+        def call(tree, x, *rest):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            logits, cache = fn(tree, x, *rest)
+            end.record()
+            rec = {"kind": kind, "start": start, "end": end,
+                   "pos": rest[-1] if kind == "decode" else None}
+            if self.keep:
+                rec["tok"] = (x["tokens"] if kind == "prefill" else x).clone()
+                rec["logits"] = logits.float()
+            self.calls.append(rec)
+            return logits, cache
+        return call
+
+    def __enter__(self):
+        self.eng.api = dataclasses.replace(
+            self.api, prefill=self._wrap("prefill", self.api.prefill),
+            decode=self._wrap("decode", self.api.decode))
+        return self
+
+    def __exit__(self, *exc):
+        self.eng.api = self.api
+
+    def of(self, kind):
+        return [c for c in self.calls if c["kind"] == kind]
+
+    def prefill_ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [c["start"].elapsed_time(c["end"]) for c in self.of("prefill")]
+
+    def step_ms(self):
+        """A decode step as the engine's loop runs it: from one decode
+        call's start to the next's (the argmax and the host's work in
+        between included)."""
+        import torch
+        torch.cuda.synchronize()
+        d = self.of("decode")
+        return [a["start"].elapsed_time(b["start"]) for a, b in zip(d, d[1:])]
+
+
+def logits_err(a, b, vocab):
+    """max |a - b| over the real vocabulary (the padded entries are -1e30
+    on both sides)."""
+    return float((a[..., :vocab].float() - b[..., :vocab].float()).abs().max())
+
+
+def logits_max_abs(logits, vocab):
+    return float(logits[..., :vocab].float().abs().max())
+
+
+def device_busy(fn):
+    """``fn()`` under ``torch.profiler`` -> (device busy us: the sum of the
+    card's kernels' and copies' durations, kernels launched, us by kernel
+    name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, busy_us, kernels = {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        kernels += not e.name.startswith(("Memcpy", "Memset"))
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us
+    return busy_us, kernels, by_name
+
+
+def profile_decode(eng, prompts, steps=4):
+    """The card's work in ``steps`` decode steps of the engine's own
+    ``generate``: two profiled runs, of 1 + ``steps`` new tokens and of 1,
+    and their difference, so that the prefill cancels. -> the card's busy
+    time a step, the kernels launched a step, and the kernels taking the
+    most device time, by name. The trace's wall time is inflated by the
+    profiler, so the idle share is taken against the unprofiled step."""
+    long_us, long_k, long_by = device_busy(
+        lambda: eng.generate(prompts, max_new=1 + steps))
+    short_us, short_k, short_by = device_busy(
+        lambda: eng.generate(prompts, max_new=1))
+    by_name = {k: v - short_by.get(k, 0.0) for k, v in long_by.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps,
+            "device_busy_ms_per_step": (long_us - short_us) / steps / 1e3,
+            "kernels_per_step": (long_k - short_k) / steps,
+            "top_kernels_ms_per_step": [[k, v / steps / 1e3] for k, v in top]}
+
+
+# Logit bounds of the serve phases' checks in bf16 at full depth (phases
+# 34-35). Read on an H100 80GB HBM3 at 700 W, the same in two runs, with
+# the logits' max |logit| over the vocabulary 2.5-2.9: decode vs prefill
+# 0.031 (granite) and 0.100 (deepseek); the first wave 0.0; the second
+# wave 0.035. Each bound is 2.5x or more above its reading and a tenth
+# or less of the logits' max, the order of the error that a wrong slot
+# or position gives.
+SERVE_LOGITS_ATOL = {
+    # decode of the prompt's last 3 tokens vs the prefill of all of them
+    "consistency": 0.25,
+    # the batcher's slots vs generate's rows (first wave, B = 8 both),
+    # and vs a batch-1 engine fed the slot's tokens (second wave)
+    "batcher_vs_generate": 0.125,
+    "batcher_vs_batch1": 0.125,
+}
+
+
+def no_drop(cfg):
+    """``cfg`` with both MoE capacity factors E / K, so that no token
+    drops in prefill or decode (a dense config as it is)."""
+    if cfg.moe is None:
+        return cfg
+    cf = cfg.moe.num_experts / cfg.moe.top_k
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf, capacity_factor_decode=cf))
+
+
+def decode_prefill_err(api, params, prompts, max_len):
+    """The reference's prefill/decode consistency check
+    (``tests/test_decode_consistency.py``) in the model's own dtype:
+    prefill all but the last 3 prompt tokens, decode those 3, and the
+    last logits against the prefill of the whole prompt."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(api, params, max_len=max_len, batch=prompts.shape[0])
+    S = prompts.shape[1]
+    _, cache = eng.prefill(prompts[:, :S - 3])
+    for p in range(S - 3, S):
+        tok = torch.as_tensor(prompts[:, p], device=eng.device).long()
+        logits_d, cache = eng.decode(tok, cache, p)
+    logits_p, _ = eng.prefill(prompts)
+    V = api.cfg.vocab
+    return {"rows": prompts.shape[0], "prompt_len": S,
+            "max_abs_err": logits_err(logits_d, logits_p, V),
+            "logits_max_abs": logits_max_abs(logits_p, V)}
+
+
+def batcher_checks(eng, one, prompts, gen_clock, cont_clock, done, max_new):
+    """The continuous run held to ``generate`` by logits, not tokens alone.
+
+    First wave (uids 0..B-1, slot u, the prompts ``generate`` took, the
+    same position): each decode call's inputs and logits against
+    ``generate``'s for the same rows. Second wave (uid B + i in slot i,
+    admitted when the whole first wave ends together): for slots 0 and
+    B - 1, the slot's logits at each step against a batch-1 engine fed
+    the same prompt and the slot's own tokens at the positions the shared
+    position gives (the first wave's end, S + max_new, on), which run
+    past ``max_len``."""
+    import torch
+    B, V = eng.batch, eng.api.cfg.vocab
+    gen, cont = gen_clock.of("decode"), cont_clock.of("decode")
+    by_uid = {c.uid: c.tokens for c in done}
+    first_tok = all(torch.equal(g["tok"], c["tok"])
+                    for g, c in zip(gen, cont[:max_new]))
+    first = max(logits_err(g["logits"], c["logits"], V)
+                for g, c in zip(gen, cont[:max_new]))
+    second, positions = 0.0, [c["pos"] for c in cont[max_new:]]
+    start = max(prompts.shape[1] + max_new, prompts.shape[1])
+    for slot in (0, B - 1):
+        toks = by_uid[B + slot]
+        if [int(c["tok"][slot]) for c in cont[max_new:]] != toks:
+            raise AssertionError(f"serve: slot {slot} of the second wave "
+                                 f"does not hold uid {B + slot}")
+        _, cache = one.prefill(prompts[slot][None])
+        for k, c in enumerate(cont[max_new:]):
+            logits, cache = one.decode(
+                torch.tensor([toks[k]], device=one.device), cache, start + k)
+            second = max(second, logits_err(logits[0], c["logits"][slot], V))
+    return {"first_wave_tokens_equal": first_tok,
+            "first_wave_max_abs_err": first,
+            "second_wave_max_abs_err": second,
+            "second_wave_positions": [positions[0], positions[-1]],
+            "second_wave_positions_want": [start, start + len(positions) - 1],
+            "logits_max_abs": max(logits_max_abs(c["logits"], V)
+                                  for c in cont)}
+
+
+def serve_model(dev, arch_name, phase, continuous):
+    """Phases 34-35: ``arch_name`` at full width and full depth, bf16,
+    random weights from seed 0, served through ``ServeEngine.generate``
+    (and with ``continuous`` the ``ContinuousBatcher``), the launch
+    counters zeroed just before and read just after; then, not counted,
+    generate again (timed, keeping its logits), the logit checks, the
+    profiled decode and the batch-1 check."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import model_api
+    from repro_torch.serve import ContinuousBatcher, Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.init()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_arch(arch_name).model
+    api = model_api(cfg)
+    t0 = time.perf_counter()
+    params = api.init(0, dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    leaves = params.leaves()
+    n_params = sum(p.numel() for p in leaves)
+    w_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    emit({"phase": f"{phase}/init", "arch": arch_name, "params": n_params,
+          "weight_bytes": w_bytes, "allocated_before_bytes": before,
+          "init_s": init_s,
+          "init_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+    max_new = SERVE_NEW[arch_name]
+    max_len = SERVE_PROMPT + max_new + 8
+    B = SERVE_BATCH
+    kv_token = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd
+                * torch.finfo(cfg.activation_dtype).bits // 8)
+    kv_bytes = kv_token * B * max_len
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServeEngine(api, params, max_len=max_len, batch=B)
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab, (B, SERVE_PROMPT), dtype=np.int32)
+
+    zero_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new=max_new)
+    torch.cuda.synchronize(dev)
+    gen_s = time.perf_counter() - t0
+    done, cont_s = None, None
+    if continuous:
+        cb = ContinuousBatcher(eng)
+        for u in range(SERVE_REQUESTS):
+            cb.submit(Request(uid=u, prompt=prompts[u % B],
+                              max_new_tokens=max_new))
+        # the clock keeps each step's logits (one f32 copy a step)
+        with ServeClock(eng, keep=True) as cont_clock:
+            t0 = time.perf_counter()
+            done = cb.run(decode_steps=3 * max_new)
+            torch.cuda.synchronize(dev)
+            cont_s = time.perf_counter() - t0
+    launches = read_launches(phase)
+
+    # a second run through the engine's own loop, timed, and keeping each
+    # call's logits for the batcher's checks (one token copy a call)
+    with ServeClock(eng, keep=continuous) as clock:
+        again = eng.generate(prompts, max_new=max_new)
+    step_ms = clock.step_ms()
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = profile_decode(eng, prompts)
+    prof["device_idle_share"] = 1 - (prof["device_busy_ms_per_step"]
+                                     / statistics.median(step_ms))
+    # the same weights with no token dropped, in prefill or decode, so
+    # that the two agree as the reference's check needs
+    consistency = decode_prefill_err(model_api(no_drop(cfg)), params,
+                                     prompts[:2], max_len)
+    res = {"phase": phase, "arch": arch_name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": str(cfg.activation_dtype),
+           "params": n_params, "weight_bytes": w_bytes,
+           "kv_bytes_per_token": kv_token, "kv_cache_bytes": kv_bytes,
+           "batch": B, "prompt_len": SERVE_PROMPT, "max_new": max_new,
+           "max_len": max_len, "generate_s": gen_s,
+           "tokens_per_s": out.size / gen_s,
+           "prefill_ms": clock.prefill_ms()[0],
+           "decode_step_ms": step_ms,
+           "decode_step_ms_median": statistics.median(step_ms),
+           "decode_bound_ms": (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+           "peak_mem_bytes": peak, "tokens_sha256": tokens_digest(out),
+           "deterministic": bool(np.array_equal(out, again)),
+           # random weights: a row may well repeat one token, so the
+           # checks below hold logits, which a token hides
+           "distinct_tokens_by_row": [len(set(r.tolist())) for r in out],
+           "consistency": consistency,
+           "decode_profile": prof, "launches": launches,
+           "first_row": out[0][:16].tolist()}
+    bounds = SERVE_LOGITS_ATOL
+    ok = res["deterministic"] and \
+        consistency["max_abs_err"] <= bounds["consistency"]
+    if continuous:
+        res.update({
+            "continuous_requests": len(done),
+            "continuous_tokens": sum(len(c.tokens) for c in done),
+            "continuous_s": cont_s,
+            "continuous_tokens_per_s": sum(len(c.tokens) for c in done) / cont_s,
+            "continuous_sha256": tokens_digest([c.uid] + c.tokens for c in done),
+            # the second wave decodes from prompt + max_new on: positions
+            # at max_len and past it write the cache's last entry
+            "continuous_clamped_steps": max(0, SERVE_PROMPT + 2 * max_new
+                                            - max_len)})
+        ok = ok and sorted(c.uid for c in done) == list(range(SERVE_REQUESTS)) \
+            and all(len(c.tokens) == max_new for c in done)
+        one = ServeEngine(api, params, max_len=max_len, batch=1)
+        res["batcher_logits"] = batcher_checks(
+            eng, one, prompts, clock, cont_clock, done, max_new)
+        del cont_clock, clock
+        with ServeClock(one, keep=True) as want_clock:
+            want = one.generate(prompts[:1], max_new=max_new)[0]
+        cb = ContinuousBatcher(one)
+        cb.submit(Request(uid=0, prompt=prompts[0], max_new_tokens=max_new))
+        with ServeClock(one, keep=True) as got_clock:
+            got = cb.run(decode_steps=3 * max_new)
+        pairs = list(zip(want_clock.calls, got_clock.calls))
+        res["batch1_equal_generate"] = (
+            len(got) == 1 and got[0].tokens == want.tolist()
+            and len(want_clock.calls) == len(got_clock.calls)
+            and all(a["kind"] == b["kind"] and a["pos"] == b["pos"]
+                    and torch.equal(a["logits"], b["logits"])
+                    for a, b in pairs))
+        res["batch1_calls"] = len(pairs)
+        bl = res["batcher_logits"]
+        ok = ok and res["batch1_equal_generate"] \
+            and bl["first_wave_tokens_equal"]
+        for key, err in (("batcher_vs_generate", bl["first_wave_max_abs_err"]),
+                         ("batcher_vs_batch1", bl["second_wave_max_abs_err"])):
+            ok = ok and err <= bounds[key]
+    res["logits_atol"] = bounds
+    res["wall_s"] = time.perf_counter() - t_phase
+    emit(res)
+    if not ok:
+        raise AssertionError(f"{phase}: generation not deterministic, decode "
+                             "off prefill, the continuous requests incomplete "
+                             "or off generate's logits, or batch-1 serving "
+                             "differs from generate")
+    return launches
+
+
+def phase_serve_consistency(dev):
+    """Phase 36: the reference's prefill/decode consistency
+    (``tests/test_decode_consistency.py``) at full width, f32, depth 4:
+    prefill S tokens, decode 3, and the logits equal the prefill of
+    S + 3 to atol 2e-3; granite-3-2b, and deepseek-moe-16b with
+    ``capacity_factor = capacity_factor_decode = E / K`` (no token
+    drops)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import model_api
+
+    t_phase = time.perf_counter()
+    zero_launches()
+    arms = {}
+    for name in ("granite-3-2b", "deepseek-moe-16b"):
+        cfg = no_drop(dataclasses.replace(
+            get_arch(name).model, dtype="float32", n_layers=CONSISTENCY_LAYERS))
+        api = model_api(cfg)
+        S = CONSISTENCY_S
+        toks = np.random.default_rng(1).integers(
+            1, cfg.vocab, (CONSISTENCY_B, S + 3), dtype=np.int32)
+        err = decode_prefill_err(api, api.init(0, dev), toks,
+                                 S + 8)["max_abs_err"]
+        arms[name] = {"layers": cfg.n_layers, "dtype": "float32",
+                      "batch": CONSISTENCY_B, "prompt_len": S,
+                      "max_abs_err": err, "ok": err <= 2e-3}
+        torch.cuda.empty_cache()
+    launches = read_launches("serve_consistency")
+    emit({"phase": "serve_consistency", "atol": 2e-3, "arms": arms,
+          "launches": launches, "wall_s": time.perf_counter() - t_phase})
+    bad = [k for k, a in arms.items() if not a["ok"]]
+    if bad:
+        raise AssertionError(f"serve_consistency: decode differs from prefill "
+                             f"beyond atol 2e-3 on {bad}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3980,6 +4431,14 @@ def main() -> int:
     launches_ckpt = phase_ckpt_train(dev, train)
     torch.cuda.empty_cache()
     launches_dist_ckpt = phase_dist_ckpt(dev, train)
+    torch.cuda.empty_cache()
+    launches_serve = {"serve": serve_model(dev, "granite-3-2b", "serve", True)}
+    torch.cuda.empty_cache()
+    launches_serve["serve_moe"] = serve_model(dev, "deepseek-moe-16b",
+                                              "serve_moe", False)
+    torch.cuda.empty_cache()
+    launches_serve["serve_consistency"] = phase_serve_consistency(dev)
+    torch.cuda.empty_cache()
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the
     # standalone kernels from the Bloom train
@@ -4008,7 +4467,8 @@ def main() -> int:
             **{f"remat/{k}": v[r["name"]] for k, v in launches_remat.items()},
             "ckpt_train": launches_ckpt[r["name"]],
             **{f"dist_ckpt/{k}": v.get(r["name"], 0)
-               for k, v in launches_dist_ckpt.items()}}
+               for k, v in launches_dist_ckpt.items()},
+            **{k: v[r["name"]] for k, v in launches_serve.items()}}
         if r["name"] in a2a:
             r["a2a"] = a2a[r["name"]]
         if r["name"] in elastic_k:

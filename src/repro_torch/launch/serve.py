@@ -1,5 +1,12 @@
-"""Serving launcher: the elastic aggregation service driven against a
-model's parameter tree.
+"""Serving launcher: batched greedy generation, the continuous batcher,
+and the elastic aggregation service driven against the same model.
+
+    # batch generate (greedy), then the continuous batcher over
+    # 2 x batch requests
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+        --batch 8 --prompt-len 512 --max-new 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+        --batch 8 --prompt-len 512 --max-new 64 --continuous
 
     # elastic: async sketch-fold rounds over an intermittent cohort, the
     # arch's parameter tree as the gradient template
@@ -8,10 +15,9 @@ model's parameter tree.
 
 ``--smoke`` takes the arch's reduced config and ``--layers`` cuts the
 depth, as in the train launcher. ``--shards`` folds through the
-sharded service, each shard folding that many payloads a microbatch. ``--device cpu`` runs the
-plain PyTorch versions of the codec kernels. Batched generation and the
-continuous batcher (the modes without ``--elastic``) wait for the port
-of serving.
+sharded service, each shard folding that many payloads a microbatch.
+Everything runs on the card unless ``--device cpu``, where the codec
+takes its kernels' plain PyTorch versions (serving runs no kernel).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 
@@ -166,6 +173,48 @@ def run_elastic(args, cfg, params, hooks=None):
     return srv, records
 
 
+def run_serving(args, cfg, params):
+    """The reference's batch and ``--continuous`` modes: ``args.batch``
+    prompts of ``args.prompt_len`` tokens from ``default_rng(0)``; batch
+    generation of ``args.max_new`` tokens, or ``2 x batch`` requests
+    (prompt ``u % batch``) through the continuous batcher for
+    ``3 x max_new`` decode steps. ``max_len`` defaults to ``prompt_len +
+    max_new + 8``. Prints the reference's lines, the clock read after a
+    device synchronise. Returns the tokens, or the completions."""
+    from repro_torch.models.registry import model_api
+    from repro_torch.serve import ContinuousBatcher, Request, ServeEngine
+
+    dev = torch.device(args.device)
+    max_len = args.max_len or (args.prompt_len + args.max_new + 8)
+    eng = ServeEngine(model_api(cfg), params, max_len=max_len,
+                      batch=args.batch)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+
+    if args.continuous:
+        cb = ContinuousBatcher(eng)
+        for u in range(args.batch * 2):
+            cb.submit(Request(uid=u, prompt=prompts[u % args.batch],
+                              max_new_tokens=args.max_new))
+        t0 = _clock(dev)
+        done = cb.run(decode_steps=args.max_new * 3)
+        dt = _clock(dev) - t0
+        toks = sum(len(c.tokens) for c in done)
+        print(f"continuous: {len(done)} requests, {toks} tokens "
+              f"in {dt:.2f}s ({toks/dt:.1f} tok/s)", flush=True)
+        return done
+
+    t0 = _clock(dev)
+    out = eng.generate(prompts, max_new=args.max_new)
+    dt = _clock(dev) - t0
+    toks = out.size
+    print(f"batch generate: {out.shape} tokens in {dt:.2f}s "
+          f"({toks/dt:.1f} tok/s)")
+    print("first row:", out[0][:16].tolist(), flush=True)
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -198,11 +247,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not args.elastic:
-        raise NotImplementedError(
-            "batched generation and the continuous batcher wait for the "
-            "port of serving (ROADMAP queue 1 items 2 and 5); run with "
-            "--elastic")
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import model_api
 
@@ -211,7 +255,9 @@ def main(argv=None):
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = model_api(cfg).init(0, args.device)
-    return run_elastic(args, cfg, params)
+    if args.elastic:
+        return run_elastic(args, cfg, params)
+    return run_serving(args, cfg, params)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ scores, causal mask at -1e30, f32 softmax, unnormalised probabilities
 cast to the value dtype before the value product, division by the
 softmax sum after it). The reference's ``flash_attention`` is jnp, not a
 Pallas kernel, so no hand kernel is owed; its query/key blocking changes
-only the rounding.
+only the rounding. Decode (``attention_decode``) normalises before its
+value product, as the reference's does.
 """
 
 from __future__ import annotations
@@ -134,7 +135,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 
 
 def attention_train(x, p, cfg: ModelConfig, positions=None):
-    """Causal self-attention for training. x: (B,S,D)."""
+    """Causal self-attention for training and prefill. x: (B,S,D) ->
+    ``(out, (k, v))``, ``k`` after RoPE, as the reference's
+    ``attention_train``; prefill keeps ``(k, v)`` as its cache."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     if positions is None:
@@ -142,7 +145,42 @@ def attention_train(x, p, cfg: ModelConfig, positions=None):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v).reshape(B, S, -1)
-    return o @ p["wo"]
+    return o @ p["wo"], (k, v)
+
+
+def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, position: int,
+                     rope: bool = True):
+    """Single-token decode. x: (B,1,D); cache_k, cache_v: (B,Skv,KV,hd);
+    ``position`` (an int) is where the new token sits (tokens
+    ``0..position-1`` are in the cache). Returns ``(out, cache_k,
+    cache_v)``: the caches are updated **in place** and returned.
+
+    The reference's step, op for op: RoPE at ``position``; the new K/V
+    written at ``min(position, Skv - 1)``, the clamp of its
+    ``dynamic_update_slice`` (past the end it overwrites the last entry,
+    while RoPE keeps the unclamped position); grouped scores ``(B, KV,
+    rep, Skv)`` in f32 from the working-dtype operands, times
+    ``1/sqrt(hd)``; -1e30 where ``arange(Skv) > position``; the softmax
+    normalised in f32 *before* the weights are cast to the cache's dtype
+    (the training attention divides after its value product), then the
+    value product in f32 and the output cast to ``x.dtype``."""
+    B, Skv = x.shape[0], cache_k.shape[1]
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    q, k_new, v_new = _project_qkv(x, p, cfg)                    # q (B,1,H,hd)
+    if rope:
+        pos = torch.full((B, 1), position, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    at = min(position, Skv - 1)
+    cache_k[:, at] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, at] = v_new[:, 0].to(cache_v.dtype)
+    qg = q.reshape(B, KV, cfg.n_heads // KV, hd).to(torch.float32)
+    s = qg @ cache_k.to(torch.float32).permute(0, 2, 3, 1)        # (B,KV,rep,Skv)
+    s = s * (1.0 / math.sqrt(hd))
+    s = s.masked_fill(torch.arange(Skv, device=x.device) > position, -1e30)
+    w = torch.softmax(s, dim=-1).to(cache_v.dtype)
+    o = w.to(torch.float32) @ cache_v.to(torch.float32).transpose(1, 2)
+    return o.to(x.dtype).reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
 
 
 # ----------------------------------------------------------------------

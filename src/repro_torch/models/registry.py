@@ -4,6 +4,9 @@
   params = api.init(seed, device)                  # ParamTree
   loss, metrics = api.loss(params.tree(), batch, remat="none",
                            ep_exchange=None)
+  logits, cache = api.prefill(tree, batch, max_len)
+  logits, cache = api.decode(tree, token, cache, position)
+  cache = api.init_cache(tree, batch_size, max_len)
 """
 
 from __future__ import annotations
@@ -20,13 +23,25 @@ class ModelAPI:
     cfg: ModelConfig
     init: Callable
     loss: Callable
+    prefill: Callable
+    decode: Callable
+    init_cache: Callable
 
 
 def model_api(cfg: ModelConfig) -> ModelAPI:
     T._require_ported(cfg)
+
+    def _prefill(tree, batch, max_len):
+        return T.lm_prefill(tree, cfg, batch["tokens"], max_len,
+                            vis_embed=batch.get("vis_embed"))
+
     return ModelAPI(
         cfg=cfg,
         init=lambda seed, device="cuda": T.init_lm(seed, cfg, device),
         loss=lambda tree, batch, remat="none", ep_exchange=None: T.lm_loss(
             tree, cfg, batch, remat=remat, ep_exchange=ep_exchange),
+        prefill=_prefill,
+        decode=lambda tree, tok, cache, pos: T.lm_decode(tree, cfg, tok, cache,
+                                                         pos),
+        init_cache=lambda tree, b, s: T.init_cache(tree, cfg, b, s),
     )

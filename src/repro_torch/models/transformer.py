@@ -6,9 +6,16 @@ every layer is the SwiGLU MLP, or with ``cfg.moe`` set the MoE layer
 (``layers.moe_ffn``), whose load-balance losses ``lm_hidden`` sums.
 Entry points:
 
-  init_lm(seed, cfg, device)          -> ParamTree
-  lm_hidden(tree, cfg, tokens, ...)   -> (x, aux)
-  lm_loss(tree, cfg, batch, ...)      -> (loss, metrics)
+  init_lm(seed, cfg, device)                  -> ParamTree
+  lm_hidden(tree, cfg, tokens, ...)           -> (x, aux)
+  lm_loss(tree, cfg, batch, ...)              -> (loss, metrics)
+  init_cache(tree, cfg, batch, max_len)       -> cache
+  lm_prefill(tree, cfg, tokens, max_len)      -> (logits_last, cache)
+  lm_decode(tree, cfg, token, cache, position) -> (logits, cache)
+
+The serving functions run no autograd (call them under
+``torch.inference_mode()``, as ``serve.engine`` does) and no remat;
+``lm_decode`` updates the cache in place.
 
 ``ep_exchange`` (the expert-parallel combine wire, from
 ``core.aggregators.make_exchange``) reaches every MoE layer. ``remat``
@@ -74,23 +81,36 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda") -> ParamTree:
     return ParamTree(params)
 
 
-def _apply_ffn(x, p, cfg: ModelConfig, ep_exchange=None):
-    """Post-attention FFN (dense or MoE). x: (B, S, D) -> (out, aux)."""
+def _apply_ffn(x, p, cfg: ModelConfig, decode: bool = False,
+               ep_exchange=None):
+    """Post-attention FFN (dense or MoE). x: (B, S, D) -> (out, aux).
+    ``decode``: the MoE layer routes at ``capacity_factor_decode`` with no
+    exchange, as the reference's decode does."""
     B, S, D = x.shape
     if "moe" in p:
+        cf = cfg.moe.capacity_factor_decode if decode else None
         out, aux = L.moe_ffn(x.reshape(B * S, D), p["moe"], cfg.moe,
-                             ep_exchange=ep_exchange)
+                             capacity_factor=cf,
+                             ep_exchange=None if decode else ep_exchange)
         return out.reshape(B, S, D), aux
     return L.mlp(x, p["ffn"]), torch.zeros((), dtype=torch.float32,
                                            device=x.device)
 
 
 def _attn_block(x, p, cfg: ModelConfig, positions, ep_exchange=None):
+    """One layer -> (x, aux, (k, v)): the layer's K (after RoPE) and V
+    for prefill's cache."""
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + L.attention_train(h, p["attn"], cfg, positions=positions)
+    o, kv = L.attention_train(h, p["attn"], cfg, positions=positions)
+    x = x + o
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     ff, aux = _apply_ffn(h, p, cfg, ep_exchange=ep_exchange)
-    return x + ff, aux
+    return x + ff, aux, kv
+
+
+def _unembed(tree: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
+    return L.mask_padded_vocab((x @ head).to(torch.float32), cfg)
 
 
 def _layer(stacked: Dict, i: int) -> Dict:
@@ -167,13 +187,14 @@ def lm_hidden(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         p = _layer(tree["layers"], i)
         if remat == "none":
-            x, a = _attn_block(x, p, cfg, positions, ep_exchange=ep_exchange)
+            x, a, _ = _attn_block(x, p, cfg, positions,
+                                  ep_exchange=ep_exchange)
         else:
             rm = _Remat(remat)
 
             def block(x, p=p, rm=rm):
                 ex = None if rm.recomputing else ep_exchange
-                return _attn_block(x, p, cfg, positions, ep_exchange=ex)
+                return _attn_block(x, p, cfg, positions, ep_exchange=ex)[:2]
 
             x, a = ckpt_lib.checkpoint(block, x, use_reentrant=False,
                                        context_fn=rm.context_fn)
@@ -188,11 +209,71 @@ def lm_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     terms; ``ep_exchange`` as in :func:`lm_hidden`."""
     x, aux = lm_hidden(tree, cfg, batch["tokens"], remat=remat,
                        ep_exchange=ep_exchange)
-    head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
-    logits = L.mask_padded_vocab((x @ head).to(torch.float32), cfg)
+    logits = _unembed(tree, cfg, x)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
     nll = (lse - ll).mean()
     zloss = 1e-4 * lse.square().mean()
     loss = nll + zloss + 0.01 * aux
     return loss, {"nll": nll, "aux": aux, "zloss": zloss}
+
+
+# ----------------------------------------------------------------------
+# Serving: prefill + decode with a KV cache
+# ----------------------------------------------------------------------
+
+def init_cache(tree: Dict, cfg: ModelConfig, batch: int, max_len: int
+               ) -> Dict[str, torch.Tensor]:
+    """The decode cache: ``{"k", "v"}`` of shape ``(L, B, max_len, KV,
+    hd)``, zeros in ``cfg.activation_dtype`` on the params' device."""
+    _require_ported(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dt, dev = cfg.activation_dtype, tree["embed"].device
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def lm_prefill(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+               max_len: int | None = None, vis_embed=None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the whole prompt -> (logits of the last position ``(B, V)``
+    f32, the cache). Each layer is the training block, whose K (after
+    RoPE) and V go into a cache of ``max(max_len, S)`` positions, zero
+    past the prompt, as the reference's padded scan output. Only the
+    last position is unembedded."""
+    _require_ported(cfg)
+    if vis_embed is not None:
+        raise NotImplementedError("vis_embed: the vlm family is not ported")
+    B, S = tokens.shape
+    cache = init_cache(tree, cfg, B, max(max_len or S, S))
+    x = tree["embed"][tokens]
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    for i in range(cfg.n_layers):
+        x, _, (k, v) = _attn_block(x, _layer(tree["layers"], i), cfg,
+                                   positions)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    x = L.rmsnorm(x[:, -1:], tree["final_norm"], cfg.norm_eps)
+    return _unembed(tree, cfg, x)[:, 0], cache
+
+
+def lm_decode(tree: Dict, cfg: ModelConfig, token: torch.Tensor,
+              cache: Dict[str, torch.Tensor], position: int
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step. token: (B,) ids; ``position`` (an int): tokens
+    ``0..position-1`` are in the cache. Returns ``(logits (B, V) f32,
+    cache)``, the cache updated in place (``layers.attention_decode``,
+    whose write clamps at the cache's end). The MoE layers route at
+    ``capacity_factor_decode``."""
+    _require_ported(cfg)
+    x = tree["embed"][token[:, None]]
+    for i in range(cfg.n_layers):
+        p = _layer(tree["layers"], i)
+        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        o, _, _ = L.attention_decode(h, p["attn"], cfg, cache["k"][i],
+                                     cache["v"][i], position)
+        x = x + o
+        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + _apply_ffn(h, p, cfg, decode=True)[0]
+    x = L.rmsnorm(x, tree["final_norm"], cfg.norm_eps)
+    return _unembed(tree, cfg, x)[:, 0], cache

@@ -678,10 +678,16 @@ def test_serve_launcher_elastic_rounds(capsys, wire):
     assert lines[3] == "elastic: 3 rounds, 14 payloads accounted (0 lost)"
 
 
-def test_serve_launcher_refuses_the_serving_modes():
+def test_serve_launcher_runs_the_batch_mode(capsys):
+    """Without ``--elastic`` the launcher serves: batch generation at the
+    reference's defaults, and no elastic round."""
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="items 2 and 5"):
-        main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu"])
+    out = main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu",
+                "--batch", "2", "--max-new", "4"])
+    assert out.shape == (2, 4) and out.dtype == np.int32
+    text = capsys.readouterr().out
+    assert text.startswith("batch generate: (2, 4) tokens in ")
+    assert "round " not in text and "elastic:" not in text
 
 
 def test_serve_launcher_round_hooks_see_each_round():
