@@ -343,10 +343,47 @@ read 0 just after.
     67 tokens within atol 2e-3; granite-3-2b, and deepseek-moe-16b with
     both capacity factors E / K (no token drops).
 
+The ssm, hybrid and vlm families (after phase 36, its memory freed):
+
+37. ssm_train — mamba2-1.3b at its published widths (d_model 2048,
+    d_inner 4096, 64 heads of 64, d_state 128, chunk 256, vocab 50280,
+    tied embedding), depth 48 -> 12, bf16, trained as phase 4 (W=2,
+    global batch 8 x 1024, ``compressed`` at ratio 0.1 and top-k 4%,
+    AdamW with ZeRO-1, ``block`` remat: one Mamba2 layer a unit), one
+    warm-up and three timed steps; rows 1 / 2 launched W / 1 times a step.
+    Then rows 1 and 2 against their plain versions on the stream the next
+    step would send (each worker's producer, the consumer on their sum
+    and OR; phase 3's tolerance), and step 0 again from the same init
+    under ``use_pallas="never"``: no kernel launched, the parameters equal
+    the kernels' step 0 bit for bit. Prints step ms, peak memory, the
+    launches, buckets and blocks a step, the parameter sha256 after every
+    step.
+38. vlm_train — internvl2-2b likewise at its published widths (d_model
+    2048, 16 / 8 heads, d_ff 8192, vocab 92553), depth 24 -> 4, each row
+    256 visual tokens from ``batch_fn`` before its 1024 text tokens, the
+    loss over the text positions only.
+39. ssm_serve — mamba2-1.3b whole (48 layers) through phase 34's
+    ``serve_model``: ``generate`` on 8 prompts of 512 tokens, 64 new; the
+    batcher over 16 requests in 8 slots (the batch is axis 1 of every
+    cache leaf); the logit checks and the batch-1 check; the decode bound
+    counts the weights and the whole decode cache (the f32 Mamba states).
+40. hybrid_serve — jamba-v0.1-52b at full width, depth 32 -> 8 (one
+    superblock: one attention, seven Mamba2 layers, four MoE FFNs of 16
+    experts of d_ff 14336, ~13.3 B parameters), ``generate`` and the
+    decode/prefill check as phase 39; no batcher, whose splice
+    broadcasts over the superblock's Mamba positions and raises at this
+    period, as the reference's.
+
+Each phase's wall seconds follow it on a ``phase_seconds`` line, and all
+of them together (``phase_seconds_all``) precede the kernels line. To
+keep the script well inside its time limit, ``dist_train`` and
+``dist_rs`` run two steps an arm (``DIST_STEPS``: a warm-up and a timed
+step), held to the first two steps of their emulations.
+
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path (the ``auto``
-phases' and the MoE trains' too), ``dist_train``'s, ``dist_rs``'s,
+phases', the MoE trains' and phases 37-38's too), ``dist_train``'s, ``dist_rs``'s,
 ``dist_auto``'s and ``dist_a2a``'s summed over the ranks, rows 1 and 2
 with their ``kernels_a2a`` times under ``a2a``, rows 1, 2 and 4 with
 their ``kernels_elastic`` times under ``elastic`` and every row's
@@ -1685,6 +1722,8 @@ def phase_bloom_lossless(mcfg, dev):
 
 
 DIST_TIMEOUT = 600       # seconds the dist_train ranks may take in all
+DIST_STEPS = 2           # steps of each dist_train / dist_rs arm: one warm-up,
+                         # one timed (the emulated phases run STEPS)
 PROBE_TIMEOUT = 90       # seconds a backend probe's ranks may take
 
 
@@ -1849,7 +1888,7 @@ def dist_rank(group, dev):
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
         res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
-                           steps=STEPS, device=dev, params=params,
+                           steps=DIST_STEPS, device=dev, params=params,
                            log_every=1, log_fn=after_step, group=log)
         launches = dict(ops.LAUNCHES)
         arm = {"losses": res.losses, "digests": digests, "launches": launches,
@@ -1929,7 +1968,7 @@ def phase_dist_train(emulated_losses):
     outs = spawn_ranks(dist_rank, WORKERS, device="cuda", timeout=DIST_TIMEOUT)
     wall = time.perf_counter() - t0
     want = dict.fromkeys(outs[0]["arms"]["compressed"]["launches"], 0)
-    want.update(encode_pack_quantize=STEPS, dequant_peel_unpack=STEPS)
+    want.update(encode_pack_quantize=DIST_STEPS, dequant_peel_unpack=DIST_STEPS)
     arms = {}
     for name in ("compressed", "dense"):
         per = [o["arms"][name] for o in outs]
@@ -1941,7 +1980,7 @@ def phase_dist_train(emulated_losses):
             if not all(map(math.isfinite, a["losses"])):
                 raise AssertionError(f"rank {r} {name}: non-finite loss")
         if any(a["digests"] != per[0]["digests"] for a in per) or \
-                len(per[0]["digests"]) != STEPS:
+                len(per[0]["digests"]) != DIST_STEPS:
             raise AssertionError(f"{name}: parameter digests differ across ranks")
         if any(a["losses"] != per[0]["losses"] for a in per):
             raise AssertionError(f"{name}: ranks report different losses")
@@ -1968,6 +2007,7 @@ def phase_dist_train(emulated_losses):
         if not o["arms"]["compressed"]["or_check"]["equal_to_all_gather_or"]:
             raise AssertionError(f"rank {r}: OR all-reduce differs from "
                                  "all_gather + OR")
+    emulated_losses = emulated_losses[:DIST_STEPS]
     rel = [abs(a - b) / abs(b) for a, b in zip(comp["losses"], emulated_losses)]
     if max(rel) > 1e-3:
         raise AssertionError(f"dist losses {comp['losses']} vs emulated "
@@ -1979,7 +2019,7 @@ def phase_dist_train(emulated_losses):
         first_loss_equal_to_emulated=comp["losses"][0] == emulated_losses[0])
     line = {"phase": "dist_train", "arch": "granite-3-2b", "layers": LAYERS,
             "workers": WORKERS, "procs": WORKERS, "global_batch": BATCH,
-            "seq_len": SEQ, "steps": STEPS, "warmup_steps": 1,
+            "seq_len": SEQ, "steps": DIST_STEPS, "warmup_steps": 1,
             "backend": outs[0]["backend"], "staging": outs[0]["staging"],
             "devices": [o["device"] for o in outs],
             "wall_s": wall, "arms": arms,
@@ -2287,7 +2327,7 @@ def dist_rs_rank(group, dev, shapes_dtypes):
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
         res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
-                           steps=STEPS, device=dev, params=params,
+                           steps=DIST_STEPS, device=dev, params=params,
                            log_every=1, log_fn=after_step, group=log)
         arm = {"losses": res.losses, "digests": digests,
                "launches": dict(ops.LAUNCHES),
@@ -2387,9 +2427,10 @@ def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes):
     # a rank runs its own worker's producers; on the reduce-scatter wire
     # it peels its own half, on the all-reduce wire the whole stream
     emulated = {"rs_zero1": (rs_arms["oneshot"], {
-                    "encode_pack_quantize": STEPS, "dequant_peel_unpack": STEPS}),
-                "overlap": (train, {"encode_pack_quantize": n_chunks * STEPS,
-                                    "dequant_peel_unpack": STEPS})}
+                    "encode_pack_quantize": DIST_STEPS,
+                    "dequant_peel_unpack": DIST_STEPS}),
+                "overlap": (train, {"encode_pack_quantize": n_chunks * DIST_STEPS,
+                                    "dequant_peel_unpack": DIST_STEPS})}
     arms, launches = {}, {}
     for name, (emu, want) in emulated.items():
         per = [o["arms"][name] for o in outs]
@@ -2398,14 +2439,15 @@ def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes):
             if a["launches"] != want:
                 raise AssertionError(f"rank {r} {name}: launch counts "
                                      f"{a['launches']}, expected {want}")
-            if a["digests"] != emu["param_sha256_by_step"]:
+            if a["digests"] != emu["param_sha256_by_step"][:DIST_STEPS]:
                 raise AssertionError(f"rank {r} {name}: parameters differ from "
                                      "the emulated run")
             if a["losses"] != per[0]["losses"]:
                 raise AssertionError(f"{name}: ranks report different losses")
         launches[name] = {k: sum(a["launches"][k] for a in per) for k in want}
         arms[name] = {
-            "losses": per[0]["losses"], "emulated_losses": emu["losses"],
+            "losses": per[0]["losses"],
+            "emulated_losses": emu["losses"][:DIST_STEPS],
             "step_ms_by_rank": [a["step_ms"] for a in per],
             "warmup_ms_by_rank": [a["warmup_ms"] for a in per],
             "collectives_ms_median_by_op_by_rank": [
@@ -2431,7 +2473,7 @@ def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes):
             raise AssertionError("gather skip fired at the full-width geometry")
     emit({"phase": "dist_rs", "arch": "granite-3-2b", "layers": LAYERS,
           "workers": WORKERS, "procs": WORKERS, "global_batch": BATCH,
-          "seq_len": SEQ, "steps": STEPS, "warmup_steps": 1,
+          "seq_len": SEQ, "steps": DIST_STEPS, "warmup_steps": 1,
           "backend": outs[0]["backend"], "staging": outs[0]["staging"],
           "devices": [o["device"] for o in outs], "wall_s": wall, "arms": arms,
           "gloo_reduce_scatter_tensor": [o["gloo_reduce_scatter_tensor"]
@@ -3929,7 +3971,8 @@ def phase_dist_ckpt(dev, train):
 
 
 SERVE_BATCH, SERVE_PROMPT = 8, 512      # batch generate: 8 prompts of 512
-SERVE_NEW = {"granite-3-2b": 64, "deepseek-moe-16b": 32}
+SERVE_NEW = {"granite-3-2b": 64, "deepseek-moe-16b": 32, "mamba2-1.3b": 64,
+             "jamba-v0.1-52b": 64}
 SERVE_REQUESTS = 16                     # continuous: 2 x batch requests
 CONSISTENCY_LAYERS, CONSISTENCY_B, CONSISTENCY_S = 4, 2, 64
 
@@ -4076,7 +4119,7 @@ def profile_decode(eng, prompts, steps=4):
 # wave 0.035. Each bound is 2.5x or more above its reading and a tenth
 # or less of the logits' max, the order of the error that a wrong slot
 # or position gives.
-SERVE_LOGITS_ATOL = {
+ATTN_LOGITS_ATOL = {
     # decode of the prompt's last 3 tokens vs the prefill of all of them
     "consistency": 0.25,
     # the batcher's slots vs generate's rows (first wave, B = 8 both),
@@ -4084,6 +4127,22 @@ SERVE_LOGITS_ATOL = {
     "batcher_vs_generate": 0.125,
     "batcher_vs_batch1": 0.125,
 }
+# Phases 39-40 (mamba2-1.3b whole, jamba-v0.1-52b one superblock): the
+# same checks. The decode recurrence and the prefill's chunked scan sum
+# the state in different orders in f32, and each layer's output rounds
+# to bf16 before the next. Read on an H100 80GB HBM3 at 700 W, the same
+# in two runs, with the logits' max |logit| 2.8-3.6: mamba2 decode vs
+# prefill 0.088, the first wave 0.0, the second wave 0.072; jamba decode
+# vs prefill 0.176 (its MoE layers at E / K, no token dropped). Each
+# bound is 2.8x or more above its reading and a sixth or less of the
+# logits' max.
+SSM_LOGITS_ATOL = {"consistency": 0.25, "batcher_vs_generate": 0.125,
+                   "batcher_vs_batch1": 0.25}
+HYBRID_LOGITS_ATOL = {"consistency": 0.5}
+SERVE_LOGITS_ATOL = {"granite-3-2b": ATTN_LOGITS_ATOL,
+                     "deepseek-moe-16b": ATTN_LOGITS_ATOL,
+                     "mamba2-1.3b": SSM_LOGITS_ATOL,
+                     "jamba-v0.1-52b": HYBRID_LOGITS_ATOL}
 
 
 def no_drop(cfg):
@@ -4156,13 +4215,24 @@ def batcher_checks(eng, one, prompts, gen_clock, cont_clock, done, max_new):
                                   for c in cont)}
 
 
-def serve_model(dev, arch_name, phase, continuous):
-    """Phases 34-35: ``arch_name`` at full width and full depth, bf16,
-    random weights from seed 0, served through ``ServeEngine.generate``
-    (and with ``continuous`` the ``ContinuousBatcher``), the launch
-    counters zeroed just before and read just after; then, not counted,
-    generate again (timed, keeping its logits), the logit checks, the
-    profiled decode and the batch-1 check."""
+def cache_bytes(api, params, batch, max_len):
+    """Bytes of the decode cache at ``batch`` x ``max_len``: K/V, and the
+    Mamba layers' f32 states (read and written whole a step)."""
+    from repro_torch.models.params import flatten_tree
+    cache = api.init_cache(params.tree(), batch, max_len)
+    n = sum(t.numel() * t.element_size() for _, t in flatten_tree(cache))
+    del cache
+    return n
+
+
+def serve_model(dev, arch_name, phase, continuous, layers=None):
+    """Phases 34-35, 39-40: ``arch_name`` at full width and full depth
+    (``layers`` cuts it), bf16, random weights from seed 0, served
+    through ``ServeEngine.generate`` (and with ``continuous`` the
+    ``ContinuousBatcher``), the launch counters zeroed just before and
+    read just after; then, not counted, generate again (timed, keeping
+    its logits), the logit checks (bounds ``SERVE_LOGITS_ATOL`` by arch),
+    the profiled decode and the batch-1 check."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -4175,6 +4245,8 @@ def serve_model(dev, arch_name, phase, continuous):
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = get_arch(arch_name).model
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     api = model_api(cfg)
     t0 = time.perf_counter()
     params = api.init(0, dev)
@@ -4183,16 +4255,15 @@ def serve_model(dev, arch_name, phase, continuous):
     leaves = params.leaves()
     n_params = sum(p.numel() for p in leaves)
     w_bytes = sum(p.numel() * p.element_size() for p in leaves)
-    emit({"phase": f"{phase}/init", "arch": arch_name, "params": n_params,
+    emit({"phase": f"{phase}/init", "arch": arch_name,
+          "layers": cfg.n_layers, "params": n_params,
           "weight_bytes": w_bytes, "allocated_before_bytes": before,
           "init_s": init_s,
           "init_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
     max_new = SERVE_NEW[arch_name]
     max_len = SERVE_PROMPT + max_new + 8
     B = SERVE_BATCH
-    kv_token = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd
-                * torch.finfo(cfg.activation_dtype).bits // 8)
-    kv_bytes = kv_token * B * max_len
+    kv_bytes = cache_bytes(api, params, B, max_len)
     torch.cuda.reset_peak_memory_stats(dev)
     eng = ServeEngine(api, params, max_len=max_len, batch=B)
     prompts = np.random.default_rng(0).integers(
@@ -4233,7 +4304,12 @@ def serve_model(dev, arch_name, phase, continuous):
     res = {"phase": phase, "arch": arch_name, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": str(cfg.activation_dtype),
            "params": n_params, "weight_bytes": w_bytes,
-           "kv_bytes_per_token": kv_token, "kv_cache_bytes": kv_bytes,
+           "reduced": ({"n_layers": f"{get_arch(arch_name).model.n_layers}"
+                                    f" -> {cfg.n_layers}"} if layers else {}),
+           "family": cfg.family,
+           # the decode cache: K/V (zero past the prompt until written)
+           # and the Mamba layers' f32 states
+           "cache_bytes": kv_bytes,
            "batch": B, "prompt_len": SERVE_PROMPT, "max_new": max_new,
            "max_len": max_len, "generate_s": gen_s,
            "tokens_per_s": out.size / gen_s,
@@ -4249,7 +4325,7 @@ def serve_model(dev, arch_name, phase, continuous):
            "consistency": consistency,
            "decode_profile": prof, "launches": launches,
            "first_row": out[0][:16].tolist()}
-    bounds = SERVE_LOGITS_ATOL
+    bounds = SERVE_LOGITS_ATOL[arch_name]
     ok = res["deterministic"] and \
         consistency["max_abs_err"] <= bounds["consistency"]
     if continuous:
@@ -4338,6 +4414,154 @@ def phase_serve_consistency(dev):
     return launches
 
 
+# ----------------------------------------------------------------------
+# The ssm, hybrid and vlm families
+# ----------------------------------------------------------------------
+
+SSM_ARCH, SSM_TRAIN_LAYERS = "mamba2-1.3b", 12
+VLM_ARCH, VLM_TRAIN_LAYERS = "internvl2-2b", 4
+HYBRID_ARCH, HYBRID_SERVE_LAYERS = "jamba-v0.1-52b", 8    # one superblock
+
+
+def stream_check(api, tc, state, check, dev):
+    """Rows 1 and 2 against their plain versions on the stream the next
+    train step would send: each worker's gradients on its rows of batch
+    ``STEPS`` at the trained state, top-k with the state's residual rows,
+    packed into the bucket stream; the producer on each worker's stream,
+    the consumer on the sum and OR of their payloads, each launched once
+    on the whole stream as the step launches it, held to phase 3's
+    tolerance (Gaussian-like values; words and residual exactly). The
+    moments are dropped first (the check needs the parameters and the
+    residuals).
+    Returns the blocks, each worker's and the aggregate's non-zeros, the
+    estimated count and the kernels' output digests."""
+    import torch
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.aggregators import sparsify_leaf
+    from repro_torch.core.blocks import make_plan, to_blocks
+    from repro_torch.core.bucketing import make_bucket_plan
+    from repro_torch.core.collectives import LocalWorkers
+    from repro_torch.data.pipeline import batch_fn
+    from repro_torch.train.loop import device_batch
+
+    cfg, W = tc.compression, tc.workers
+    state.opt.clear()
+    torch.cuda.empty_cache()
+    leaves = state.params.leaves()
+    batch = device_batch(batch_fn(api.cfg, BATCH, SEQ, seed=tc.seed)(STEPS), dev)
+    per = BATCH // W
+    group = LocalWorkers(W)
+    payloads, nnz_w = [], []
+    for w in range(W):
+        rows = {k: v[w * per:(w + 1) * per] for k, v in batch.items()}
+        loss, _ = api.loss(state.params.tree(), rows, remat=tc.remat)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            plan = make_bucket_plan(grads, cfg)
+            stream = plan.pack_flat([
+                sparsify_leaf(g.reshape(-1).float(), r[w], cfg)[0]
+                for g, r in zip(grads, state.residual)]).reshape(-1)
+            del grads
+            lp = make_plan(stream.numel(), cfg)
+            xb = to_blocks(stream, lp)
+            ids = torch.arange(lp.nb, dtype=torch.int32, device=dev)
+            nnz_w.append(int((xb != 0).sum()))
+            payloads.append(check.producer(xb, ids, cfg, False))
+            del stream, xb
+    with torch.no_grad():
+        sk = group.sum([p[0] for p in payloads])
+        words = group.bor([p[1] for p in payloads])
+        enc = [digest(*p) for p in payloads]
+        del payloads
+        values, res = check.consumer(sk, words, ids, cfg, False)
+        nnz = int(index_lib.popcount(words))
+        out = {"blocks": lp.nb, "worker_nnz": nnz_w, "aggregate_nnz": nnz,
+               "estimated": int(res.sum()),
+               "sha256_sketch_words_maxabs": enc,
+               "sha256_values_residual": digest(values, res),
+               "agree": True}
+    del sk, words, values, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def plain_replay(api, tc, dev, want_digest, want_loss):
+    """Step 0 of the train again from the same init under
+    ``use_pallas="never"`` (the plain versions of rows 1 and 2 on the
+    card): no kernel may launch, and the parameters after the step must
+    equal the kernels' run's bit for bit (``want_digest``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import run_training
+
+    never = dataclasses.replace(tc, compression=dataclasses.replace(
+        tc.compression, use_pallas="never"))
+    params = api.init(tc.seed, dev)
+    zero_launches()
+    res = run_training(api, never, global_batch=BATCH, seq_len=SEQ, steps=1,
+                       device=dev, params=params, log_every=0)
+    launches = dict(ops.LAUNCHES)
+    got = param_digest(params)
+    out = {"launches": launches, "loss": res.losses[0],
+           "loss_equal": res.losses[0] == want_loss,
+           "param_sha256": got, "digest_equal": got == want_digest}
+    del params, res
+    torch.cuda.empty_cache()
+    if any(launches.values()):
+        raise AssertionError(f"plain replay launched a kernel: {launches}")
+    return out
+
+
+def phase_family_train(dev, check, phase, arch_name, layers):
+    """Phases 37-38: ``arch_name`` at its published widths, depth cut to
+    ``layers``, bf16, trained as phase 4 (W=2 emulated, global batch 8 x
+    1024 tokens, plus the vlm's 256 visual tokens a row, the arch's
+    ``compressed`` wire at ratio 0.1 and top-k 4%, AdamW with ZeRO-1, the
+    ``block`` remat default, one warm-up and three timed steps): the
+    producer W times and the consumer once a step (``phase_train``
+    holds the counts). Then rows 1 and 2 against their plain versions on
+    the next step's stream (``stream_check``) and step 0 replayed under
+    ``use_pallas="never"`` (``plain_replay``), bit for bit."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    line, launches, api, tc, state = phase_train(
+        dev, phase=phase, arch_name=arch_name, layers=layers, emit_line=False)
+    cfg, n = tc.compression, line["params"]
+    line["buckets_per_step"] = cfg.num_buckets(n)
+    line["blocks_per_step"] = (cfg.num_buckets(n) * cfg.bucket_elems_for(n)
+                               // cfg.block_elems)
+    line["remat"] = tc.remat
+    if api.cfg.family == "vlm":
+        line["vis_tokens"] = api.cfg.vis_tokens
+    line["stream_check"] = stream_check(api, tc, state, check, dev)
+    del state
+    torch.cuda.empty_cache()
+    line["plain_replay"] = plain_replay(api, tc, dev,
+                                        line["param_sha256_by_step"][0],
+                                        line["losses"][0])
+    line["final_param_sha256"] = line["param_sha256_by_step"][-1]
+    line["wall_s"] = time.perf_counter() - t0
+    emit(line)
+    if not line["plain_replay"]["digest_equal"]:
+        raise AssertionError(f"{phase}: step 0 under use_pallas='never' "
+                             "differs from the kernels' step 0")
+    return launches
+
+
+PHASE_SECONDS = {}      # wall seconds of each phase (or group), in order
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept under ``name`` and
+    printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    emit({"phase_seconds": name, "seconds": PHASE_SECONDS[name]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4346,6 +4570,7 @@ def main() -> int:
     from repro_torch.core.config import CompressionConfig
     from repro_torch.kernels import build
 
+    t_main = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4356,88 +4581,109 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load_all()     # one nvcc a source, all started together
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": PHASE_SECONDS["build"],
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_LOG.items()}})
 
     cfg = CompressionConfig(ratio=0.1, topk_ratio=0.04)
     bloom_fields = {"index": "bloom", "topk_ratio": 0.001}
     cfg_bloom = dataclasses.replace(cfg, **bloom_fields)
     check = Checker()
-    phase_kernels(cfg, dev, check)
-    phase_kernels_q(cfg, dev, check)
-    phase_kernels_std(cfg_bloom, dev, check)
-    a2a = phase_kernels_a2a(dev, check)
+    timed("kernels", phase_kernels, cfg, dev, check)
+    timed("kernels_q", phase_kernels_q, cfg, dev, check)
+    timed("kernels_std", phase_kernels_std, cfg_bloom, dev, check)
+    a2a = timed("kernels_a2a", phase_kernels_a2a, dev, check)
     torch.cuda.empty_cache()
 
-    train, launches, api, tc, state = phase_train(dev)
+    train, launches, api, tc, state = timed("train", phase_train, dev)
     shapes_dtypes = [(tuple(p.shape), p.dtype) for p in state.params.leaves()]
-    consumer_ms = phase_breakdown(api, tc, state, train["step_ms"], dev)[
-        "stages_ms"]["consumer"]["per_call"]
+    consumer_ms = timed("breakdown", phase_breakdown, api, tc, state,
+                        train["step_ms"], dev)["stages_ms"]["consumer"]["per_call"]
     del state
     torch.cuda.empty_cache()
-    innet, launches_innet, _, tc_innet, state = phase_train(
-        dev, phase="innet_train", wire="fxp32")
-    phase_breakdown(api, tc_innet, state, innet["step_ms"], dev,
-                    phase="innet_breakdown")
+    innet, launches_innet, _, tc_innet, state = timed(
+        "innet_train", phase_train, dev, phase="innet_train", wire="fxp32")
+    timed("innet_breakdown", phase_breakdown, api, tc_innet, state,
+          innet["step_ms"], dev, phase="innet_breakdown")
     del state
     torch.cuda.empty_cache()
-    bloom, launches_bloom, _, tc_bloom, state = phase_train(
-        dev, phase="bloom_train", fields=bloom_fields)
-    phase_breakdown(api, tc_bloom, state, bloom["step_ms"], dev,
-                    phase="bloom_breakdown")
+    bloom, launches_bloom, _, tc_bloom, state = timed(
+        "bloom_train", phase_train, dev, phase="bloom_train", fields=bloom_fields)
+    timed("bloom_breakdown", phase_breakdown, api, tc_bloom, state,
+          bloom["step_ms"], dev, phase="bloom_breakdown")
     del state
     torch.cuda.empty_cache()
-    launches_dist, link = phase_dist_train(train["losses"])
-    launches_stream = phase_stream_train(dev, tc.compression, train, innet,
-                                         shapes_dtypes)
+    launches_dist, link = timed("dist_train", phase_dist_train, train["losses"])
+    launches_stream = timed("stream_train", phase_stream_train, dev,
+                            tc.compression, train, innet, shapes_dtypes)
     torch.cuda.empty_cache()
-    launches_rs, rs_arms = phase_rs_train(dev, tc.compression, train,
-                                          shapes_dtypes, consumer_ms)
+    launches_rs, rs_arms = timed("rs_train", phase_rs_train, dev, tc.compression,
+                                 train, shapes_dtypes, consumer_ms)
     torch.cuda.empty_cache()
-    launches_dist_rs = phase_dist_rs(tc.compression, rs_arms, train,
-                                     shapes_dtypes)
+    launches_dist_rs = timed("dist_rs", phase_dist_rs, tc.compression, rs_arms,
+                             train, shapes_dtypes)
     n = train["params"]
     n_blocks = cfg.num_buckets(n) * cfg.bucket_elems_for(n) // cfg.block_elems
-    recs = phase_main_stream(cfg, dev, n_blocks, check)
-    recs_q, payload = phase_innet_stream(cfg, dev, n, check)
-    phase_switch(payload, cfg.switch_slots)
+    recs = timed("main_stream", phase_main_stream, cfg, dev, n_blocks, check)
+    recs_q, payload = timed("innet_stream", phase_innet_stream, cfg, dev, n,
+                            check)
+    timed("switch", phase_switch, payload, cfg.switch_slots)
     del payload
     torch.cuda.empty_cache()
-    recs += recs_q + phase_bloom_stream(cfg_bloom, dev, n_blocks, check)
+    recs += recs_q + timed("bloom_stream", phase_bloom_stream, cfg_bloom, dev,
+                           n_blocks, check)
     torch.cuda.empty_cache()
     # the codec's rate: the stream's bytes over the mean of the producer's
     # and the consumer's full-stream times (main_stream)
     codec_ms = statistics.mean(r["ms"] for r in recs if r["name"] in (
         "encode_pack_quantize", "dequant_peel_unpack"))
-    launches_auto, auto_digests = phase_auto_train(
-        dev, train, shapes_dtypes,
+    launches_auto, auto_digests = timed(
+        "auto_train", phase_auto_train, dev, train, shapes_dtypes,
         codec_bps=n_blocks * cfg.block_elems * 4 / (codec_ms / 1e3),
         link_bps=link["bytes"] / (link["ms"] / 1e3))
     torch.cuda.empty_cache()
-    launches_dist_auto = phase_dist_auto(
-        cfg.num_buckets(n), auto_digests)
+    launches_dist_auto = timed("dist_auto", phase_dist_auto,
+                               cfg.num_buckets(n), auto_digests)
     torch.cuda.empty_cache()
-    launches_moe, (moe_line, moe_api, moe_tc, state) = phase_moe_train(dev)
-    phase_moe_breakdown(moe_api, moe_tc, state, moe_line["step_ms"], dev)
+    launches_moe, (moe_line, moe_api, moe_tc, state) = timed(
+        "moe_train", phase_moe_train, dev)
+    timed("moe_breakdown", phase_moe_breakdown, moe_api, moe_tc, state,
+          moe_line["step_ms"], dev)
     del state
     torch.cuda.empty_cache()
-    launches_dist_a2a = phase_dist_a2a()
+    launches_dist_a2a = timed("dist_a2a", phase_dist_a2a)
     torch.cuda.empty_cache()
-    elastic_k = phase_kernels_elastic(dev, check, n)
-    launches_elastic = phase_elastic(dev, n)
+    elastic_k = timed("kernels_elastic", phase_kernels_elastic, dev, check, n)
+    launches_elastic = timed("elastic", phase_elastic, dev, n)
     torch.cuda.empty_cache()
-    launches_remat = phase_remat(dev, train, moe_line)
+    launches_remat = timed("remat", phase_remat, dev, train, moe_line)
     torch.cuda.empty_cache()
-    launches_ckpt = phase_ckpt_train(dev, train)
+    launches_ckpt = timed("ckpt_train", phase_ckpt_train, dev, train)
     torch.cuda.empty_cache()
-    launches_dist_ckpt = phase_dist_ckpt(dev, train)
+    launches_dist_ckpt = timed("dist_ckpt", phase_dist_ckpt, dev, train)
     torch.cuda.empty_cache()
-    launches_serve = {"serve": serve_model(dev, "granite-3-2b", "serve", True)}
+    launches_serve = {"serve": timed("serve", serve_model, dev, "granite-3-2b",
+                                     "serve", True)}
     torch.cuda.empty_cache()
-    launches_serve["serve_moe"] = serve_model(dev, "deepseek-moe-16b",
-                                              "serve_moe", False)
+    launches_serve["serve_moe"] = timed("serve_moe", serve_model, dev,
+                                        "deepseek-moe-16b", "serve_moe", False)
     torch.cuda.empty_cache()
-    launches_serve["serve_consistency"] = phase_serve_consistency(dev)
+    launches_serve["serve_consistency"] = timed(
+        "serve_consistency", phase_serve_consistency, dev)
+    torch.cuda.empty_cache()
+    launches_family = {
+        "ssm_train": timed("ssm_train", phase_family_train, dev, check,
+                           "ssm_train", SSM_ARCH, SSM_TRAIN_LAYERS)}
+    launches_family["vlm_train"] = timed(
+        "vlm_train", phase_family_train, dev, check, "vlm_train", VLM_ARCH,
+        VLM_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    launches_serve["ssm_serve"] = timed("ssm_serve", serve_model, dev, SSM_ARCH,
+                                        "ssm_serve", True)
+    torch.cuda.empty_cache()
+    launches_serve["hybrid_serve"] = timed(
+        "hybrid_serve", serve_model, dev, HYBRID_ARCH, "hybrid_serve", False,
+        layers=HYBRID_SERVE_LAYERS)
     torch.cuda.empty_cache()
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the
@@ -4466,6 +4712,7 @@ def main() -> int:
             **{f"elastic/{k}": v[r["name"]] for k, v in launches_elastic.items()},
             **{f"remat/{k}": v[r["name"]] for k, v in launches_remat.items()},
             "ckpt_train": launches_ckpt[r["name"]],
+            **{k: v[r["name"]] for k, v in launches_family.items()},
             **{f"dist_ckpt/{k}": v.get(r["name"], 0)
                for k, v in launches_dist_ckpt.items()},
             **{k: v[r["name"]] for k, v in launches_serve.items()}}
@@ -4473,10 +4720,12 @@ def main() -> int:
             r["a2a"] = a2a[r["name"]]
         if r["name"] in elastic_k:
             r["elastic"] = elastic_k[r["name"]]
-    phase_lossless(api.cfg, tc, dev)
-    phase_innet_lossless(api.cfg, dev)
-    phase_bloom_lossless(api.cfg, dev)
+    timed("lossless", phase_lossless, api.cfg, tc, dev)
+    timed("innet_lossless", phase_innet_lossless, api.cfg, dev)
+    timed("bloom_lossless", phase_bloom_lossless, api.cfg, dev)
 
+    emit({"phase_seconds_all": PHASE_SECONDS,
+          "total_s": time.perf_counter() - t_main})
     emit({"kernels": recs})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

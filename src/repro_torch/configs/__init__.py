@@ -6,8 +6,17 @@ import importlib
 
 from .base import ArchSpec
 
-_MODULES = {"granite-3-2b": "granite_3_2b",
-            "deepseek-moe-16b": "deepseek_moe_16b"}
+# the reference's registry but whisper-tiny (the encdec family, not
+# ported yet)
+_MODULES = {"qwen2-7b": "qwen2_7b",
+            "qwen2.5-3b": "qwen2_5_3b",
+            "qwen1.5-32b": "qwen1_5_32b",
+            "granite-3-2b": "granite_3_2b",
+            "mamba2-1.3b": "mamba2_1_3b",
+            "internvl2-2b": "internvl2_2b",
+            "jamba-v0.1-52b": "jamba_v0_1_52b",
+            "deepseek-moe-16b": "deepseek_moe_16b",
+            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b"}
 
 
 def list_archs():

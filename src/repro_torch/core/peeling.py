@@ -15,7 +15,9 @@ median-of-3 estimate. The loop exits at the fixpoint, after at most
 ``cfg.rounds`` rounds; the CUDA kernels stop each block at its own
 fixpoint (blocks do not interact), and the reference's Pallas kernel
 always runs ``cfg.rounds`` rounds. All give the same result because a
-round that peels nothing changes nothing.
+round that peels nothing changes nothing. A long stream is peeled in
+block ranges (``sketch.block_ranges``), each to its own fixpoint, for
+the same reason.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 
 from .config import CompressionConfig
 from . import hashing
-from .sketch import (device_tables, gather_rows, median3, roll_from_sketch,
-                     roll_to_sketch, scatter_rows)
+from .sketch import (block_ranges, device_tables, gather_rows, median3,
+                     roll_from_sketch, roll_to_sketch, scatter_rows)
 
 
 class PeelResult(NamedTuple):
@@ -40,7 +42,20 @@ class PeelResult(NamedTuple):
 def peel_blocks(sketch: torch.Tensor, bits: torch.Tensor,
                 block_ids: torch.Tensor, cfg: CompressionConfig) -> PeelResult:
     """Recover block values from (sketch (nb,rows,c), bits (nb,G,c) bool,
-    block_ids (nb,))."""
+    block_ids (nb,)), a block range of ``sketch.PASS_ELEMS`` coordinates
+    at a time; ``rounds_used`` is the most any range took."""
+    ranges = block_ranges(bits.shape[0], bits.shape[1] * bits.shape[2])
+    if len(ranges) == 1:
+        return _peel(sketch, bits, block_ids, cfg)
+    parts = [_peel(sketch[sl], bits[sl], block_ids[sl], cfg) for sl in ranges]
+    return PeelResult(values=torch.cat([r.values for r in parts]),
+                      peeled=torch.cat([r.peeled for r in parts]),
+                      residual=torch.cat([r.residual for r in parts]),
+                      rounds_used=max(r.rounds_used for r in parts))
+
+
+def _peel(sketch: torch.Tensor, bits: torch.Tensor, block_ids: torch.Tensor,
+          cfg: CompressionConfig) -> PeelResult:
     rows_flat, signs_t = device_tables(cfg, sketch.device)
     signs = signs_t[None, :, :, None]                                # (1,G,3,1)
     rot = hashing.block_rotations(block_ids, cfg.group, cfg.lanes, cfg.seed)

@@ -23,6 +23,20 @@ import torch
 from .config import CompressionConfig
 from . import hashing
 
+# coordinates one plain encode or peel pass holds at once: the lane
+# gathers materialise (nb, G, 3, c) int64 indices, 3.2 GB at this count,
+# so longer streams go through in block ranges (the reference's jnp path
+# maps over ``cfg.chunk_blocks`` blocks for the same reason); blocks are
+# independent, so the result does not depend on the cut
+PASS_ELEMS = 1 << 27
+
+
+def block_ranges(nb: int, block_elems: int):
+    """Slices of at most ``PASS_ELEMS // block_elems`` blocks covering
+    ``range(nb)``."""
+    per = max(1, PASS_ELEMS // block_elems)
+    return [slice(a, min(a + per, nb)) for a in range(0, nb, per)]
+
 
 def plan_tables(cfg: CompressionConfig) -> Tuple[np.ndarray, np.ndarray]:
     """Static (rows, signs) tables: int32 (G, 3), float32 (G, 3)."""
@@ -88,12 +102,18 @@ def median3(est: torch.Tensor) -> torch.Tensor:
 
 def encode_blocks(xb: torch.Tensor, block_ids: torch.Tensor,
                   cfg: CompressionConfig) -> torch.Tensor:
-    """Count-Sketch encode: (nb,G,c) values -> (nb,rows,c) sketch (f32)."""
+    """Count-Sketch encode: (nb,G,c) values -> (nb,rows,c) sketch (f32),
+    in block ranges of ``PASS_ELEMS`` coordinates."""
     rows_flat, signs = device_tables(cfg, xb.device)
-    rot = hashing.block_rotations(block_ids, cfg.group, cfg.lanes, cfg.seed)
-    contrib = roll_to_sketch(xb.to(torch.float32), rot, cfg.lanes) \
-        * signs[None, :, :, None]
-    return scatter_rows(contrib, rows_flat, cfg.rows)
+    parts = []
+    for sl in block_ranges(xb.shape[0], xb.shape[1] * xb.shape[2]):
+        rot = hashing.block_rotations(block_ids[sl], cfg.group, cfg.lanes,
+                                      cfg.seed)
+        contrib = roll_to_sketch(xb[sl].to(torch.float32), rot, cfg.lanes) \
+            * signs[None, :, :, None]
+        parts.append(scatter_rows(contrib, rows_flat, cfg.rows))
+        del contrib
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def estimate_blocks(sketch: torch.Tensor, block_ids: torch.Tensor,

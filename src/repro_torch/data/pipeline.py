@@ -2,8 +2,9 @@
 
 Every batch is a pure numpy function of ``(seed, step)``, the
 reference's own construction, so the port and the reference train on the
-same tokens, and a restart replays the exact token stream without any
-persisted iterator state.
+same tokens (and, for the vlm family, the same ``vis_embed`` bytes), and
+a restart replays the exact stream without any persisted iterator
+state.
 """
 
 from __future__ import annotations
@@ -20,18 +21,34 @@ from repro_torch.models.config import ModelConfig
 
 def batch_fn(cfg: ModelConfig, global_batch: int, seq_len: int,
              seed: int = 0) -> Callable[[int], Dict[str, np.ndarray]]:
-    """Returns step -> host batch dict (tokens, labels: int32 (B, S))."""
+    """Returns step -> host batch dict: tokens, labels int32 (B, S); for
+    the vlm family also ``vis_embed`` f32 (B, vis_tokens, D), the stub
+    vision frontend's patch embeddings, drawn from the same generator
+    after the tokens."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("family 'encdec' is not ported yet")
 
     def make(step: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(
             np.random.SeedSequence([seed, step, 0xDA7A]))
         toks = rng.integers(0, cfg.vocab, (global_batch, seq_len + 1),
                             dtype=np.int32)
-        if cfg.family in ("encdec", "vlm"):
-            raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "vlm":
+            batch["vis_embed"] = rng.normal(
+                0, 1, (global_batch, cfg.vis_tokens, cfg.d_model)
+            ).astype(np.float32)
+        return batch
 
     return make
+
+
+def host_tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """numpy batch -> CPU tensors: integer arrays (tokens, labels) as
+    int64, float arrays (``vis_embed``) in their own dtype."""
+    return {k: torch.from_numpy(v).to(torch.int64)
+            if np.issubdtype(v.dtype, np.integer) else torch.from_numpy(v)
+            for k, v in batch.items()}
 
 
 class Prefetcher:
@@ -39,8 +56,9 @@ class Prefetcher:
     ``start_step`` on, at most ``depth`` ahead: the reference's class,
     with ``device`` in place of its shardings.
 
-    With ``device`` set, the thread turns each host batch into int64
-    tensors (pinned where ``device`` is a card) and :meth:`__next__`
+    With ``device`` set, the thread turns each host batch into tensors
+    (:func:`host_tensors`: integer arrays as int64, float arrays as
+    they are; pinned where ``device`` is a card) and :meth:`__next__`
     moves them there (``non_blocking``: the copy queues on the current
     stream); without it the items are the host batches themselves."""
 
@@ -57,10 +75,10 @@ class Prefetcher:
     def _host(self, batch: Dict[str, np.ndarray]):
         if self._device is None:
             return batch
-        pin = self._device.type == "cuda"
-        return {k: torch.from_numpy(v).to(torch.int64).pin_memory() if pin
-                else torch.from_numpy(v).to(torch.int64)
-                for k, v in batch.items()}
+        host = host_tensors(batch)
+        if self._device.type == "cuda":
+            host = {k: v.pin_memory() for k, v in host.items()}
+        return host
 
     def _worker(self):
         step = self._step

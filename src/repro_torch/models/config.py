@@ -1,14 +1,14 @@
 """Model architecture configuration.
 
-Field for field the reference's ``ModelConfig`` and ``MoEConfig``. The
-port builds the dense and moe families (``models/transformer.py`` raises
-on the others), so ``ssm`` stays opaque here.
+Field for field the reference's ``ModelConfig``, ``MoEConfig`` and
+``SSMConfig``. The port builds the dense, moe, ssm, hybrid and vlm
+families (``models/transformer.py`` raises on encdec).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
@@ -27,6 +27,21 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    d_conv: int = 4
+    chunk: int = 256              # SSD chunk length
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                   # dense | moe | ssm | hybrid | encdec | vlm
@@ -42,12 +57,12 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
-    ssm: Any = None
-    attn_period: int = 0
-    attn_offset: int = 4
+    ssm: Optional[SSMConfig] = None
+    attn_period: int = 0          # hybrid: 1 attention layer per this many
+    attn_offset: int = 4          # hybrid: position of attn inside a period
     enc_layers: int = 0
     enc_seq: int = 1500
-    vis_tokens: int = 0
+    vis_tokens: int = 0           # vlm: prepended patch-embedding tokens
     q_block: int = 512            # kept for parity; attention is one block
     dtype: str = "bfloat16"
     supports_long_context: bool = False

@@ -1,9 +1,12 @@
-"""Family -> model function dispatch (the dense and moe families).
+"""Family -> model function dispatch: the decoder LM families dense,
+moe, ssm, hybrid and vlm (``models/transformer.py``); encdec raises
+``NotImplementedError``, as it is not ported yet.
 
   api = model_api(cfg)
   params = api.init(seed, device)                  # ParamTree
   loss, metrics = api.loss(params.tree(), batch, remat="none",
-                           ep_exchange=None)
+                           ep_exchange=None)     # batch: tokens, labels
+                                                 # [, vis_embed (vlm)]
   logits, cache = api.prefill(tree, batch, max_len)
   logits, cache = api.decode(tree, token, cache, position)
   cache = api.init_cache(tree, batch_size, max_len)

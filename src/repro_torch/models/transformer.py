@@ -1,9 +1,20 @@
-"""Decoder-only LM, dense and moe families.
+"""Decoder-only LM covering the dense / moe / ssm / hybrid / vlm families.
 
 Layer parameters are stacked on a leading layer axis, as in the
-reference, and the forward walks them with a Python loop. The FFN of
-every layer is the SwiGLU MLP, or with ``cfg.moe`` set the MoE layer
-(``layers.moe_ffn``), whose load-balance losses ``lm_hidden`` sums.
+reference, and the forward walks them with a Python loop:
+
+- dense, moe and vlm: ``layers``, one attention block a layer; the FFN
+  is the SwiGLU MLP, or with ``cfg.moe`` set the MoE layer
+  (``layers.moe_ffn``), whose load-balance losses ``lm_hidden`` sums;
+  vlm prepends ``vis_embed`` (the stub vision frontend's patch
+  embeddings) to the token embeddings, and its loss reads the text
+  positions only;
+- ssm: ``layers``, one Mamba2 mixer a layer (``models/ssm.py``), no FFN;
+- hybrid (jamba): ``superblocks`` of ``attn_period`` layers, keys
+  ``pos0..``: attention at ``attn_offset``, Mamba2 elsewhere, an FFN on
+  every position, MoE where ``pos % every_k_layers == every_k_layers -
+  1``.
+
 Entry points:
 
   init_lm(seed, cfg, device)                  -> ParamTree
@@ -15,7 +26,12 @@ Entry points:
 
 The serving functions run no autograd (call them under
 ``torch.inference_mode()``, as ``serve.engine`` does) and no remat;
-``lm_decode`` updates the cache in place.
+``lm_decode`` updates the cache in place. The caches are the
+reference's trees: ``{"k", "v"}`` of ``(L, B, max_len, KV, hd)`` for the
+attention families, ``{"ssm": {"ssm", "conv"}}`` of ``(L, B, ...)`` for
+ssm, and for hybrid ``{"mamba": {"ssm", "conv"}}`` of ``(n_super,
+attn_period - 1, B, ...)`` beside ``{"kv": {"k", "v"}}`` of ``(n_super,
+B, max_len, KV, hd)``.
 
 ``ep_exchange`` (the expert-parallel combine wire, from
 ``core.aggregators.make_exchange``) reaches every MoE layer. ``remat``
@@ -34,15 +50,16 @@ from torch.utils import checkpoint as ckpt_lib
 from .config import ModelConfig
 from .params import ParamTree
 from . import layers as L
+from . import ssm as S
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 REMAT_POLICIES = ("none", "block", "block_nocse", "dots")
 # products with no batch dims: ``x @ W`` on a 2-D or 3-D ``x`` (folded to
 # 2-D) dispatches to ``aten.mm`` (a forward of the smoke configs, under a
 # dispatch mode: granite 15 ``mm`` and 4 ``bmm``, deepseek 17 and 10);
 # ``aten.addmm`` is a product with its bias fused, which no layer here
 # takes; batched products (attention scores and values, the experts'
-# ``torch.bmm``) dispatch to ``aten.bmm``
+# ``torch.bmm``, the SSD scan's einsums) dispatch to ``aten.bmm``
 _DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -50,7 +67,45 @@ def _require_ported(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: the port runs {list(PORTED_FAMILIES)} "
-            "only (hybrid, ssm, encdec and vlm are not ported yet)")
+            "only (the encdec family, whisper-tiny, is not ported yet)")
+
+
+def _attn_layer_params(gen: torch.Generator, cfg: ModelConfig, lead):
+    """An attention layer's params: ``ln1``, ``attn``, ``ln2`` and the
+    FFN (``moe`` with ``cfg.moe`` set, else ``ffn``)."""
+    dev, D = gen.device, cfg.d_model
+    p = {"ln1": L.init_rmsnorm(D, lead, dev),
+         "attn": L.init_attention(gen, cfg, lead),
+         "ln2": L.init_rmsnorm(D, lead, dev)}
+    if cfg.moe is not None:
+        p["moe"] = L.init_moe(gen, cfg, lead)
+    else:
+        p["ffn"] = L.init_mlp(gen, D, cfg.d_ff, cfg.activation_dtype, lead)
+    return p
+
+
+def _hybrid_superblock_params(gen: torch.Generator, cfg: ModelConfig, lead):
+    """One jamba-style superblock of ``attn_period`` layers (stacked on
+    ``lead``), the reference's ``_init_hybrid_superblock``: attention at
+    ``attn_offset``, Mamba2 elsewhere; an FFN on every position, MoE
+    where ``pos % every_k_layers == every_k_layers - 1`` (jamba's k = 2:
+    the odd positions)."""
+    dev, D = gen.device, cfg.d_model
+    k_moe = cfg.moe.every_k_layers if cfg.moe is not None else 0
+    p: Dict[str, Any] = {}
+    for pos in range(cfg.attn_period):
+        sub: Dict[str, Any] = {"ln1": L.init_rmsnorm(D, lead, dev)}
+        if pos == cfg.attn_offset:
+            sub["attn"] = L.init_attention(gen, cfg, lead)
+        else:
+            sub["mamba"] = S.init_mamba(gen, cfg, lead)
+        sub["ln2"] = L.init_rmsnorm(D, lead, dev)
+        if cfg.moe is not None and pos % k_moe == k_moe - 1:
+            sub["moe"] = L.init_moe(gen, cfg, lead)
+        else:
+            sub["ffn"] = L.init_mlp(gen, D, cfg.d_ff, cfg.activation_dtype, lead)
+        p[f"pos{pos}"] = sub
+    return p
 
 
 def init_lm(seed: int, cfg: ModelConfig, device="cuda") -> ParamTree:
@@ -61,29 +116,32 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda") -> ParamTree:
     _require_ported(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    dt, D, Vp, lead = cfg.activation_dtype, cfg.d_model, cfg.padded_vocab, \
-        (cfg.n_layers,)
+    dt, D, Vp = cfg.activation_dtype, cfg.d_model, cfg.padded_vocab
     params: Dict[str, Any] = {
         "embed": L.dense_init(gen, (Vp, D), D, dt),
         "final_norm": L.init_rmsnorm(D, device=device),
-        "layers": {
-            "ln1": L.init_rmsnorm(D, lead, device),
-            "attn": L.init_attention(gen, cfg, lead),
-            "ln2": L.init_rmsnorm(D, lead, device),
-        },
     }
-    if cfg.moe is not None:
-        params["layers"]["moe"] = L.init_moe(gen, cfg, lead)
+    if cfg.family == "hybrid":
+        params["superblocks"] = _hybrid_superblock_params(
+            gen, cfg, (cfg.n_layers // cfg.attn_period,))
+    elif cfg.family == "ssm":
+        lead = (cfg.n_layers,)
+        params["layers"] = {"ln1": L.init_rmsnorm(D, lead, device),
+                            "mamba": S.init_mamba(gen, cfg, lead)}
     else:
-        params["layers"]["ffn"] = L.init_mlp(gen, D, cfg.d_ff, dt, lead)
+        params["layers"] = _attn_layer_params(gen, cfg, (cfg.n_layers,))
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (D, Vp), D, dt)
     return ParamTree(params)
 
 
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _apply_ffn(x, p, cfg: ModelConfig, decode: bool = False,
                ep_exchange=None):
-    """Post-attention FFN (dense or MoE). x: (B, S, D) -> (out, aux).
+    """Post-mixer FFN (dense or MoE). x: (B, S, D) -> (out, aux).
     ``decode``: the MoE layer routes at ``capacity_factor_decode`` with no
     exchange, as the reference's decode does."""
     B, S, D = x.shape
@@ -93,8 +151,7 @@ def _apply_ffn(x, p, cfg: ModelConfig, decode: bool = False,
                              capacity_factor=cf,
                              ep_exchange=None if decode else ep_exchange)
         return out.reshape(B, S, D), aux
-    return L.mlp(x, p["ffn"]), torch.zeros((), dtype=torch.float32,
-                                           device=x.device)
+    return L.mlp(x, p["ffn"]), _zero_aux(x)
 
 
 def _attn_block(x, p, cfg: ModelConfig, positions, ep_exchange=None):
@@ -108,14 +165,74 @@ def _attn_block(x, p, cfg: ModelConfig, positions, ep_exchange=None):
     return x + ff, aux, kv
 
 
+def _ssm_block(x, p, cfg: ModelConfig, ep_exchange=None, state=False):
+    """One Mamba2 layer -> (x, aux[, decode state]): the FFN after it
+    where the layer has ``ln2`` (hybrid), else aux 0 (ssm)."""
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if state:
+        o, st = S.mamba_forward(h, p["mamba"], cfg, return_state=True)
+    else:
+        o, st = S.mamba_forward(h, p["mamba"], cfg), None
+    x = x + o
+    aux = _zero_aux(x)
+    if "ln2" in p:
+        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        ff, aux = _apply_ffn(h, p, cfg, ep_exchange=ep_exchange)
+        x = x + ff
+    return (x, aux, st) if state else (x, aux)
+
+
+def _hybrid_superblock(x, p, cfg: ModelConfig, positions, ep_exchange=None,
+                       caches=False):
+    """One superblock of ``attn_period`` layers -> (x, aux), and with
+    ``caches`` the Mamba states (one a Mamba position, in order) and the
+    attention's (k, v)."""
+    aux, states, kv = _zero_aux(x), [], None
+    for pos in range(cfg.attn_period):
+        sub = p[f"pos{pos}"]
+        if pos == cfg.attn_offset:
+            x, a, kv = _attn_block(x, sub, cfg, positions,
+                                   ep_exchange=ep_exchange)
+        elif caches:
+            x, a, st = _ssm_block(x, sub, cfg, ep_exchange, state=True)
+            states.append(st)
+        else:
+            x, a = _ssm_block(x, sub, cfg, ep_exchange)
+        aux = aux + a
+    return (x, aux, states, kv) if caches else (x, aux)
+
+
 def _unembed(tree: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
     return L.mask_padded_vocab((x @ head).to(torch.float32), cfg)
 
 
-def _layer(stacked: Dict, i: int) -> Dict:
+def _layer(stacked: Dict, i) -> Dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def _embed(tree: Dict, tokens: torch.Tensor, vis_embed=None) -> torch.Tensor:
+    """Token embeddings, after ``vis_embed`` (B, V, D) in their dtype
+    where given (the vlm family's visual prefix)."""
+    x = tree["embed"][tokens]
+    if vis_embed is not None:
+        x = torch.cat([vis_embed.to(x.dtype), x], dim=1)
+    return x
+
+
+def _units(tree: Dict, cfg: ModelConfig, positions):
+    """The reference's scan: (its stacked params, its length, its body
+    ``(x, p, ep_exchange) -> (x, aux)``). The body is the unit a remat
+    policy checkpoints: a layer, or for hybrid a whole superblock."""
+    if cfg.family == "hybrid":
+        return (tree["superblocks"], cfg.n_layers // cfg.attn_period,
+                lambda x, p, ex: _hybrid_superblock(x, p, cfg, positions, ex))
+    if cfg.family == "ssm":
+        return tree["layers"], cfg.n_layers, \
+            lambda x, p, ex: _ssm_block(x, p, cfg, ex)
+    return tree["layers"], cfg.n_layers, \
+        lambda x, p, ex: _attn_block(x, p, cfg, positions, ex)[:2]
 
 
 def _dots_policy(ctx, func, *args, **kwargs):
@@ -152,26 +269,29 @@ class _Remat:
 
 
 def lm_hidden(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-              remat: str = "none", ep_exchange=None
+              vis_embed=None, remat: str = "none", ep_exchange=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding through all blocks and the final norm -> (x, aux),
-    ``aux`` the sum of the layers' MoE load-balance losses.
+    """Token (+ visual prefix) embedding through all blocks and the final
+    norm -> (x, aux), ``aux`` the sum of the layers' MoE load-balance
+    losses.
 
-    ``remat`` is the reference's policy. Under ``"none"`` autograd keeps
-    every block's intermediates. Under ``"block"`` and ``"block_nocse"``
-    each block call is a non-reentrant
-    ``torch.utils.checkpoint.checkpoint``: the forward keeps the block's
-    inputs only and the backward runs the block again. The two are the
+    ``remat`` is the reference's policy, applied to its scan body: a
+    layer, or for hybrid a whole superblock of ``attn_period`` layers.
+    Under ``"none"`` autograd keeps every unit's intermediates. Under
+    ``"block"`` and ``"block_nocse"`` each unit call is a non-reentrant
+    ``torch.utils.checkpoint.checkpoint``: the forward keeps the unit's
+    inputs only and the backward runs the unit again. The two are the
     same here: their difference in the reference is whether XLA may CSE
     the recompute with the forward, and eager PyTorch has no CSE.
     ``"dots"`` mirrors ``dots_with_no_batch_dims_saveable`` through
     ``create_selective_checkpoint_contexts``: the outputs of ``aten.mm``
-    and ``aten.addmm`` (every ``x @ W``: the projections, the MLP and the
-    router) are kept, and ``aten.bmm`` (attention scores and values, the
-    routed experts) and the elementwise ops recomputed. Non-reentrant,
-    since the step takes its gradients with ``torch.autograd.grad``,
-    which reentrant checkpoints refuse. The values and gradients equal
-    ``"none"``'s bit for bit.
+    and ``aten.addmm`` (every ``x @ W``: the projections, the MLP, the
+    router and the Mamba projections) are kept, and ``aten.bmm``
+    (attention scores and values, the routed experts, the SSD scan) and
+    the elementwise ops recomputed. Non-reentrant, since the step takes
+    its gradients with ``torch.autograd.grad``, which reentrant
+    checkpoints refuse. The values and gradients equal ``"none"``'s bit
+    for bit.
 
     The recompute leaves out ``ep_exchange``: the wire's value is spliced
     in detached and the backward needs nothing from it (JAX's remat drops
@@ -181,22 +301,21 @@ def lm_hidden(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     _require_ported(cfg)
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; have {list(REMAT_POLICIES)}")
-    x = tree["embed"][tokens]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        p = _layer(tree["layers"], i)
+    x = _embed(tree, tokens, vis_embed)
+    positions = torch.arange(x.shape[1], device=tokens.device)[None, :]
+    stacked, n, body = _units(tree, cfg, positions)
+    aux = _zero_aux(x)
+    for i in range(n):
+        p = _layer(stacked, i)
         if remat == "none":
-            x, a, _ = _attn_block(x, p, cfg, positions,
-                                  ep_exchange=ep_exchange)
+            x, a = body(x, p, ep_exchange)
         else:
             rm = _Remat(remat)
 
-            def block(x, p=p, rm=rm):
-                ex = None if rm.recomputing else ep_exchange
-                return _attn_block(x, p, cfg, positions, ep_exchange=ex)[:2]
+            def unit(x, p=p, rm=rm):
+                return body(x, p, None if rm.recomputing else ep_exchange)
 
-            x, a = ckpt_lib.checkpoint(block, x, use_reentrant=False,
+            x, a = ckpt_lib.checkpoint(unit, x, use_reentrant=False,
                                        context_fn=rm.context_fn)
         aux = aux + a
     return L.rmsnorm(x, tree["final_norm"], cfg.norm_eps), aux
@@ -206,9 +325,13 @@ def lm_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             remat: str = "none", ep_exchange=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM cross entropy with the reference's z-loss and aux
-    terms; ``ep_exchange`` as in :func:`lm_hidden`."""
-    x, aux = lm_hidden(tree, cfg, batch["tokens"], remat=remat,
+    terms, over the token positions only (after a ``vis_embed`` prefix);
+    ``ep_exchange`` as in :func:`lm_hidden`."""
+    vis = batch.get("vis_embed")
+    x, aux = lm_hidden(tree, cfg, batch["tokens"], vis, remat=remat,
                        ep_exchange=ep_exchange)
+    if vis is not None:
+        x = x[:, vis.shape[1]:]                       # text positions only
     logits = _unembed(tree, cfg, x)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
@@ -219,61 +342,132 @@ def lm_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 # ----------------------------------------------------------------------
-# Serving: prefill + decode with a KV cache
+# Serving: prefill + decode with a cache
 # ----------------------------------------------------------------------
 
+def _stacked_states(batch: int, cfg: ModelConfig, lead, device):
+    """Zero Mamba decode states (f32) stacked on ``lead``."""
+    return {k: v.new_zeros(lead + tuple(v.shape)) for k, v in
+            S.init_mamba_state(batch, cfg, device=device).items()}
+
+
 def init_cache(tree: Dict, cfg: ModelConfig, batch: int, max_len: int
-               ) -> Dict[str, torch.Tensor]:
-    """The decode cache: ``{"k", "v"}`` of shape ``(L, B, max_len, KV,
-    hd)``, zeros in ``cfg.activation_dtype`` on the params' device."""
+               ) -> Dict[str, Any]:
+    """The decode cache of the family (see the module doc), zeros on the
+    params' device: K/V in ``cfg.activation_dtype``, Mamba states in
+    f32."""
     _require_ported(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     dt, dev = cfg.activation_dtype, tree["embed"].device
+    kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    if cfg.family == "ssm":
+        return {"ssm": _stacked_states(batch, cfg, (cfg.n_layers,), dev)}
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_period
+        shape = (n_super,) + kv_shape
+        return {"mamba": _stacked_states(batch, cfg,
+                                         (n_super, cfg.attn_period - 1), dev),
+                "kv": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    shape = (cfg.n_layers,) + kv_shape
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
+def _put_states(dst: Dict, states, at: Tuple = ()):
+    """Write Mamba decode states into the stacked cache ``dst`` at
+    index ``at`` (in place)."""
+    for k in dst:
+        dst[k][at] = states[k].to(dst[k].dtype)
+
+
 def lm_prefill(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                max_len: int | None = None, vis_embed=None
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Run the whole prompt -> (logits of the last position ``(B, V)``
-    f32, the cache). Each layer is the training block, whose K (after
-    RoPE) and V go into a cache of ``max(max_len, S)`` positions, zero
-    past the prompt, as the reference's padded scan output. Only the
-    last position is unembedded."""
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the whole prompt (after a ``vis_embed`` prefix, where given)
+    -> (logits of the last position ``(B, V)`` f32, the cache). Each layer
+    is the training block: an attention layer's K (after RoPE) and V go
+    into a cache of ``max(max_len, S_full)`` positions, zero past the
+    prompt, as the reference's padded scan output (``S_full`` counts
+    the visual prefix); a Mamba layer's chunked scan gives its final
+    state. Only the last position is unembedded."""
     _require_ported(cfg)
-    if vis_embed is not None:
-        raise NotImplementedError("vis_embed: the vlm family is not ported")
-    B, S = tokens.shape
-    cache = init_cache(tree, cfg, B, max(max_len or S, S))
-    x = tree["embed"][tokens]
+    B, S_tok = tokens.shape
+    x = _embed(tree, tokens, vis_embed)
+    S = x.shape[1]
+    cache = init_cache(tree, cfg, B, max(max_len or S_tok, S))
     positions = torch.arange(S, device=tokens.device)[None, :]
-    for i in range(cfg.n_layers):
-        x, _, (k, v) = _attn_block(x, _layer(tree["layers"], i), cfg,
-                                   positions)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, _, st = _ssm_block(x, _layer(tree["layers"], i), cfg, state=True)
+            _put_states(cache["ssm"], st, (i,))
+    elif cfg.family == "hybrid":
+        for i in range(cfg.n_layers // cfg.attn_period):
+            x, _, states, (k, v) = _hybrid_superblock(
+                x, _layer(tree["superblocks"], i), cfg, positions, caches=True)
+            for j, st in enumerate(states):
+                _put_states(cache["mamba"], st, (i, j))
+            cache["kv"]["k"][i, :, :S] = k
+            cache["kv"]["v"][i, :, :S] = v
+    else:
+        for i in range(cfg.n_layers):
+            x, _, (k, v) = _attn_block(x, _layer(tree["layers"], i), cfg,
+                                       positions)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
     x = L.rmsnorm(x[:, -1:], tree["final_norm"], cfg.norm_eps)
     return _unembed(tree, cfg, x)[:, 0], cache
 
 
+def _mamba_decode_layer(x, p, cfg: ModelConfig, states: Dict, at: Tuple):
+    """One Mamba layer's decode step on the cache's states at ``at``,
+    written back in place -> the layer's output (before the residual)."""
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    o, st = S.mamba_decode(h, p["mamba"], cfg,
+                           {k: v[at] for k, v in states.items()})
+    _put_states(states, st, at)
+    return o
+
+
 def lm_decode(tree: Dict, cfg: ModelConfig, token: torch.Tensor,
-              cache: Dict[str, torch.Tensor], position: int
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              cache: Dict[str, Any], position: int
+              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step. token: (B,) ids; ``position`` (an int): tokens
     ``0..position-1`` are in the cache. Returns ``(logits (B, V) f32,
     cache)``, the cache updated in place (``layers.attention_decode``,
-    whose write clamps at the cache's end). The MoE layers route at
-    ``capacity_factor_decode``."""
+    whose write clamps at the cache's end; the Mamba states). The MoE
+    layers route at ``capacity_factor_decode``."""
     _require_ported(cfg)
     x = tree["embed"][token[:, None]]
-    for i in range(cfg.n_layers):
-        p = _layer(tree["layers"], i)
-        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        o, _, _ = L.attention_decode(h, p["attn"], cfg, cache["k"][i],
-                                     cache["v"][i], position)
-        x = x + o
-        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + _apply_ffn(h, p, cfg, decode=True)[0]
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = x + _mamba_decode_layer(x, _layer(tree["layers"], i), cfg,
+                                        cache["ssm"], (i,))
+    elif cfg.family == "hybrid":
+        kv = cache["kv"]
+        for i in range(cfg.n_layers // cfg.attn_period):
+            p_sb, si = _layer(tree["superblocks"], i), 0
+            for pos in range(cfg.attn_period):
+                sub = p_sb[f"pos{pos}"]
+                if pos == cfg.attn_offset:
+                    h = L.rmsnorm(x, sub["ln1"], cfg.norm_eps)
+                    o, _, _ = L.attention_decode(h, sub["attn"], cfg,
+                                                 kv["k"][i], kv["v"][i],
+                                                 position)
+                else:
+                    o = _mamba_decode_layer(x, sub, cfg, cache["mamba"],
+                                            (i, si))
+                    si += 1
+                x = x + o
+                h = L.rmsnorm(x, sub["ln2"], cfg.norm_eps)
+                x = x + _apply_ffn(h, sub, cfg, decode=True)[0]
+    else:
+        for i in range(cfg.n_layers):
+            p = _layer(tree["layers"], i)
+            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+            o, _, _ = L.attention_decode(h, p["attn"], cfg, cache["k"][i],
+                                         cache["v"][i], position)
+            x = x + o
+            h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+            x = x + _apply_ffn(h, p, cfg, decode=True)[0]
     x = L.rmsnorm(x, tree["final_norm"], cfg.norm_eps)
     return _unembed(tree, cfg, x)[:, 0], cache

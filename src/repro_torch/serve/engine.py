@@ -17,7 +17,15 @@ reference's, kept on purpose:
 - decode writes past ``max_len`` land on the cache's last entry (the
   clamp of the reference's ``dynamic_update_slice``);
 - a request is admitted between decode steps by a single-request
-  prefill spliced into its slot, and ``decode_steps`` bounds the loop.
+  prefill spliced into its slot, and ``decode_steps`` bounds the loop;
+- the splice writes every leaf of the cache at ``[:, i:i+1]`` (axis 1),
+  broadcasting as the reference's ``full.at[:, i:i+1].set(one)`` does.
+  For the attention families and ssm, axis 1 is the slot. For hybrid,
+  the Mamba leaves ``(n_super, attn_period - 1, B, ...)`` hold the
+  position inside the superblock there: with ``attn_period`` 2 slot 0's
+  admission broadcasts its Mamba state over every slot and later slots
+  write none; with a longer period the shapes do not broadcast and the
+  admission raises, as the reference's does.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.params import ParamTree
+from repro_torch.models.params import ParamTree, flatten_tree
 from repro_torch.models.registry import ModelAPI
 
 
@@ -131,8 +139,9 @@ class ContinuousBatcher:
                     produced[i] = []
                     # single-request prefill, spliced into slot i
                     logits, c1 = eng.prefill(req.prompt[None])
-                    for name, full in cache.items():
-                        full[:, i:i + 1] = c1[name].to(full.dtype)
+                    for (_, full), (_, one) in zip(flatten_tree(cache),
+                                                   flatten_tree(c1)):
+                        full[:, i:i + 1] = one.to(full.dtype)
                     cur[i] = logits[0].argmax()
                     pos = max(pos, int(req.prompt.shape[0]))
 

@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.data.pipeline import Prefetcher, batch_fn
+from repro_torch.data.pipeline import Prefetcher, batch_fn, host_tensors
 from repro_torch.ft.failures import (FailureSimulator, InjectedFailure,
                                      RecoveryPolicy, StragglerMonitor)
 from repro_torch.models.params import ParamTree
@@ -50,9 +50,9 @@ class TrainResult:
 
 
 def device_batch(host: Dict, device) -> Dict[str, torch.Tensor]:
-    """numpy int32 batch -> int64 tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device=device, dtype=torch.int64)
-            for k, v in host.items()}
+    """numpy batch -> tensors on ``device``: integer arrays as int64,
+    float arrays (``vis_embed``) in their own dtype."""
+    return {k: v.to(device) for k, v in host_tensors(host).items()}
 
 
 def _agreed_latest(ckpt_dir: str, group, writer: bool, device) -> Optional[int]:

@@ -295,9 +295,9 @@ def test_train_config_rejects_unknown_exchange_with_reference_text():
 
 
 def test_other_families_still_refused():
-    ssm = dataclasses.replace(CFG, family="ssm")
+    encdec = dataclasses.replace(CFG, family="encdec")
     with pytest.raises(NotImplementedError, match="'dense', 'moe'"):
-        model_api(ssm)
+        model_api(encdec)
 
 
 def test_launcher_runs_moe_with_compressed_exchange():
