@@ -117,7 +117,10 @@ kernels):
 
 The ``torch.distributed`` slice (W ranks as processes):
 
-18. dist_train — after the three emulated trains, their memory freed:
+18. dist_train — after phases 19-20, their memory freed (its ranks
+    spawned once with those of phases 21-22, 24 and 28: each rank runs
+    this phase's arms, then theirs, and each phase checks its own
+    results when its turn comes):
     the train of phase 4 with W=2 ranks as spawned processes sharing
     ``cuda:0`` over gloo (collectives staged through pinned host
     memory), one worker a rank, the ``compressed`` arm and then the
@@ -343,7 +346,8 @@ read 0 just after.
     67 tokens within atol 2e-3; granite-3-2b, and deepseek-moe-16b with
     both capacity factors E / K (no token drops).
 
-The ssm, hybrid and vlm families (after phase 36, its memory freed):
+The ssm, hybrid, vlm and encdec families (after phase 36, its memory
+freed):
 
 37. ssm_train — mamba2-1.3b at its published widths (d_model 2048,
     d_inner 4096, 64 heads of 64, d_state 128, chunk 256, vocab 50280,
@@ -373,22 +377,39 @@ The ssm, hybrid and vlm families (after phase 36, its memory freed):
     decode/prefill check as phase 39; no batcher, whose splice
     broadcasts over the superblock's Mamba positions and raises at this
     period, as the reference's.
+41. encdec_train — whisper-tiny whole (4 encoder and 4 decoder layers,
+    d_model 384, 6 heads of 64, d_ff 1536, vocab 51865 padded to 51968,
+    36,487,680 parameters), bf16, trained as phase 37 with rows of 448
+    decoder tokens (Whisper's text context) and 1500 frames from
+    ``batch_fn``: 34 buckets, 1,190 blocks a step; then the stream check
+    and the plain replay of phase 37, and rows 1 and 2 timed on that
+    stream (CUDA events, beside their plain versions and their bounds).
+42. encdec_serve — whisper-tiny whole through phase 34's
+    ``serve_model``: ``generate`` on 8 prompts of 384 tokens and their
+    1500 frames (``default_rng(0)``, after the prompts), 64 new,
+    ``max_len`` 448; no batcher (its single-request prefill passes no
+    frames and raises ``KeyError``, as the reference's); decode against
+    prefill in f32 at atol 2e-3, and generate's row 0 against a batch-1
+    engine fed its prompt, frames and tokens, within a bound from the
+    card's readings. The decode bound counts the weights and the whole
+    cache (self K/V and the cross K/V of 1500 frames).
 
 Each phase's wall seconds follow it on a ``phase_seconds`` line, and all
 of them together (``phase_seconds_all``) precede the kernels line. To
 keep the script well inside its time limit, ``dist_train`` and
 ``dist_rs`` run two steps an arm (``DIST_STEPS``: a warm-up and a timed
-step), held to the first two steps of their emulations.
+step), held to the first two steps of their emulations; the ranks of
+phases 18, 21-22, 24 and 28 are spawned once (``dist_spawn``).
 
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path (the ``auto``
-phases', the MoE trains' and phases 37-38's too), ``dist_train``'s, ``dist_rs``'s,
+phases', the MoE trains' and phases 37-38's and 41's too), ``dist_train``'s, ``dist_rs``'s,
 ``dist_auto``'s and ``dist_a2a``'s summed over the ranks, rows 1 and 2
 with their ``kernels_a2a`` times under ``a2a``, rows 1, 2 and 4 with
 their ``kernels_elastic`` times under ``elastic`` and every row's
 launches on each ``elastic`` arm, in phases 31-33 (``dist_ckpt``'s
-ranks summed) and in phases 34-36 (0), for the three peel kernels the rounds histogram, for
+ranks summed) and in phases 34-36, 39-40 and 42 (0), for the three peel kernels the rounds histogram, for
 the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
@@ -1005,14 +1026,14 @@ class BloomObserver:
 
 def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
                 want=None, emit_line=True, wire_plan=None, steps=STEPS,
-                arch_name="granite-3-2b", layers=LAYERS):
+                arch_name="granite-3-2b", layers=LAYERS, seq=SEQ):
     """The main path: ``compressed`` (``wire="f32"``) or, with
     ``wire="fxp32"``, ``compressed_innet`` on the fxp32 wire; ``fields``
     override the config's compression fields (the Bloom path:
     ``index="bloom"``, a 0.1% top-k; the streamed paths: ``overlap``),
     ``tc_fields`` its train fields (``aggregator``, ``zero1``,
     ``ep_exchange``, ``ep_workers``), ``arch_name`` and ``layers`` the
-    model and its depth,
+    model and its depth, ``seq`` the tokens a row,
     ``wire_plan`` the aggregator's wire plan, and ``want`` the launch
     counts the run of ``steps`` steps must give (default: the unstreamed
     paths'). The launch counters are zeroed just before the run and read
@@ -1049,11 +1070,11 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
         ops.LAUNCHES[k] = 0
     if bloom:
         with observer:
-            res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+            res = run_training(api, tc, global_batch=BATCH, seq_len=seq,
                                steps=steps, device=dev, params=params,
                                log_every=1, log_fn=after_step)
     else:
-        res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+        res = run_training(api, tc, global_batch=BATCH, seq_len=seq,
                            steps=steps, device=dev, params=params,
                            log_every=1, log_fn=after_step,
                            wire_plan=wire_plan)
@@ -1081,8 +1102,9 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
     n_params = sum(p.numel() for p in res.state.params.leaves())
     out = {"phase": phase, "arch": arch_name, "dtype": mcfg.dtype,
            "params": n_params,
-           "reduced": {"n_layers": f"{arch.model.n_layers} -> {layers}"},
-           "workers": WORKERS, "global_batch": BATCH, "seq_len": SEQ,
+           "reduced": ({} if layers == arch.model.n_layers else
+                       {"n_layers": f"{arch.model.n_layers} -> {layers}"}),
+           "workers": WORKERS, "global_batch": BATCH, "seq_len": seq,
            "aggregator": tc.aggregator, "wire": wire,
            "index": tc.compression.index, "topk_ratio": tc.compression.topk_ratio,
            "topology": tc.compression.topology,
@@ -1721,7 +1743,8 @@ def phase_bloom_lossless(mcfg, dev):
           "aggregate_s": agg_s})
 
 
-DIST_TIMEOUT = 600       # seconds the dist_train ranks may take in all
+DIST_TIMEOUT = 600       # seconds the dist_* phases' ranks may take in all
+SPAWN_SHARED = ["dist_train", "dist_rs", "dist_auto", "dist_a2a"]
 DIST_STEPS = 2           # steps of each dist_train / dist_rs arm: one warm-up,
                          # one timed (the emulated phases run STEPS)
 PROBE_TIMEOUT = 90       # seconds a backend probe's ranks may take
@@ -1951,22 +1974,47 @@ def probe(kind):
         return {"ok": False, "error": lines[:1] + lines[-2:]}
 
 
-def phase_dist_train(emulated_losses):
+def dist_ranks_rank(group, dev, shapes_dtypes, n_buckets):
+    """One rank of phases 18, 21-22, 24 and 28, in one spawn, on the same
+    process group: ``dist_train``'s arms (:func:`dist_rank`), then
+    ``dist_rs``'s and the gather-skip checks (:func:`dist_rs_rank`),
+    ``dist_auto``'s mixed plan (:func:`dist_auto_rank`) and ``dist_a2a``'s
+    exchanges (:func:`dist_a2a_rank`), each as its own spawn ran it."""
+    return {"dist_train": dist_rank(group, dev),
+            "dist_rs": dist_rs_rank(group, dev, shapes_dtypes),
+            "dist_auto": dist_auto_rank(group, dev, n_buckets),
+            "dist_a2a": dist_a2a_rank(group, dev)}
+
+
+def spawn_dist(shapes_dtypes, n_buckets):
+    """The W=2 ranks of ``dist_train``, ``dist_rs``, ``dist_auto`` and
+    ``dist_a2a`` (whose EP ranks are as many), spawned once: each spawn
+    costs 10-20 s before a rank's first step. -> ({phase: each rank's
+    result}, the spawn's wall seconds)."""
+    from repro_torch.launch.ranks import spawn_ranks
+
+    if EP_WORKERS != WORKERS:
+        raise ValueError("dist_a2a's EP ranks must be the spawn's W ranks")
+    t0 = time.perf_counter()
+    outs = spawn_ranks(dist_ranks_rank, WORKERS, (shapes_dtypes, n_buckets),
+                       device="cuda", timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    return {k: [o[k] for o in outs] for k in outs[0]}, wall
+
+
+def phase_dist_train(emulated_losses, outs, wall):
     """W=2 ranks as processes sharing ``cuda:0`` over gloo (NCCL refuses
     two ranks on one device: the probe's error is printed), the phase-4
     train on the compressed arm and then the dense arm, one worker a
-    rank. Fails unless each rank launched exactly one producer and one
+    rank (``outs``: each rank's :func:`dist_rank` result, from the spawn
+    the ``dist_*`` phases share, which took ``wall`` seconds). Fails unless each
+    rank launched exactly one producer and one
     consumer a step (compressed; none dense), every rank's parameter
     digest is equal after every step, the OR all-reduce of the last
     step's real words equals an ``all_gather`` and a local OR, and the
     losses are finite and within rtol 1e-3 of the emulated ``train``
     phase's (backward atomics make bit equality unlikely: the first
     step's loss is forward only and is reported apart)."""
-    from repro_torch.launch.ranks import spawn_ranks
-
-    t0 = time.perf_counter()
-    outs = spawn_ranks(dist_rank, WORKERS, device="cuda", timeout=DIST_TIMEOUT)
-    wall = time.perf_counter() - t0
     want = dict.fromkeys(outs[0]["arms"]["compressed"]["launches"], 0)
     want.update(encode_pack_quantize=DIST_STEPS, dequant_peel_unpack=DIST_STEPS)
     arms = {}
@@ -2022,7 +2070,7 @@ def phase_dist_train(emulated_losses):
             "seq_len": SEQ, "steps": DIST_STEPS, "warmup_steps": 1,
             "backend": outs[0]["backend"], "staging": outs[0]["staging"],
             "devices": [o["device"] for o in outs],
-            "wall_s": wall, "arms": arms,
+            "wall_s": wall, "spawn_shared_with": SPAWN_SHARED, "arms": arms,
             "probes": {"nccl_two_ranks_one_device": probe("nccl"),
                        "gloo_p2p_cuda_tensor": probe("gloo_p2p")}}
     emit(line)
@@ -2405,8 +2453,10 @@ def gather_skip_check(group, dev, shapes_dtypes):
             "granite_zero1_dims": dims, "granite_active_by_grid": granite}
 
 
-def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes):
-    """W=2 ranks sharing ``cuda:0`` over gloo, as ``dist_train``: the
+def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes, outs, wall):
+    """W=2 ranks sharing ``cuda:0`` over gloo, as ``dist_train`` (``outs``:
+    each rank's :func:`dist_rs_rank` result, from the spawn the ``dist_*``
+    phases share, which took ``wall`` seconds): the
     ``compressed_rs`` + ZeRO-1 arm (native, one-shot) and the streamed
     ``compressed`` arm. After every step each arm's parameter sha256 must
     be equal on both ranks and equal to the emulated run of the same
@@ -2417,13 +2467,7 @@ def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes):
     rank; for the streamed arm the reduce time a step and its overlap with
     the next chunk's producer. Then the gloo ``reduce_scatter_tensor``
     probe and the gather-skip checks."""
-    from repro_torch.launch.ranks import spawn_ranks
-
     n_chunks = stream_grids(shapes_dtypes, cfg)[1]["allreduce"].n_chunks
-    t0 = time.perf_counter()
-    outs = spawn_ranks(dist_rs_rank, WORKERS, (shapes_dtypes,), device="cuda",
-                       timeout=DIST_TIMEOUT)
-    wall = time.perf_counter() - t0
     # a rank runs its own worker's producers; on the reduce-scatter wire
     # it peels its own half, on the all-reduce wire the whole stream
     emulated = {"rs_zero1": (rs_arms["oneshot"], {
@@ -2475,7 +2519,8 @@ def phase_dist_rs(cfg, rs_arms, train, shapes_dtypes):
           "workers": WORKERS, "procs": WORKERS, "global_batch": BATCH,
           "seq_len": SEQ, "steps": DIST_STEPS, "warmup_steps": 1,
           "backend": outs[0]["backend"], "staging": outs[0]["staging"],
-          "devices": [o["device"] for o in outs], "wall_s": wall, "arms": arms,
+          "devices": [o["device"] for o in outs], "wall_s": wall,
+          "spawn_shared_with": SPAWN_SHARED, "arms": arms,
           "gloo_reduce_scatter_tensor": [o["gloo_reduce_scatter_tensor"]
                                          for o in outs]})
     emit({"phase": "gather_skip", "by_rank": skips})
@@ -2855,21 +2900,17 @@ def dist_auto_rank(group, dev, n_buckets):
     return out
 
 
-def phase_dist_auto(n_buckets, emulated_digests):
-    """W=2 ranks sharing ``cuda:0`` over gloo, as ``dist_train``: the fixed
+def phase_dist_auto(n_buckets, emulated_digests, outs, wall):
+    """W=2 ranks sharing ``cuda:0`` over gloo, as ``dist_train`` (``outs``:
+    each rank's :func:`dist_auto_rank` result, from the shared spawn, which
+    took ``wall`` seconds): the fixed
     mixed plan of ``auto_train`` for 2 steps. After every step the
     parameter sha256 must be equal on both ranks and to ``auto_train``'s
     emulated run, and each rank must have launched what the plan implies
     for one worker. Prints the last step's collectives replayed alone by
     operation with their payload bytes a rank, and the in-network
     group's tree replayed alone."""
-    from repro_torch.launch.ranks import spawn_ranks
-
     plan = mixed_plan(n_buckets)
-    t0 = time.perf_counter()
-    outs = spawn_ranks(dist_auto_rank, WORKERS, (n_buckets,), device="cuda",
-                       timeout=DIST_TIMEOUT)
-    wall = time.perf_counter() - t0
     want = plan_launches(plan, 1, AUTO_STEPS)
     for r, o in enumerate(outs):
         got = {k: o["launches"][k] for k in o["launches"] if o["launches"][k]}
@@ -2886,6 +2927,7 @@ def phase_dist_auto(n_buckets, emulated_digests):
           "seq_len": SEQ, "steps": AUTO_STEPS, "warmup_steps": 1,
           "plan": plan.describe(), "backend": outs[0]["backend"],
           "staging": outs[0]["staging"], "wall_s": wall,
+          "spawn_shared_with": SPAWN_SHARED,
           "losses": outs[0]["losses"],
           "param_sha256_by_step": outs[0]["digests"],
           "equal_to_auto_train": True,
@@ -3277,9 +3319,11 @@ def dist_a2a_rank(group, dev):
     return out
 
 
-def phase_dist_a2a():
+def phase_dist_a2a(outs, wall):
     """W=2 ranks sharing ``cuda:0`` over gloo (host-staged), as
-    ``dist_train``: the dense and compressed exchanges standalone on one
+    ``dist_train`` (``outs``: each rank's :func:`dist_a2a_rank` result, from
+    the shared spawn, which took ``wall`` seconds): the dense and
+    compressed exchanges standalone on one
     MoE layer's payload a rank, dyadic, fused and in 2 chunks. Fails
     unless every rank's merged lane equals the sources' sum bit for bit
     and the two wires agree, each rank launched one producer and one
@@ -3288,12 +3332,7 @@ def phase_dist_a2a():
     ``rank_payload_bytes`` to the byte. Returns the launches summed over
     the ranks."""
     from repro_torch.configs import get_arch
-    from repro_torch.launch.ranks import spawn_ranks
 
-    t0 = time.perf_counter()
-    outs = spawn_ranks(dist_a2a_rank, EP_WORKERS, (), device="cuda",
-                       timeout=DIST_TIMEOUT)
-    wall = time.perf_counter() - t0
     n = EP_WORKERS * (BATCH * SEQ // WORKERS // EP_WORKERS) \
         * get_arch(MOE_ARCH).model.d_model
     acct = exchange_cfg().strategy_wire_bytes(n, EP_WORKERS, grad_bytes_per_elem=4)
@@ -3317,7 +3356,8 @@ def phase_dist_a2a():
           "payload_shape": [EP_WORKERS, BATCH * SEQ // WORKERS // EP_WORKERS,
                             get_arch(MOE_ARCH).model.d_model],
           "backend": outs[0]["backend"], "staging": outs[0]["staging"],
-          "wall_s": wall, "merged_equal_sum": True, "dense_equal_compressed": True,
+          "wall_s": wall, "spawn_shared_with": SPAWN_SHARED,
+          "merged_equal_sum": True, "dense_equal_compressed": True,
           "rank_payload_bytes": want_bytes,
           "strategy_wire_bytes": {k: acct[k] for k in ("dense_alltoall",
                                                        "compressed_alltoall")},
@@ -3972,7 +4012,7 @@ def phase_dist_ckpt(dev, train):
 
 SERVE_BATCH, SERVE_PROMPT = 8, 512      # batch generate: 8 prompts of 512
 SERVE_NEW = {"granite-3-2b": 64, "deepseek-moe-16b": 32, "mamba2-1.3b": 64,
-             "jamba-v0.1-52b": 64}
+             "jamba-v0.1-52b": 64, "whisper-tiny": 64}
 SERVE_REQUESTS = 16                     # continuous: 2 x batch requests
 CONSISTENCY_LAYERS, CONSISTENCY_B, CONSISTENCY_S = 4, 2, 64
 
@@ -4093,7 +4133,7 @@ def device_busy(fn):
     return busy_us, kernels, by_name
 
 
-def profile_decode(eng, prompts, steps=4):
+def profile_decode(eng, prompts, steps=4, extra=None):
     """The card's work in ``steps`` decode steps of the engine's own
     ``generate``: two profiled runs, of 1 + ``steps`` new tokens and of 1,
     and their difference, so that the prefill cancels. -> the card's busy
@@ -4101,9 +4141,9 @@ def profile_decode(eng, prompts, steps=4):
     most device time, by name. The trace's wall time is inflated by the
     profiler, so the idle share is taken against the unprofiled step."""
     long_us, long_k, long_by = device_busy(
-        lambda: eng.generate(prompts, max_new=1 + steps))
+        lambda: eng.generate(prompts, max_new=1 + steps, extra=extra))
     short_us, short_k, short_by = device_busy(
-        lambda: eng.generate(prompts, max_new=1))
+        lambda: eng.generate(prompts, max_new=1, extra=extra))
     by_name = {k: v - short_by.get(k, 0.0) for k, v in long_by.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"steps": steps,
@@ -4139,10 +4179,19 @@ ATTN_LOGITS_ATOL = {
 SSM_LOGITS_ATOL = {"consistency": 0.25, "batcher_vs_generate": 0.125,
                    "batcher_vs_batch1": 0.25}
 HYBRID_LOGITS_ATOL = {"consistency": 0.5}
+# Phase 42 (whisper-tiny whole): decode against prefill in f32 at the
+# reference's own bound (``tests/test_decode_consistency.py``), and
+# generate's row 0 in bf16 against a batch-1 engine fed its prompt, frames
+# and tokens over the prefill and 64 decode steps. Read on an H100 80GB
+# HBM3 at 700 W with the logits' max |logit| 2.50: decode vs prefill
+# 1.5e-6, batch-1 0.0156; the bound is 4x the reading and a fortieth of
+# the logits' max.
+ENCDEC_LOGITS_ATOL = {"consistency_f32": 2e-3, "generate_vs_batch1": 0.0625}
 SERVE_LOGITS_ATOL = {"granite-3-2b": ATTN_LOGITS_ATOL,
                      "deepseek-moe-16b": ATTN_LOGITS_ATOL,
                      "mamba2-1.3b": SSM_LOGITS_ATOL,
-                     "jamba-v0.1-52b": HYBRID_LOGITS_ATOL}
+                     "jamba-v0.1-52b": HYBRID_LOGITS_ATOL,
+                     "whisper-tiny": ENCDEC_LOGITS_ATOL}
 
 
 def no_drop(cfg):
@@ -4155,20 +4204,21 @@ def no_drop(cfg):
         cfg.moe, capacity_factor=cf, capacity_factor_decode=cf))
 
 
-def decode_prefill_err(api, params, prompts, max_len):
+def decode_prefill_err(api, params, prompts, max_len, extra=None):
     """The reference's prefill/decode consistency check
     (``tests/test_decode_consistency.py``) in the model's own dtype:
     prefill all but the last 3 prompt tokens, decode those 3, and the
-    last logits against the prefill of the whole prompt."""
+    last logits against the prefill of the whole prompt (both prefills
+    given ``extra``, the encdec family's frames)."""
     import torch
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(api, params, max_len=max_len, batch=prompts.shape[0])
     S = prompts.shape[1]
-    _, cache = eng.prefill(prompts[:, :S - 3])
+    _, cache = eng.prefill(prompts[:, :S - 3], extra)
     for p in range(S - 3, S):
         tok = torch.as_tensor(prompts[:, p], device=eng.device).long()
         logits_d, cache = eng.decode(tok, cache, p)
-    logits_p, _ = eng.prefill(prompts)
+    logits_p, _ = eng.prefill(prompts, extra)
     V = api.cfg.vocab
     return {"rows": prompts.shape[0], "prompt_len": S,
             "max_abs_err": logits_err(logits_d, logits_p, V),
@@ -4215,6 +4265,22 @@ def batcher_checks(eng, one, prompts, gen_clock, cont_clock, done, max_new):
                                   for c in cont)}
 
 
+def batch1_err(one, prompts, extra, clock):
+    """``generate``'s row 0 (``clock``: its calls, logits kept) against
+    the batch-1 engine ``one`` fed row 0's prompt, its ``extra`` rows and
+    row 0's tokens at the same positions: the largest |logit difference|
+    over the prefill and every decode step."""
+    V = one.api.cfg.vocab
+    logits, cache = one.prefill(prompts[:1],
+                                {k: v[:1] for k, v in (extra or {}).items()})
+    err = logits_err(logits[0], clock.of("prefill")[0]["logits"][0], V)
+    decodes = clock.of("decode")
+    for c in decodes:
+        logits, cache = one.decode(c["tok"][:1], cache, c["pos"])
+        err = max(err, logits_err(logits[0], c["logits"][0], V))
+    return {"steps": len(decodes), "max_abs_err": err}
+
+
 def cache_bytes(api, params, batch, max_len):
     """Bytes of the decode cache at ``batch`` x ``max_len``: K/V, and the
     Mamba layers' f32 states (read and written whole a step)."""
@@ -4225,14 +4291,21 @@ def cache_bytes(api, params, batch, max_len):
     return n
 
 
-def serve_model(dev, arch_name, phase, continuous, layers=None):
-    """Phases 34-35, 39-40: ``arch_name`` at full width and full depth
-    (``layers`` cuts it), bf16, random weights from seed 0, served
+def serve_model(dev, arch_name, phase, continuous, layers=None,
+                prompt_len=SERVE_PROMPT, max_len=None):
+    """Phases 34-35, 39-40 and 42: ``arch_name`` at full width and full
+    depth (``layers`` cuts it), bf16, random weights from seed 0, served
     through ``ServeEngine.generate`` (and with ``continuous`` the
-    ``ContinuousBatcher``), the launch counters zeroed just before and
-    read just after; then, not counted, generate again (timed, keeping
-    its logits), the logit checks (bounds ``SERVE_LOGITS_ATOL`` by arch),
-    the profiled decode and the batch-1 check."""
+    ``ContinuousBatcher``) on ``SERVE_BATCH`` prompts of ``prompt_len``
+    tokens, in caches of ``max_len`` positions (default ``prompt_len +
+    max_new + 8``), the launch counters zeroed just before and read just
+    after; then, not counted, generate again (timed, keeping its logits),
+    the logit checks (bounds ``SERVE_LOGITS_ATOL`` by arch), the profiled
+    decode and the batch-1 check. For the encdec family the frames come
+    from the prompts' generator after them and go to ``generate`` as
+    ``extra``; its decode/prefill check runs in f32 (the same draws from
+    seed 0, not rounded to bf16) and generate's row 0 is held to a
+    batch-1 engine fed its prompt, frames and tokens."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -4261,17 +4334,22 @@ def serve_model(dev, arch_name, phase, continuous, layers=None):
           "init_s": init_s,
           "init_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
     max_new = SERVE_NEW[arch_name]
-    max_len = SERVE_PROMPT + max_new + 8
+    max_len = max_len or prompt_len + max_new + 8
     B = SERVE_BATCH
+    encdec = cfg.family == "encdec"
     kv_bytes = cache_bytes(api, params, B, max_len)
     torch.cuda.reset_peak_memory_stats(dev)
     eng = ServeEngine(api, params, max_len=max_len, batch=B)
-    prompts = np.random.default_rng(0).integers(
-        1, cfg.vocab, (B, SERVE_PROMPT), dtype=np.int32)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (B, prompt_len), dtype=np.int32)
+    extra = None
+    if encdec:
+        extra = {"frames": rng.normal(0, 1, (B, cfg.enc_seq, cfg.d_model)
+                                      ).astype(np.float32)}
 
     zero_launches()
     t0 = time.perf_counter()
-    out = eng.generate(prompts, max_new=max_new)
+    out = eng.generate(prompts, max_new=max_new, extra=extra)
     torch.cuda.synchronize(dev)
     gen_s = time.perf_counter() - t0
     done, cont_s = None, None
@@ -4290,17 +4368,29 @@ def serve_model(dev, arch_name, phase, continuous, layers=None):
 
     # a second run through the engine's own loop, timed, and keeping each
     # call's logits for the batcher's checks (one token copy a call)
-    with ServeClock(eng, keep=continuous) as clock:
-        again = eng.generate(prompts, max_new=max_new)
+    with ServeClock(eng, keep=continuous or encdec) as clock:
+        again = eng.generate(prompts, max_new=max_new, extra=extra)
     step_ms = clock.step_ms()
     peak = torch.cuda.max_memory_allocated(dev)
-    prof = profile_decode(eng, prompts)
+    prof = profile_decode(eng, prompts, extra=extra)
     prof["device_idle_share"] = 1 - (prof["device_busy_ms_per_step"]
                                      / statistics.median(step_ms))
-    # the same weights with no token dropped, in prefill or decode, so
-    # that the two agree as the reference's check needs
-    consistency = decode_prefill_err(model_api(no_drop(cfg)), params,
-                                     prompts[:2], max_len)
+    bounds = SERVE_LOGITS_ATOL[arch_name]
+    if encdec:
+        f32 = model_api(dataclasses.replace(cfg, dtype="float32"))
+        consistency = decode_prefill_err(
+            f32, f32.init(0, dev), prompts[:2], max_len,
+            {"frames": extra["frames"][:2]})
+        consistency.update(dtype="float32",
+                           ok=consistency["max_abs_err"]
+                           <= bounds["consistency_f32"])
+        torch.cuda.empty_cache()
+    else:
+        # the same weights with no token dropped, in prefill or decode,
+        # so that the two agree as the reference's check needs
+        consistency = decode_prefill_err(model_api(no_drop(cfg)), params,
+                                         prompts[:2], max_len)
+        consistency["ok"] = consistency["max_abs_err"] <= bounds["consistency"]
     res = {"phase": phase, "arch": arch_name, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": str(cfg.activation_dtype),
            "params": n_params, "weight_bytes": w_bytes,
@@ -4310,7 +4400,7 @@ def serve_model(dev, arch_name, phase, continuous, layers=None):
            # the decode cache: K/V (zero past the prompt until written)
            # and the Mamba layers' f32 states
            "cache_bytes": kv_bytes,
-           "batch": B, "prompt_len": SERVE_PROMPT, "max_new": max_new,
+           "batch": B, "prompt_len": prompt_len, "max_new": max_new,
            "max_len": max_len, "generate_s": gen_s,
            "tokens_per_s": out.size / gen_s,
            "prefill_ms": clock.prefill_ms()[0],
@@ -4325,9 +4415,14 @@ def serve_model(dev, arch_name, phase, continuous, layers=None):
            "consistency": consistency,
            "decode_profile": prof, "launches": launches,
            "first_row": out[0][:16].tolist()}
-    bounds = SERVE_LOGITS_ATOL[arch_name]
-    ok = res["deterministic"] and \
-        consistency["max_abs_err"] <= bounds["consistency"]
+    ok = res["deterministic"] and consistency["ok"]
+    if encdec:
+        res.update(enc_seq=cfg.enc_seq, enc_layers=cfg.enc_layers)
+        one = ServeEngine(api, params, max_len=max_len, batch=1)
+        res["generate_vs_batch1"] = batch1_err(one, prompts, extra, clock)
+        ok = ok and res["generate_vs_batch1"]["max_abs_err"] \
+            <= bounds["generate_vs_batch1"]
+        del one
     if continuous:
         res.update({
             "continuous_requests": len(done),
@@ -4337,7 +4432,7 @@ def serve_model(dev, arch_name, phase, continuous, layers=None):
             "continuous_sha256": tokens_digest([c.uid] + c.tokens for c in done),
             # the second wave decodes from prompt + max_new on: positions
             # at max_len and past it write the cache's last entry
-            "continuous_clamped_steps": max(0, SERVE_PROMPT + 2 * max_new
+            "continuous_clamped_steps": max(0, prompt_len + 2 * max_new
                                             - max_len)})
         ok = ok and sorted(c.uid for c in done) == list(range(SERVE_REQUESTS)) \
             and all(len(c.tokens) == max_new for c in done)
@@ -4415,15 +4510,19 @@ def phase_serve_consistency(dev):
 
 
 # ----------------------------------------------------------------------
-# The ssm, hybrid and vlm families
+# The ssm, hybrid, vlm and encdec families
 # ----------------------------------------------------------------------
 
 SSM_ARCH, SSM_TRAIN_LAYERS = "mamba2-1.3b", 12
 VLM_ARCH, VLM_TRAIN_LAYERS = "internvl2-2b", 4
 HYBRID_ARCH, HYBRID_SERVE_LAYERS = "jamba-v0.1-52b", 8    # one superblock
+# whisper-tiny whole (4 + 4 layers); 448 decoder tokens, Whisper's
+# published text context: the train's rows, and the serve's max_len
+# (prompts of 384, 64 new)
+ENCDEC_ARCH, ENCDEC_LAYERS, ENCDEC_SEQ, ENCDEC_PROMPT = "whisper-tiny", 4, 448, 384
 
 
-def stream_check(api, tc, state, check, dev):
+def stream_check(api, tc, state, check, dev, seq=SEQ, timed=False):
     """Rows 1 and 2 against their plain versions on the stream the next
     train step would send: each worker's gradients on its rows of batch
     ``STEPS`` at the trained state, top-k with the state's residual rows,
@@ -4432,9 +4531,12 @@ def stream_check(api, tc, state, check, dev):
     on the whole stream as the step launches it, held to phase 3's
     tolerance (Gaussian-like values; words and residual exactly). The
     moments are dropped first (the check needs the parameters and the
-    residuals).
+    residuals). With ``timed``, then each kernel's CUDA-event ms on this
+    stream (the producer on worker 0's, the consumer on the aggregate),
+    its plain version's and its bound (this stream's non-zeros, estimates
+    and the plain peel's rounds to the fixpoint).
     Returns the blocks, each worker's and the aggregate's non-zeros, the
-    estimated count and the kernels' output digests."""
+    estimated count, the kernels' output digests and the times."""
     import torch
     from repro_torch.core import index as index_lib
     from repro_torch.core.aggregators import sparsify_leaf
@@ -4448,7 +4550,7 @@ def stream_check(api, tc, state, check, dev):
     state.opt.clear()
     torch.cuda.empty_cache()
     leaves = state.params.leaves()
-    batch = device_batch(batch_fn(api.cfg, BATCH, SEQ, seed=tc.seed)(STEPS), dev)
+    batch = device_batch(batch_fn(api.cfg, BATCH, seq, seed=tc.seed)(STEPS), dev)
     per = BATCH // W
     group = LocalWorkers(W)
     payloads, nnz_w = [], []
@@ -4467,6 +4569,8 @@ def stream_check(api, tc, state, check, dev):
             ids = torch.arange(lp.nb, dtype=torch.int32, device=dev)
             nnz_w.append(int((xb != 0).sum()))
             payloads.append(check.producer(xb, ids, cfg, False))
+            if timed and w == 0:
+                xb0 = xb
             del stream, xb
     with torch.no_grad():
         sk = group.sum([p[0] for p in payloads])
@@ -4480,12 +4584,50 @@ def stream_check(api, tc, state, check, dev):
                "sha256_sketch_words_maxabs": enc,
                "sha256_values_residual": digest(values, res),
                "agree": True}
+        if timed:
+            out["timed"] = time_codec(xb0, sk, words, ids, cfg, dev, nnz_w[0],
+                                      nnz, int(res.sum()))
+            del xb0
     del sk, words, values, res
     torch.cuda.empty_cache()
     return out
 
 
-def plain_replay(api, tc, dev, want_digest, want_loss):
+def time_codec(xb, sk, words, ids, cfg, dev, nnz_in, nnz, n_res):
+    """Rows 1 and 2 on a train path's own stream: the producer on one
+    worker's blocks ``xb`` (``nnz_in`` non-zeros), the consumer on the
+    aggregate ``sk`` / ``words`` (``nnz`` set bits, ``n_res`` estimated);
+    each kernel's CUDA-event ms, its plain version's, its bound (the
+    bytes it moves, or this stream's operations with the plain peel's
+    rounds to its fixpoint), resident blocks an SM and shared memory."""
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.peeling import peel_blocks
+    from repro_torch.kernels import ops, ref
+    nb, G, c = xb.shape[0], cfg.group, cfg.lanes
+    bits = index_lib.unpack_bits(words.reshape(-1), (nb, G, c))
+    rounds = peel_blocks(sk, bits, ids, cfg).rounds_used
+    del bits
+    eb, eo, _, _ = codec_bytes_ops(nb, cfg, nnz_in, 0, 0, 0)
+    _, _, db, do = codec_bytes_ops(nb, cfg, 0, nnz, n_res, rounds)
+    out = {}
+    for name, kfn, pfn, nbytes, nops in [
+        ("encode_pack_quantize", lambda: ops.encode_pack_quantize(xb, ids, cfg),
+         lambda: ref.encode_pack_quantize_ref(xb, ids, cfg), eb, eo),
+        ("dequant_peel_unpack", lambda: ops.dequant_peel_unpack(sk, words, ids, cfg),
+         lambda: ref.dequant_peel_unpack_ref(sk, words, ids, cfg), db, do)]:
+        b_ms, b_by = bound(nbytes, nops)
+        blocks, smem = ops.kernel_occupancy(name, cfg, dev)
+        out[name] = {"geometry": {"ratio": cfg.ratio, "rows": cfg.rows,
+                                  "lanes": c, "group": G},
+                     "blocks": nb, "ms": cuda_ms(kfn, 10),
+                     "plain_ms": cuda_ms(pfn, 3, warmup=1), "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "ops": nops,
+                     "blocks_per_sm": blocks, "smem_bytes": smem,
+                     "plain_rounds_to_fixpoint": rounds}
+    return out
+
+
+def plain_replay(api, tc, dev, want_digest, want_loss, seq=SEQ):
     """Step 0 of the train again from the same init under
     ``use_pallas="never"`` (the plain versions of rows 1 and 2 on the
     card): no kernel may launch, and the parameters after the step must
@@ -4498,7 +4640,7 @@ def plain_replay(api, tc, dev, want_digest, want_loss):
         tc.compression, use_pallas="never"))
     params = api.init(tc.seed, dev)
     zero_launches()
-    res = run_training(api, never, global_batch=BATCH, seq_len=SEQ, steps=1,
+    res = run_training(api, never, global_batch=BATCH, seq_len=seq, steps=1,
                        device=dev, params=params, log_every=0)
     launches = dict(ops.LAUNCHES)
     got = param_digest(params)
@@ -4512,21 +4654,26 @@ def plain_replay(api, tc, dev, want_digest, want_loss):
     return out
 
 
-def phase_family_train(dev, check, phase, arch_name, layers):
-    """Phases 37-38: ``arch_name`` at its published widths, depth cut to
-    ``layers``, bf16, trained as phase 4 (W=2 emulated, global batch 8 x
-    1024 tokens, plus the vlm's 256 visual tokens a row, the arch's
+def phase_family_train(dev, check, phase, arch_name, layers, seq=SEQ,
+                       timed=False):
+    """Phases 37-38 and 41: ``arch_name`` at its published widths, depth
+    cut to ``layers``, bf16, trained as phase 4 (W=2 emulated, global
+    batch 8 x ``seq`` tokens, plus the vlm's 256 visual tokens or the
+    encdec's 1500 frames a row, the arch's
     ``compressed`` wire at ratio 0.1 and top-k 4%, AdamW with ZeRO-1, the
     ``block`` remat default, one warm-up and three timed steps): the
     producer W times and the consumer once a step (``phase_train``
     holds the counts). Then rows 1 and 2 against their plain versions on
     the next step's stream (``stream_check``) and step 0 replayed under
-    ``use_pallas="never"`` (``plain_replay``), bit for bit."""
+    ``use_pallas="never"`` (``plain_replay``), bit for bit. With
+    ``timed``, rows 1 and 2 timed on that stream beside their plain
+    versions and bounds (``time_codec``)."""
     import torch
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     line, launches, api, tc, state = phase_train(
-        dev, phase=phase, arch_name=arch_name, layers=layers, emit_line=False)
+        dev, phase=phase, arch_name=arch_name, layers=layers, emit_line=False,
+        seq=seq)
     cfg, n = tc.compression, line["params"]
     line["buckets_per_step"] = cfg.num_buckets(n)
     line["blocks_per_step"] = (cfg.num_buckets(n) * cfg.bucket_elems_for(n)
@@ -4534,12 +4681,15 @@ def phase_family_train(dev, check, phase, arch_name, layers):
     line["remat"] = tc.remat
     if api.cfg.family == "vlm":
         line["vis_tokens"] = api.cfg.vis_tokens
-    line["stream_check"] = stream_check(api, tc, state, check, dev)
+    if api.cfg.family == "encdec":
+        line.update(enc_layers=api.cfg.enc_layers, enc_seq=api.cfg.enc_seq)
+    line["stream_check"] = stream_check(api, tc, state, check, dev, seq=seq,
+                                        timed=timed)
     del state
     torch.cuda.empty_cache()
     line["plain_replay"] = plain_replay(api, tc, dev,
                                         line["param_sha256_by_step"][0],
-                                        line["losses"][0])
+                                        line["losses"][0], seq=seq)
     line["final_param_sha256"] = line["param_sha256_by_step"][-1]
     line["wall_s"] = time.perf_counter() - t0
     emit(line)
@@ -4613,15 +4763,20 @@ def main() -> int:
           bloom["step_ms"], dev, phase="bloom_breakdown")
     del state
     torch.cuda.empty_cache()
-    launches_dist, link = timed("dist_train", phase_dist_train, train["losses"])
     launches_stream = timed("stream_train", phase_stream_train, dev,
                             tc.compression, train, innet, shapes_dtypes)
     torch.cuda.empty_cache()
     launches_rs, rs_arms = timed("rs_train", phase_rs_train, dev, tc.compression,
                                  train, shapes_dtypes, consumer_ms)
     torch.cuda.empty_cache()
+    # one spawn runs the rank work of every dist_* phase but dist_ckpt;
+    # each phase then checks its own ranks' results
+    ranks, dist_wall = timed("dist_spawn", spawn_dist, shapes_dtypes,
+                             cfg.num_buckets(train["params"]))
+    launches_dist, link = timed("dist_train", phase_dist_train,
+                                train["losses"], ranks["dist_train"], dist_wall)
     launches_dist_rs = timed("dist_rs", phase_dist_rs, tc.compression, rs_arms,
-                             train, shapes_dtypes)
+                             train, shapes_dtypes, ranks["dist_rs"], dist_wall)
     n = train["params"]
     n_blocks = cfg.num_buckets(n) * cfg.bucket_elems_for(n) // cfg.block_elems
     recs = timed("main_stream", phase_main_stream, cfg, dev, n_blocks, check)
@@ -4643,7 +4798,8 @@ def main() -> int:
         link_bps=link["bytes"] / (link["ms"] / 1e3))
     torch.cuda.empty_cache()
     launches_dist_auto = timed("dist_auto", phase_dist_auto,
-                               cfg.num_buckets(n), auto_digests)
+                               cfg.num_buckets(n), auto_digests,
+                               ranks["dist_auto"], dist_wall)
     torch.cuda.empty_cache()
     launches_moe, (moe_line, moe_api, moe_tc, state) = timed(
         "moe_train", phase_moe_train, dev)
@@ -4651,7 +4807,8 @@ def main() -> int:
           moe_line["step_ms"], dev)
     del state
     torch.cuda.empty_cache()
-    launches_dist_a2a = timed("dist_a2a", phase_dist_a2a)
+    launches_dist_a2a = timed("dist_a2a", phase_dist_a2a, ranks["dist_a2a"],
+                              dist_wall)
     torch.cuda.empty_cache()
     elastic_k = timed("kernels_elastic", phase_kernels_elastic, dev, check, n)
     launches_elastic = timed("elastic", phase_elastic, dev, n)
@@ -4684,6 +4841,14 @@ def main() -> int:
     launches_serve["hybrid_serve"] = timed(
         "hybrid_serve", serve_model, dev, HYBRID_ARCH, "hybrid_serve", False,
         layers=HYBRID_SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    launches_family["encdec_train"] = timed(
+        "encdec_train", phase_family_train, dev, check, "encdec_train",
+        ENCDEC_ARCH, ENCDEC_LAYERS, seq=ENCDEC_SEQ, timed=True)
+    torch.cuda.empty_cache()
+    launches_serve["encdec_serve"] = timed(
+        "encdec_serve", serve_model, dev, ENCDEC_ARCH, "encdec_serve", False,
+        prompt_len=ENCDEC_PROMPT, max_len=ENCDEC_SEQ)
     torch.cuda.empty_cache()
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the

@@ -551,3 +551,44 @@ class AggregationState:
     residual: Any
     stats: Any = None
     telemetry: Any = None
+
+
+def init_aggregation_state(params, cfg, group) -> AggregationState:
+    """Zero error-feedback residuals for ``params`` (its leaves, or a
+    sequence of tensors), one f32 row a local worker of ``group``:
+    ``(local_workers, *shape)`` on the leaf's device where ``cfg`` keeps
+    top-k with error feedback, else ``(0,)`` stubs; the train step's own
+    residuals (``train.step.init_train_state``).
+
+    The reference's ``init_aggregation_state(params, cfg)`` keeps one
+    residual of the parameter's shape and sharding: a device's view of
+    it is its worker's row. ``group`` stands in for the mesh that places
+    those views, and gives their number here."""
+    leaves = params.leaves() if hasattr(params, "leaves") else list(params)
+    if cfg.topk_ratio is not None and cfg.error_feedback:
+        res = [torch.zeros((group.local_workers,) + tuple(p.shape),
+                           dtype=torch.float32, device=p.device) for p in leaves]
+    else:
+        res = [torch.zeros((0,), dtype=torch.float32, device=p.device)
+               for p in leaves]
+    return AggregationState(residual=res)
+
+
+def compressed_all_reduce(grads_w, agg_state: AggregationState, group, cfg,
+                          mean: bool = True, reduce_scatter: bool = False):
+    """Aggregate the local workers' gradients (``grads_w[w]``: local
+    worker w's leaves) with the paper's compressed pipeline: a thin
+    wrapper over :func:`~repro_torch.core.aggregators.make_aggregator`'s
+    ``"compressed"`` strategy, or ``"compressed_rs"`` with
+    ``reduce_scatter``, kept as the reference keeps its own for API
+    compatibility. Returns ``(aggregated leaves, new AggregationState)``.
+
+    The reference's ``param_specs``, ``mesh``, ``dp_axes``, ``tp_axes``
+    and ``outer_manual`` have no counterpart: they place a ``shard_map``
+    region on a device mesh, and the port's workers are ``group`` (a
+    ``LocalWorkers`` or ``ProcessGroupWorkers``), whose W is the
+    data-parallel size; nothing is tensor-parallel yet."""
+    # late: aggregators imports this module's primitives
+    from .aggregators import make_aggregator
+    name = "compressed_rs" if reduce_scatter else "compressed"
+    return make_aggregator(name, cfg, group, mean=mean)(grads_w, agg_state)

@@ -2,7 +2,7 @@
 
 Every batch is a pure numpy function of ``(seed, step)``, the
 reference's own construction, so the port and the reference train on the
-same tokens (and, for the vlm family, the same ``vis_embed`` bytes), and
+same tokens (and the same ``frames`` or ``vis_embed`` bytes), and
 a restart replays the exact stream without any persisted iterator
 state.
 """
@@ -22,11 +22,10 @@ from repro_torch.models.config import ModelConfig
 def batch_fn(cfg: ModelConfig, global_batch: int, seq_len: int,
              seed: int = 0) -> Callable[[int], Dict[str, np.ndarray]]:
     """Returns step -> host batch dict: tokens, labels int32 (B, S); for
-    the vlm family also ``vis_embed`` f32 (B, vis_tokens, D), the stub
-    vision frontend's patch embeddings, drawn from the same generator
-    after the tokens."""
-    if cfg.family == "encdec":
-        raise NotImplementedError("family 'encdec' is not ported yet")
+    the encdec family also ``frames`` f32 (B, enc_seq, D), the stub audio
+    frontend's frame embeddings, and for the vlm family ``vis_embed`` f32
+    (B, vis_tokens, D), the stub vision frontend's patch embeddings, each
+    drawn from the same generator after the tokens."""
 
     def make(step: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(
@@ -34,6 +33,10 @@ def batch_fn(cfg: ModelConfig, global_batch: int, seq_len: int,
         toks = rng.integers(0, cfg.vocab, (global_batch, seq_len + 1),
                             dtype=np.int32)
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.normal(
+                0, 1, (global_batch, cfg.enc_seq, cfg.d_model)
+            ).astype(np.float32)
         if cfg.family == "vlm":
             batch["vis_embed"] = rng.normal(
                 0, 1, (global_batch, cfg.vis_tokens, cfg.d_model)
@@ -45,7 +48,7 @@ def batch_fn(cfg: ModelConfig, global_batch: int, seq_len: int,
 
 def host_tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """numpy batch -> CPU tensors: integer arrays (tokens, labels) as
-    int64, float arrays (``vis_embed``) in their own dtype."""
+    int64, float arrays (``frames``, ``vis_embed``) in their own dtype."""
     return {k: torch.from_numpy(v).to(torch.int64)
             if np.issubdtype(v.dtype, np.integer) else torch.from_numpy(v)
             for k, v in batch.items()}

@@ -175,7 +175,10 @@ def run_elastic(args, cfg, params, hooks=None):
 
 def run_serving(args, cfg, params):
     """The reference's batch and ``--continuous`` modes: ``args.batch``
-    prompts of ``args.prompt_len`` tokens from ``default_rng(0)``; batch
+    prompts of ``args.prompt_len`` tokens from ``default_rng(0)`` (for
+    the encdec family then ``frames`` from the same generator, passed to
+    ``generate``; the batcher passes none, and fails as the reference's
+    does); batch
     generation of ``args.max_new`` tokens, or ``2 x batch`` requests
     (prompt ``u % batch``) through the continuous batcher for
     ``3 x max_new`` decode steps. ``max_len`` defaults to ``prompt_len +
@@ -191,6 +194,10 @@ def run_serving(args, cfg, params):
     rng = np.random.default_rng(0)
     prompts = rng.integers(1, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = rng.normal(
+            0, 1, (args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
 
     if args.continuous:
         cb = ContinuousBatcher(eng)
@@ -206,7 +213,7 @@ def run_serving(args, cfg, params):
         return done
 
     t0 = _clock(dev)
-    out = eng.generate(prompts, max_new=args.max_new)
+    out = eng.generate(prompts, max_new=args.max_new, extra=extra or None)
     dt = _clock(dev) - t0
     toks = out.size
     print(f"batch generate: {out.shape} tokens in {dt:.2f}s "

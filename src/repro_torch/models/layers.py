@@ -1,4 +1,4 @@
-"""Shared layers of the decoder: norm, RoPE, attention, SwiGLU, MoE.
+"""Shared layers: norms, RoPE, attention, SwiGLU / GELU MLPs, MoE.
 
 Functional, as in the reference: ``init_*`` build param subtrees (plain
 dicts of tensors, weights ``(in, out)``, layers stacked on dim 0 via the
@@ -7,10 +7,13 @@ dicts of tensors, weights ``(in, out)``, layers stacked on dim 0 via the
 Attention is plain PyTorch math with the reference's semantics (f32
 scores, causal mask at -1e30, f32 softmax, unnormalised probabilities
 cast to the value dtype before the value product, division by the
-softmax sum after it). The reference's ``flash_attention`` is jnp, not a
-Pallas kernel, so no hand kernel is owed; its query/key blocking changes
-only the rounding. Decode (``attention_decode``) normalises before its
-value product, as the reference's does.
+softmax sum after it), causal or not, self or cross (keys from another
+sequence, of any length). The reference's ``flash_attention`` is jnp,
+not a Pallas kernel, so no hand kernel is owed; its query/key blocking
+and padding change only the rounding (padded keys are masked, padded
+queries dropped). Decode (``attention_decode``,
+``attention_cross_decode``) normalises before its value product, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -36,6 +39,21 @@ def rmsnorm(x: torch.Tensor, p, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+def init_layernorm(d: int, lead: Tuple[int, ...] = (), device=None):
+    return {"scale": torch.ones(lead + (d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros(lead + (d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's LayerNorm: f32 mean and (biased) variance,
+    ``(x - mu) * rsqrt(var + eps)``, scale and bias, cast back."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -86,7 +104,9 @@ def dense_init(gen: torch.Generator, shape, in_dim: int, dtype) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   lead: Tuple[int, ...] = ()):
+                   lead: Tuple[int, ...] = (), cross: bool = False):
+    """q/k/v/o projections, and the q/k/v biases where ``cfg.qkv_bias``
+    and not ``cross`` (a cross-attention layer has none)."""
     D, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = cfg.activation_dtype
     p = {
@@ -95,26 +115,30 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
         "wv": dense_init(gen, lead + (D, KV * hd), D, dt),
         "wo": dense_init(gen, lead + (H * hd, D), H * hd, dt),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
             p[name] = torch.zeros(lead + (width,), dtype=dt, device=gen.device)
     return p
 
 
-def _project_qkv(x, p, cfg: ModelConfig):
-    """Returns q (B,S,H,hd), k/v (B,S,KV,hd)."""
+def _project_qkv(x, p, cfg: ModelConfig, kv_input=None):
+    """Returns q (B,S,H,hd), k/v (B,Skv,KV,hd): k and v from ``kv_input``
+    (B,Skv,D) where given (cross-attention), else from ``x``."""
     B, S, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    kv_x = x if kv_input is None else kv_input
+    q, k, v = x @ p["wq"], kv_x @ p["wk"], kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    Skv = kv_x.shape[1]
     return (q.reshape(B, S, cfg.n_heads, cfg.hd),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.hd),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.hd))
+            k.reshape(B, Skv, cfg.n_kv_heads, cfg.hd),
+            v.reshape(B, Skv, cfg.n_kv_heads, cfg.hd))
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal attention. q: (B, S, H, hd); k, v: (B, S, KV, hd) ->
-    (B, S, H, hd).
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd); with
+    ``causal`` query i sees keys ``0..i``, else every key.
 
     Query head h reads KV head ``h // (H // KV)``. Scores and the value
     product are taken in f32 from the working-dtype operands, as the
@@ -123,10 +147,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     rep = H // k.shape[2]
     kh = k.repeat_interleave(rep, dim=2)
     vh = v.repeat_interleave(rep, dim=2)
-    qf = q.to(torch.float32).transpose(1, 2)                      # (B,H,S,hd)
+    qf = q.to(torch.float32).transpose(1, 2)                      # (B,H,Sq,hd)
     s = qf @ kh.to(torch.float32).permute(0, 2, 3, 1) * (1.0 / math.sqrt(hd))
-    pos = torch.arange(S, device=q.device)
-    s = s.masked_fill(pos[:, None] < pos[None, :], -1e30)
+    if causal:
+        qpos = torch.arange(S, device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], -1e30)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -134,17 +160,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     return (o / l).transpose(1, 2).to(q.dtype)
 
 
-def attention_train(x, p, cfg: ModelConfig, positions=None):
-    """Causal self-attention for training and prefill. x: (B,S,D) ->
-    ``(out, (k, v))``, ``k`` after RoPE, as the reference's
-    ``attention_train``; prefill keeps ``(k, v)`` as its cache."""
+def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
+                    kv_input=None):
+    """Self- (or, with ``kv_input``, cross-) attention for training and
+    prefill. x: (B,S,D) -> ``(out, (k, v))``, as the reference's
+    ``attention_train``; prefill keeps ``(k, v)`` as its cache.
+
+    RoPE goes on q and k whenever ``kv_input`` is None, causal or not
+    (the reference's rule: the encdec encoder's non-causal
+    self-attention takes it too), and never on cross-attention."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(x, p, cfg)
+    q, k, v = _project_qkv(x, p, cfg, kv_input=kv_input)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v).reshape(B, S, -1)
+    if kv_input is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions[:, :k.shape[1]], cfg.rope_theta)
+    o = attention(q, k, v, causal=causal).reshape(B, S, -1)
     return o @ p["wo"], (k, v)
 
 
@@ -183,19 +215,41 @@ def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, position: int,
     return o.to(x.dtype).reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
 
 
+def attention_cross_decode(x, p, cfg: ModelConfig, enc_k, enc_v):
+    """Cross-attention for decode: x (B,1,D) against the static encoder
+    K/V (B,Senc,KV,hd): no mask, no RoPE, no cache write. The grouped
+    scores in f32, the softmax normalised in f32 and cast to the values'
+    dtype before the value product, as ``attention_decode``."""
+    B, hd, KV = x.shape[0], cfg.hd, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(B, KV, cfg.n_heads // KV, hd).to(torch.float32)
+    s = q @ enc_k.to(torch.float32).permute(0, 2, 3, 1) * (1.0 / math.sqrt(hd))
+    w = torch.softmax(s, dim=-1).to(enc_v.dtype)
+    o = w.to(torch.float32) @ enc_v.to(torch.float32).transpose(1, 2)
+    return o.to(x.dtype).reshape(B, 1, -1) @ p["wo"]
+
+
 # ----------------------------------------------------------------------
-# SwiGLU MLP
+# SwiGLU / GELU MLPs
 # ----------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d: int, f: int, dtype,
-             lead: Tuple[int, ...] = ()):
-    return {"w_up": dense_init(gen, lead + (d, f), d, dtype),
-            "w_down": dense_init(gen, lead + (f, d), f, dtype),
-            "w_gate": dense_init(gen, lead + (d, f), d, dtype)}
+             lead: Tuple[int, ...] = (), gated: bool = True):
+    p = {"w_up": dense_init(gen, lead + (d, f), d, dtype),
+         "w_down": dense_init(gen, lead + (f, d), f, dtype)}
+    if gated:
+        p["w_gate"] = dense_init(gen, lead + (d, f), d, dtype)
+    return p
 
 
 def mlp(x, p):
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """SwiGLU where ``p`` has ``w_gate``, else GELU in its tanh form
+    (``jax.nn.gelu``'s default)."""
+    h = x @ p["w_up"]
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"]) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["w_down"]
 
 
 # ----------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Decoder-only LM covering the dense / moe / ssm / hybrid / vlm families.
+"""Decoder-only LM covering the dense / moe / ssm / hybrid / vlm families
+(the encdec family is ``models/encdec.py``).
 
 Layer parameters are stacked on a leading layer axis, as in the
 reference, and the forward walks them with a Python loop:
@@ -52,7 +53,7 @@ from .params import ParamTree
 from . import layers as L
 from . import ssm as S
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 REMAT_POLICIES = ("none", "block", "block_nocse", "dots")
 # products with no batch dims: ``x @ W`` on a 2-D or 3-D ``x`` (folded to
 # 2-D) dispatches to ``aten.mm`` (a forward of the smoke configs, under a
@@ -67,7 +68,15 @@ def _require_ported(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r}: the port runs {list(PORTED_FAMILIES)} "
-            "only (the encdec family, whisper-tiny, is not ported yet)")
+            "only, the reference's six")
+
+
+def _require_decoder_lm(cfg: ModelConfig):
+    """This module's functions build the decoder LMs; encdec has its own
+    (``models/encdec.py``)."""
+    _require_ported(cfg)
+    if cfg.family == "encdec":
+        raise ValueError("the encdec family is built by models/encdec.py")
 
 
 def _attn_layer_params(gen: torch.Generator, cfg: ModelConfig, lead):
@@ -113,7 +122,7 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda") -> ParamTree:
     The numbers differ from the reference's ``jax.random`` init; load the
     reference's params with :func:`repro_torch.convert.params_from_jax`
     where the two must start equal."""
-    _require_ported(cfg)
+    _require_decoder_lm(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dt, D, Vp = cfg.activation_dtype, cfg.d_model, cfg.padded_vocab
@@ -298,7 +307,7 @@ def lm_hidden(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     a ``stop_gradient`` value from its recompute the same way), so the
     exchange's kernels and collectives run once a step under every
     policy."""
-    _require_ported(cfg)
+    _require_decoder_lm(cfg)
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; have {list(REMAT_POLICIES)}")
     x = _embed(tree, tokens, vis_embed)
@@ -356,7 +365,7 @@ def init_cache(tree: Dict, cfg: ModelConfig, batch: int, max_len: int
     """The decode cache of the family (see the module doc), zeros on the
     params' device: K/V in ``cfg.activation_dtype``, Mamba states in
     f32."""
-    _require_ported(cfg)
+    _require_decoder_lm(cfg)
     dt, dev = cfg.activation_dtype, tree["embed"].device
     kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     if cfg.family == "ssm":
@@ -390,7 +399,7 @@ def lm_prefill(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     prompt, as the reference's padded scan output (``S_full`` counts
     the visual prefix); a Mamba layer's chunked scan gives its final
     state. Only the last position is unembedded."""
-    _require_ported(cfg)
+    _require_decoder_lm(cfg)
     B, S_tok = tokens.shape
     x = _embed(tree, tokens, vis_embed)
     S = x.shape[1]
@@ -436,7 +445,7 @@ def lm_decode(tree: Dict, cfg: ModelConfig, token: torch.Tensor,
     cache)``, the cache updated in place (``layers.attention_decode``,
     whose write clamps at the cache's end; the Mamba states). The MoE
     layers route at ``capacity_factor_decode``."""
-    _require_ported(cfg)
+    _require_decoder_lm(cfg)
     x = tree["embed"][token[:, None]]
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):

@@ -25,14 +25,18 @@ reference's, kept on purpose:
   position inside the superblock there: with ``attn_period`` 2 slot 0's
   admission broadcasts its Mamba state over every slot and later slots
   write none; with a longer period the shapes do not broadcast and the
-  admission raises, as the reference's does.
+  admission raises, as the reference's does;
+- the single-request prefill passes the prompt's tokens alone, so on the
+  encdec family, whose prefill needs ``frames``, the first admission
+  raises ``KeyError``, as the reference's does (``generate`` takes the
+  frames as ``extra``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import queue
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -68,12 +72,17 @@ class ServeEngine:
         self.batch = batch
 
     @torch.inference_mode()
-    def prefill(self, tokens: np.ndarray):
-        """(B, S) prompts -> (last logits (B, V), cache of ``max_len``
-        positions)."""
+    def prefill(self, tokens: np.ndarray,
+                extra: Optional[Dict[str, Any]] = None):
+        """(B, S) prompts (and ``extra`` batch entries, e.g. the encdec
+        family's ``frames``, moved to the device as they are) -> (last
+        logits (B, V), cache of ``max_len`` positions)."""
         tokens = torch.as_tensor(np.asarray(tokens), device=self.device)
-        return self.api.prefill(self.tree, {"tokens": tokens.long()},
-                                self.max_len)
+        batch = {"tokens": tokens.long()}
+        if extra:
+            batch.update({k: torch.as_tensor(np.asarray(v), device=self.device)
+                          for k, v in extra.items()})
+        return self.api.prefill(self.tree, batch, self.max_len)
 
     @torch.inference_mode()
     def decode(self, tok: torch.Tensor, cache, pos: int):
@@ -84,12 +93,14 @@ class ServeEngine:
     # -- simple batch generate ----------------------------------------
 
     @torch.inference_mode()
-    def generate(self, tokens: np.ndarray, max_new: int) -> np.ndarray:
-        """tokens: (B, S) prompts (same length). Greedy decode ->
-        (B, max_new) int32. The tokens stay on the device until the
-        end, so the host does not wait on the device between steps."""
+    def generate(self, tokens: np.ndarray, max_new: int,
+                 extra: Optional[Dict[str, Any]] = None) -> np.ndarray:
+        """tokens: (B, S) prompts (same length); ``extra``: more batch
+        entries for the prefill (the encdec family's ``frames``). Greedy
+        decode -> (B, max_new) int32. The tokens stay on the device until
+        the end, so the host does not wait on the device between steps."""
         S = tokens.shape[1]
-        logits, cache = self.prefill(tokens)
+        logits, cache = self.prefill(tokens, extra)
         out = []
         tok = logits.argmax(dim=-1)
         pos = S

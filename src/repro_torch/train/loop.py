@@ -51,7 +51,7 @@ class TrainResult:
 
 def device_batch(host: Dict, device) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device``: integer arrays as int64,
-    float arrays (``vis_embed``) in their own dtype."""
+    float arrays (``frames``, ``vis_embed``) in their own dtype."""
     return {k: v.to(device) for k, v in host_tensors(host).items()}
 
 

@@ -194,3 +194,37 @@ def test_lossless_profile_compressed_equals_dense(kind):
             assert torch.equal(a, b)
         else:
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("reduce_scatter", [False, True])
+def test_compressed_all_reduce_is_its_aggregator(reduce_scatter):
+    """The thin wrappers (the reference's ``init_aggregation_state`` and
+    ``compressed_all_reduce``) equal the aggregator they wrap on
+    ``LocalWorkers``, outputs, residuals and stats bit for bit, over 3
+    steps of Gaussian gradients; without error feedback the residuals
+    are ``(0,)`` stubs."""
+    from repro_torch.core.collectives import (compressed_all_reduce,
+                                              init_aggregation_state)
+    rng = np.random.default_rng(7)
+    W, cfg = 2, tcfg(JCFG)
+    group = LocalWorkers(W)
+    params = [torch.zeros(s) for s in SHAPES]
+    st = init_aggregation_state(params, cfg, group)
+    assert [tuple(r.shape) for r in st.residual] == [(W,) + s for s in SHAPES]
+    assert all(r.dtype == torch.float32 and not r.any() for r in st.residual)
+    stubs = init_aggregation_state(
+        params, dataclasses.replace(cfg, error_feedback=False), group)
+    assert all(tuple(r.shape) == (0,) for r in stubs.residual)
+    ref_st = AggregationState(residual=[r.clone() for r in st.residual])
+    agg = make_aggregator("compressed_rs" if reduce_scatter else "compressed",
+                          cfg, group)
+    for _ in range(3):
+        grads = [[torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in SHAPES] for _ in range(W)]
+        got, st = compressed_all_reduce(grads, st, group, cfg,
+                                        reduce_scatter=reduce_scatter)
+        want, ref_st = agg(grads, ref_st)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in zip(st.residual, ref_st.residual))
+        assert (int(st.stats.nnz), int(st.stats.peeled)) == \
+            (int(ref_st.stats.nnz), int(ref_st.stats.peeled))

@@ -1,7 +1,8 @@
-"""The port's architecture registry against the reference's: every arch
-of ``repro.configs.ARCHS`` but whisper-tiny (the encdec family, not
-ported yet) with equal ``model``, ``smoke`` and ``train`` fields; and
-smoke-size training of the two settings no other file runs:
+"""The port's architecture and shape registries against the reference's:
+every arch of ``repro.configs.ARCHS`` with equal ``model``, ``smoke``
+and ``train`` fields, the same analytic parameter counts, shape cells,
+shape rule and batch shapes and dtypes; and smoke-size training of the
+two settings no other file runs:
 
 - qwen2-7b, dense with ``qkv_bias`` (``layers.py:_project_qkv``'s bias
   path), with the config's AdamW;
@@ -24,7 +25,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs import ARCHS as J_ARCHS
-from repro_torch.configs import get_arch, list_archs
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import make_batch_struct as j_make_batch_struct
+from repro_torch.configs import SHAPES, get_arch, list_archs, make_batch_struct
 from repro_torch.convert import params_to_numpy
 from repro_torch.data.pipeline import batch_fn
 from repro_torch.models.registry import model_api
@@ -46,16 +49,17 @@ def one_thread():
 
 
 def test_registry_is_the_reference_s_but_encdec():
-    want = sorted(k for k, a in J_ARCHS.items() if a.model.family != "encdec")
-    assert list_archs() == want
-    assert "whisper-tiny" not in list_archs()
-    assert {J_ARCHS[k].model.family for k in want} == set(PORTED_FAMILIES)
-    with pytest.raises(KeyError, match="whisper-tiny"):
-        get_arch("whisper-tiny")
+    """The registry is the reference's whole, encdec (whisper-tiny)
+    included, over the six families; an unknown name raises KeyError."""
+    assert list_archs() == sorted(J_ARCHS)
+    assert "whisper-tiny" in list_archs()
+    assert {a.model.family for a in J_ARCHS.values()} == set(PORTED_FAMILIES)
+    assert get_arch("whisper-tiny").model.family == "encdec"
+    with pytest.raises(KeyError, match="bogus"):
+        get_arch("bogus")
 
 
-@pytest.mark.parametrize("name", sorted(
-    k for k, a in J_ARCHS.items() if a.model.family != "encdec"))
+@pytest.mark.parametrize("name", sorted(J_ARCHS))
 def test_arch_fields_equal_reference(name):
     got, want = get_arch(name), J_ARCHS[name]
     assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
@@ -69,13 +73,37 @@ def test_arch_fields_equal_reference(name):
 
 
 def test_encdec_raises_not_implemented():
-    cfg = J_ARCHS["whisper-tiny"].smoke
-    from repro_torch.models.config import ModelConfig
-    port = ModelConfig(**dataclasses.asdict(cfg))
-    with pytest.raises(NotImplementedError, match="encdec"):
-        model_api(port)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        batch_fn(port, B, S)
+    """The analytic counts and the shape registry of every arch, model and
+    smoke, equal the reference's: ``param_count`` and
+    ``active_param_count`` (for whisper-tiny the reference's formula,
+    41,159,040, where its tree has 36,487,680), ``SHAPES``,
+    ``shape_supported`` on each cell, and ``make_batch_struct``'s keys,
+    shapes and dtypes (``meta`` tensors against ``ShapeDtypeStruct``s);
+    and the encdec family builds and draws batches (``model_api``,
+    ``batch_fn``) where it once raised ``NotImplementedError``."""
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}
+    for name, jarch in J_ARCHS.items():
+        arch = get_arch(name)
+        for got, want in ((arch.model, jarch.model), (arch.smoke, jarch.smoke)):
+            assert got.param_count() == want.param_count(), name
+            assert got.active_param_count() == want.active_param_count(), name
+            for sb in (4, 2), (3, 16):
+                ours = make_batch_struct(got, *sb)
+                theirs = j_make_batch_struct(want, *sb)
+                assert sorted(ours) == sorted(theirs), name
+                for k, t in ours.items():
+                    assert t.device.type == "meta"
+                    assert tuple(t.shape) == theirs[k].shape, (name, k)
+                    assert str(t.dtype) == f"torch.{theirs[k].dtype}", (name, k)
+        for shape in J_SHAPES.values():
+            assert arch.shape_supported(SHAPES[shape.name]) == \
+                jarch.shape_supported(shape), (name, shape.name)
+    assert get_arch("whisper-tiny").model.param_count() == 41_159_040
+    smoke = get_arch("whisper-tiny").smoke
+    assert model_api(smoke).cfg.family == "encdec"
+    assert batch_fn(smoke, B, S)(0)["frames"].shape == \
+        (B, smoke.enc_seq, smoke.d_model)
 
 
 @pytest.mark.parametrize("name", ["qwen2-7b", "kimi-k2-1t-a32b"])
@@ -101,15 +129,16 @@ def test_smoke_training_matches_reference(name):
 
 
 NEW_ARCHS = ("qwen2-7b", "qwen2.5-3b", "qwen1.5-32b", "mamba2-1.3b",
-             "internvl2-2b", "jamba-v0.1-52b", "kimi-k2-1t-a32b")
+             "internvl2-2b", "jamba-v0.1-52b", "kimi-k2-1t-a32b",
+             "whisper-tiny")
 
 
 @pytest.mark.parametrize("name", NEW_ARCHS)
 def test_launchers_take_the_arch(capsys, name):
     """``launch.train`` and ``launch.serve`` on the CPU at the smoke
     size: a finite loss from one step of the arch's train settings, and greedy tokens
-    of the batch's shape (the serve launcher passes no ``vis_embed``, as
-    the reference's)."""
+    of the batch's shape (the serve launcher passes no ``vis_embed``, and
+    ``frames`` for encdec, as the reference's)."""
     from repro_torch.launch.serve import main as serve
     from repro_torch.launch.train import main as train
     out = train(["--arch", name, "--smoke", "--steps", "1", "--global-batch",

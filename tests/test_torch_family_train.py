@@ -1,6 +1,7 @@
-"""W=2 training of the ssm and hybrid families against the JAX reference:
-the smoke configs of ``configs/mamba2_1_3b.py`` and
-``configs/jamba_v0_1_52b.py`` (float32), through the lossless compressed
+"""W=2 training of the ssm, hybrid and encdec families against the JAX
+reference: the smoke configs of ``configs/mamba2_1_3b.py``,
+``configs/jamba_v0_1_52b.py`` and ``configs/whisper_tiny.py`` (float32;
+whisper's batches carry ``frames``), through the lossless compressed
 wire, as ``tests/test_torch_train.py::
 test_w2_lossless_compressed_tracks_dense_and_reference`` does for
 granite-3-2b.
@@ -112,13 +113,14 @@ def port_w2(cfg, np_params, aggregator, steps, ocfg, compression):
                         params=params_from_jax(np_params, "cpu"), log_every=0)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b",
+                                  "whisper-tiny"])
 def test_w2_lossless_compressed_tracks_dense_and_reference(arch):
     """Three steps: the port's compressed run recovers every coordinate,
     tracks its dense run within 1e-4 and the reference's composed
     compressed run to rtol=1e-5. The port trains under its default
-    ``block`` remat (for jamba a whole superblock a unit), the
-    reference's composition under ``none``."""
+    ``block`` remat (for jamba a whole superblock a unit, for whisper
+    each decoder layer), the reference's composition under ``none``."""
     cfg = get_arch(arch).smoke
     np_params = params_to_numpy(model_api(cfg).init(0, "cpu"))
     dense = port_w2(cfg, np_params, "dense", 3, MOMENTUM, LOSSLESS)
