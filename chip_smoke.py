@@ -299,7 +299,9 @@ runs the ``block`` remat default):
     a parameter), each save's blocking host copy and background write,
     the view's and the restore's time.
 33. dist_ckpt — W=2 ranks sharing ``cuda:0`` over gloo train phase 4's
-    first two steps and checkpoint (every rank gathers, rank 0 writes);
+    first two steps and checkpoint (every rank gathers, rank 0 writes;
+    in the spawn of phase 18's ranks, the checkpoint kept under
+    ``build/`` until this phase);
     the emulated workers restore it and train steps 2-3. The ranks'
     losses and parameters equal phase 4's, one producer and one
     consumer a step a rank, the restored run's final sha256 equal to
@@ -394,6 +396,32 @@ freed):
     card's readings. The decode bound counts the weights and the whole
     cache (self K/V and the cross K/V of 1500 frames).
 
+The model axis (after phase 42, its memory freed):
+
+43. dist_model — a grid of 2 data-parallel x 2 model ranks: 4 gloo
+    ranks sharing ``cuda:0`` (host-staged), each holding its shards of
+    the sharding profile's splits (attention and MLP columns / rows,
+    the vocab, the routed experts in groups of E/2) and its data
+    index's rows of phase 4's global batch; granite-3-2b at full width,
+    depth 4, under ``compressed`` (top-k 4%, ZeRO-1) and ``dense``, and
+    deepseek-moe-16b at full width, depth 1, under ``ep_exchange``
+    ``none``, ``dense`` and ``compressed`` (the exchange over the model
+    ranks), two steps an arm (``DIST_MODEL_STEPS``). Holds on every
+    rank: one producer and one consumer a step (compressed granite),
+    none on dense; the step-0 shard-local aggregate within phase 3's
+    tolerance of the plain aggregator's on the same group and inputs,
+    the residuals bit for bit, and on dyadic gradients of the same
+    leaves the two aggregates bit for bit;
+    the replicated leaves' step-0 gradients equal across the model ranks
+    of a data index; the compressed exchange equal to the dense one bit
+    for bit (losses, parameter shards) and within rtol 1e-2 of ``none``;
+    the dense arm's losses within ``DIST_MODEL_LOSS_RTOL`` of the
+    emulated W=2 train's (phase 4's first two, which run at the initial
+    parameters: the learning rate is 0 at step 0). Prints, beside the card's name and power
+    limit, step ms, peak memory a rank and the card's (polled), the
+    launches a rank, and the last step's model-axis collectives replayed
+    alone (ms and bytes a rank).
+
 Each phase's wall seconds follow it on a ``phase_seconds`` line, and all
 of them together (``phase_seconds_all``) precede the kernels line. To
 keep the script well inside its time limit, ``dist_train`` and
@@ -405,7 +433,8 @@ Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path (the ``auto``
 phases', the MoE trains' and phases 37-38's and 41's too), ``dist_train``'s, ``dist_rs``'s,
-``dist_auto``'s and ``dist_a2a``'s summed over the ranks, rows 1 and 2
+``dist_auto``'s and ``dist_a2a``'s summed over the ranks, each
+``dist_model`` arm's summed over its 4 ranks, rows 1 and 2
 with their ``kernels_a2a`` times under ``a2a``, rows 1, 2 and 4 with
 their ``kernels_elastic`` times under ``elastic`` and every row's
 launches on each ``elastic`` arm, in phases 31-33 (``dist_ckpt``'s
@@ -419,6 +448,7 @@ printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -1744,7 +1774,7 @@ def phase_bloom_lossless(mcfg, dev):
 
 
 DIST_TIMEOUT = 600       # seconds the dist_* phases' ranks may take in all
-SPAWN_SHARED = ["dist_train", "dist_rs", "dist_auto", "dist_a2a"]
+SPAWN_SHARED = ["dist_train", "dist_rs", "dist_auto", "dist_a2a", "dist_ckpt"]
 DIST_STEPS = 2           # steps of each dist_train / dist_rs arm: one warm-up,
                          # one timed (the emulated phases run STEPS)
 PROBE_TIMEOUT = 90       # seconds a backend probe's ranks may take
@@ -1974,32 +2004,43 @@ def probe(kind):
         return {"ok": False, "error": lines[:1] + lines[-2:]}
 
 
-def dist_ranks_rank(group, dev, shapes_dtypes, n_buckets):
-    """One rank of phases 18, 21-22, 24 and 28, in one spawn, on the same
-    process group: ``dist_train``'s arms (:func:`dist_rank`), then
+def dist_ranks_rank(group, dev, shapes_dtypes, n_buckets, ckpt_dir):
+    """One rank of phases 18, 21-22, 24, 28 and 33, in one spawn, on the
+    same process group: ``dist_train``'s arms (:func:`dist_rank`), then
     ``dist_rs``'s and the gather-skip checks (:func:`dist_rs_rank`),
-    ``dist_auto``'s mixed plan (:func:`dist_auto_rank`) and ``dist_a2a``'s
-    exchanges (:func:`dist_a2a_rank`), each as its own spawn ran it."""
+    ``dist_auto``'s mixed plan (:func:`dist_auto_rank`), ``dist_a2a``'s
+    exchanges (:func:`dist_a2a_rank`) and ``dist_ckpt``'s checkpointed
+    train into ``ckpt_dir`` (:func:`dist_ckpt_rank`), each as its own
+    spawn ran it."""
     return {"dist_train": dist_rank(group, dev),
             "dist_rs": dist_rs_rank(group, dev, shapes_dtypes),
             "dist_auto": dist_auto_rank(group, dev, n_buckets),
-            "dist_a2a": dist_a2a_rank(group, dev)}
+            "dist_a2a": dist_a2a_rank(group, dev),
+            "dist_ckpt": dist_ckpt_rank(group, dev, ckpt_dir)}
 
 
-def spawn_dist(shapes_dtypes, n_buckets):
-    """The W=2 ranks of ``dist_train``, ``dist_rs``, ``dist_auto`` and
-    ``dist_a2a`` (whose EP ranks are as many), spawned once: each spawn
-    costs 10-20 s before a rank's first step. -> ({phase: each rank's
-    result}, the spawn's wall seconds)."""
+def spawn_dist(shapes_dtypes, n_buckets, n_params):
+    """The W=2 ranks of ``dist_train``, ``dist_rs``, ``dist_auto``,
+    ``dist_a2a`` (whose EP ranks are as many) and ``dist_ckpt``, spawned
+    once: each spawn costs 10-20 s before a rank's first step.
+    ``dist_ckpt``'s checkpoint goes to a temporary directory under
+    ``build/``, which its phase restores from and removes. -> ({phase:
+    each rank's result}, the spawn's wall seconds, that directory)."""
+    import tempfile
     from repro_torch.launch.ranks import spawn_ranks
 
     if EP_WORKERS != WORKERS:
         raise ValueError("dist_a2a's EP ranks must be the spawn's W ranks")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    disk_room(build, ckpt_bytes(n_params) + (1 << 30))
+    ckpt_dir = tempfile.mkdtemp(dir=build)
     t0 = time.perf_counter()
-    outs = spawn_ranks(dist_ranks_rank, WORKERS, (shapes_dtypes, n_buckets),
+    outs = spawn_ranks(dist_ranks_rank, WORKERS,
+                       (shapes_dtypes, n_buckets, ckpt_dir),
                        device="cuda", timeout=DIST_TIMEOUT)
     wall = time.perf_counter() - t0
-    return {k: [o[k] for o in outs] for k in outs[0]}, wall
+    return {k: [o[k] for o in outs] for k in outs[0]}, wall, ckpt_dir
 
 
 def phase_dist_train(emulated_losses, outs, wall):
@@ -3930,6 +3971,7 @@ def dist_ckpt_rank(group, dev, ckpt_dir):
     arch = get_arch("granite-3-2b")
     api = model_api(dataclasses.replace(arch.model, n_layers=LAYERS))
     tc = ckpt_tc()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
@@ -3946,32 +3988,27 @@ def dist_ckpt_rank(group, dev, ckpt_dir):
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
-def phase_dist_ckpt(dev, train):
+def phase_dist_ckpt(dev, train, outs, d, wall):
     """W=2 ranks sharing ``cuda:0`` over gloo (as ``dist_train``) train
-    phase 4's setup for 2 steps and checkpoint; ``LocalWorkers`` then
-    restores the checkpoint and trains steps 2-3. The ranks' losses must
-    equal phase 4's first two, each rank launch one producer and one
-    consumer a step, and the restored run's final parameter sha256 equal
-    phase 4's. The gathers' time over gloo, the save and the restore."""
-    import tempfile
+    phase 4's setup for 2 steps and checkpoint into ``d`` (``outs``:
+    each rank's :func:`dist_ckpt_rank` result, from the spawn the
+    ``dist_*`` phases share, which took ``wall`` seconds);
+    ``LocalWorkers`` then restores the checkpoint and trains steps 2-3,
+    and ``d`` is removed. The ranks' losses must equal phase 4's first
+    two, each rank launch one producer and one consumer a step, and the
+    restored run's final parameter sha256 equal phase 4's. The gathers'
+    time over gloo, the save and the restore."""
+    import shutil
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.launch.ranks import spawn_ranks
     from repro_torch.models.registry import model_api
     from repro_torch.train.loop import run_training
 
     t_phase = time.perf_counter()
-    build = ROOT / "build"
-    build.mkdir(exist_ok=True)
-    disk_room(build, ckpt_bytes(train["params"]) + (1 << 30))
     arch = get_arch("granite-3-2b")
     api = model_api(dataclasses.replace(arch.model, n_layers=LAYERS))
-    with tempfile.TemporaryDirectory(dir=build) as d:
-        t0 = time.perf_counter()
-        outs = spawn_ranks(dist_ckpt_rank, WORKERS, (d,), device="cuda",
-                           timeout=DIST_TIMEOUT)
-        ranks_wall = time.perf_counter() - t0
+    try:
         torch.cuda.empty_cache()
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
@@ -3981,13 +4018,16 @@ def phase_dist_ckpt(dev, train):
         launches = dict(ops.LAUNCHES)
         digest = param_digest(res.state.params)
         res.state = None
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     rank_want = {**dict.fromkeys(outs[0]["launches"], 0),
                  "encode_pack_quantize": 2, "dequant_peel_unpack": 2}
     want = {**dict.fromkeys(launches, 0),
             "encode_pack_quantize": WORKERS * 2, "dequant_peel_unpack": 2}
     out = {"phase": "dist_ckpt", "workers": WORKERS,
            "backend": outs[0]["backend"], "staging": outs[0]["staging"],
-           "wall_s": time.perf_counter() - t_phase, "ranks_wall_s": ranks_wall,
+           "wall_s": time.perf_counter() - t_phase,
+           "ranks_wall_s": wall, "spawn_shared_with": SPAWN_SHARED,
            "ranks": [{k: o[k] for k in ("rank", "losses", "launches",
                                         "gather_ms", "ckpt_events",
                                         "peak_mem_bytes")} for o in outs],
@@ -4699,6 +4739,359 @@ def phase_family_train(dev, check, phase, arch_name, layers, seq=SEQ,
     return launches
 
 
+# ----------------------------------------------------------------------
+# The model axis: a grid of W data-parallel x MP model ranks
+# ----------------------------------------------------------------------
+
+MODEL_PARALLEL = 2        # model ranks a data index (a grid of WORKERS x this)
+DIST_MODEL_STEPS = 2      # steps of each dist_model arm: a warm-up, a timed one
+DIST_MODEL_MOE_LAYERS = 1     # deepseek-moe-16b's depth on the grid
+# (arch, data-parallel aggregator, ep_exchange) of each arm, in order
+DIST_MODEL_ARMS = (("granite-3-2b", "compressed", "none"),
+                   ("granite-3-2b", "dense", "none"),
+                   ("deepseek-moe-16b", "compressed", "none"),
+                   ("deepseek-moe-16b", "compressed", "dense"),
+                   ("deepseek-moe-16b", "compressed", "compressed"))
+# the dense grid's losses against the emulated W=2 train's: the card's
+# readings 2.5e-6 and 1.4e-6 (PERF.md, the model axis), a bf16 rehearsal
+# on the CPU at the smoke width 1.0e-4; a reduction missed or doubled
+# moves the loss by far more
+DIST_MODEL_LOSS_RTOL = 1e-3
+
+
+class ModelAxisLog(WireLog):
+    """The model-axis group a ``dist_model`` rank hands its step: a
+    :class:`WireLog` that names each call by its op and logs the
+    exchange's lane sums too, for :func:`replay_collectives`."""
+
+    def _label(self, op):
+        return op
+
+    def lane_sum(self, parts, combine):
+        op = f"lane_sum_{combine}"
+        self.calls.append((op, tuple(parts[0].shape), parts[0].dtype, op))
+        return self.group.lane_sum(parts, combine)
+
+    def lane_sum_add(self, parts):       # the replay's names
+        return self.group.lane_sum(parts, "add")
+
+    def lane_sum_or(self, parts):
+        return self.group.lane_sum(parts, "or")
+
+
+class AggregateHold:
+    """Within it, the train step's aggregator keeps its first call's
+    inputs (each local worker's gradients, the residuals before) and
+    outputs (the aggregate, the residuals after), copies on the device."""
+
+    def __enter__(self):
+        from repro_torch.core import aggregators as agg_lib
+        self.lib, self.orig = agg_lib, agg_lib.make_aggregator
+        self.made, self.inputs, self.outputs = None, None, None
+        hold = self
+
+        class Recorder:
+            def __init__(self, agg):
+                self.agg = agg
+
+            def __call__(self, grads_w, state):
+                if hold.inputs is not None:
+                    return self.agg(grads_w, state)
+                hold.inputs = ([[g.clone() for g in gw] for gw in grads_w],
+                               [r.clone() for r in state.residual])
+                out, st = self.agg(grads_w, state)
+                hold.outputs = ([o.clone() for o in out],
+                                [r.clone() for r in st.residual])
+                return out, st
+
+        def make(name, cfg, group, **kw):
+            hold.made = (name, cfg, group, kw)
+            return Recorder(self.orig(name, cfg, group, **kw))
+
+        agg_lib.make_aggregator = make
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.make_aggregator = self.orig
+
+    def _run(self, plain, grads_w, res):
+        from repro_torch.core.collectives import AggregationState
+        name, cfg, group, kw = self.made
+        if plain:
+            cfg = dataclasses.replace(cfg, use_pallas="never")
+        return self.orig(name, cfg, group, **kw)(
+            grads_w, AggregationState(residual=[r.clone() for r in res]))
+
+    def plain_check(self, seed):
+        """The same aggregator under ``use_pallas="never"`` over the same
+        group. On the kept inputs (the step's gradients): the aggregate's
+        largest difference, whether it lies within phase 3's Gaussian
+        tolerance (the plain encode's ``index_add_`` sums in the card's
+        atomic order, so the plain sketch, and what peels from it, round
+        differently), whether its non-zeros sit where the kernels' do,
+        and the residuals bit for bit. Then, on dyadic gradients of the
+        same leaves (``seed``; every sum exact in any order), the kernels'
+        aggregator and the plain one: aggregate and residuals bit for
+        bit."""
+        import torch
+        grads_w, res = self.inputs
+        out, st = self._run(True, grads_w, res)
+        ref = self.outputs[0]
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(out, ref))
+        real = {"max_abs_err": err,
+                "within_tol": all(torch.allclose(a.float(), b.float(),
+                                                 rtol=1e-5, atol=1e-6)
+                                  for a, b in zip(out, ref)),
+                "nonzeros_equal": all(torch.equal(a != 0, b != 0)
+                                      for a, b in zip(out, ref)),
+                "residual_equal": all(torch.equal(a, b) for a, b in
+                                      zip(st.residual, self.outputs[1]))}
+        del out, st
+        gen = torch.Generator(device=res[0].device)
+        gen.manual_seed(seed)
+
+        def dyadic(g):
+            sign = torch.randint(0, 2, g.shape, generator=gen,
+                                 device=g.device) * 2 - 1
+            e = torch.randint(-2, 3, g.shape, generator=gen, device=g.device)
+            return (sign * torch.exp2(e.float())).to(g.dtype)
+
+        dy = [[dyadic(g) for g in gw] for gw in grads_w]
+        zero = [torch.zeros_like(r) for r in res]
+        (ko, ks), (po, ps) = (self._run(False, dy, zero),
+                              self._run(True, dy, zero))
+        dyad = {"aggregate_equal": all(torch.equal(a, b) for a, b in zip(ko, po)),
+                "residual_equal": all(torch.equal(a, b) for a, b in
+                                      zip(ks.residual, ps.residual))}
+        return real, dyad
+
+
+def dist_model_rank(mesh, dev):
+    """One rank of ``dist_model`` on its grid (``mesh``: a ``RankMesh``),
+    every arm of :data:`DIST_MODEL_ARMS` in turn, each a fresh train
+    from ``tc.seed`` of ``DIST_MODEL_STEPS`` steps on the global batch's
+    rows of this rank's data index. Per arm: losses, step ms, peak
+    memory, the launch counters (zeroed just before the run, read just
+    after), the sha256 of this rank's parameter shards after every step,
+    the last step's model-axis collectives replayed alone; on granite's
+    compressed arm the step-0 aggregate against the plain aggregator
+    and the sha256 of the replicated leaves' step-0 gradients."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import model_api
+    from repro_torch.parallel.sharding import leaf_spec
+    from repro_torch.train.loop import run_training
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "coords": mesh.coords, "device": str(dev),
+           "backend": mesh.data.backend, "staging": mesh.data.staging,
+           "arms": {}}
+    for arch_name, aggregator, exchange in DIST_MODEL_ARMS:
+        arch = get_arch(arch_name)
+        layers = LAYERS if arch_name == "granite-3-2b" else DIST_MODEL_MOE_LAYERS
+        api = model_api(dataclasses.replace(arch.model, n_layers=layers))
+        tc = dataclasses.replace(arch.train, workers=WORKERS, accum_steps=1,
+                                 aggregator=aggregator, ep_exchange=exchange)
+        log = ModelAxisLog(mesh.model)
+        hold = AggregateHold() if (arch_name, aggregator) == \
+            ("granite-3-2b", "compressed") else contextlib.nullcontext()
+        def after_step(_line, log=log):
+            log.end_step()
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        with hold:
+            res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
+                               steps=DIST_MODEL_STEPS, device=dev,
+                               log_every=1, log_fn=after_step,
+                               group=mesh.data, model=log)
+        launches = dict(ops.LAUNCHES)
+        arm = {"losses": res.losses, "launches": launches,
+               "grad_norm": [m["grad_norm"] for m in res.metrics],
+               "step_ms": [t * 1e3 for t in res.step_seconds[1:]],
+               "warmup_ms": res.step_seconds[0] * 1e3,
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "param_sha256": param_digest(res.state.params),
+               "local_params": sum(p.numel() for p in res.state.params.leaves())}
+        paths = res.state.params.paths
+        specs = [leaf_spec(p, t.ndim, tc.sharding) for p, t in
+                 zip(paths, res.state.params.leaves())]
+        del res
+        torch.cuda.empty_cache()
+        if isinstance(hold, AggregateHold):
+            grads = hold.inputs[0][0]
+            arm["replicated_grad_sha256"] = {
+                ".".join(p): hashlib.sha256(g.contiguous().view(torch.uint8)
+                                            .cpu().numpy()).hexdigest()
+                for p, g, sp in zip(paths, grads, specs)
+                if all(a is None for a in sp)}
+            # the plain peel's temporaries are large: one data group at a
+            # time, the others waiting with their memory freed
+            for t in range(MODEL_PARALLEL):
+                if mesh.coords["model"] == t:
+                    real, dyad = hold.plain_check(1000 + mesh.rank)
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            arm.update(plain_step0=real, plain_dyadic=dyad)
+            del hold.inputs, hold.outputs, grads
+            torch.cuda.empty_cache()
+        arm["model_axis"] = replay_collectives(log, log.step_calls, dev,
+                                               staging=True)
+        out["arms"][f"{arch_name}/{aggregator}/{exchange}"] = arm
+    return out
+
+
+def _card_peak(stop, peak):
+    """Poll the card's used memory (every process's) until ``stop``."""
+    import torch
+    while not stop.is_set():
+        free, total = torch.cuda.mem_get_info()
+        peak[0] = max(peak[0], total - free)
+        stop.wait(0.25)
+
+
+def phase_dist_model(dev, emulated):
+    """A grid of ``WORKERS`` data-parallel x ``MODEL_PARALLEL`` model
+    ranks, 4 gloo ranks sharing ``cuda:0`` (host-staged, as
+    ``dist_train``): each arm of :data:`DIST_MODEL_ARMS` trains
+    ``DIST_MODEL_STEPS`` steps at full width (granite-3-2b at depth 4,
+    deepseek-moe-16b at depth 1) on the global batch of phase 4, each
+    rank on its shards (the sharding profile's tensor, vocab and expert
+    splits) and its data index's rows. Fails unless, on every rank:
+    granite's compressed arm launched one producer and one consumer a
+    step and its dense arm none; its step-0 aggregate lies within phase
+    3's tolerance of the plain aggregator's (``use_pallas="never"``, the
+    same group and inputs) with the residuals bit for bit, and on dyadic
+    gradients of the same shard-local leaves the two aggregate bit for
+    bit (``AggregateHold.plain_check``); the replicated leaves' step-0 gradients equal
+    bit for bit across the model ranks of a data index; every rank
+    reports the same losses; the dense arm's losses lie within
+    ``DIST_MODEL_LOSS_RTOL`` of the emulated W=2 train's (one process,
+    same seed and rows: ``emulated``, phase 4's first two losses; the
+    warm-up's learning rate is 0 at step 0, so both steps run at the
+    initial parameters whatever the aggregator, and a dense emulated
+    run gives these losses bit for bit); deepseek's ``compressed`` exchange
+    equals its ``dense`` exchange bit for bit (losses and the parameter
+    shards' sha256) and lies within rtol 1e-2 of ``none``'s losses.
+    Prints, beside the card's name and power limit: step ms, peak memory
+    a rank and the card's (polled), the launches a rank, and the last
+    step's model-axis collectives replayed alone (ms and bytes a rank)."""
+    import threading
+    import torch
+    from repro_torch.launch.ranks import spawn_ranks
+
+    smi = smi_line()
+    stop, peak = threading.Event(), [0]
+    poller = threading.Thread(target=_card_peak, args=(stop, peak), daemon=True)
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        outs = spawn_ranks(dist_model_rank, WORKERS * MODEL_PARALLEL, (),
+                           device="cuda", model_parallel=MODEL_PARALLEL,
+                           timeout=DIST_TIMEOUT)
+    finally:
+        stop.set()
+        poller.join()
+    wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emulated = list(emulated[:DIST_MODEL_STEPS])
+
+    arms = {}
+    for key in outs[0]["arms"]:
+        per = [o["arms"][key] for o in outs]
+        arms[key] = {
+            "losses": per[0]["losses"], "grad_norm": per[0]["grad_norm"],
+            "step_ms_by_rank": [a["step_ms"] for a in per],
+            "warmup_ms_by_rank": [a["warmup_ms"] for a in per],
+            "peak_mem_bytes_by_rank": [a["peak_mem_bytes"] for a in per],
+            "launches_by_rank": [a["launches"] for a in per],
+            "local_params_by_rank": [a["local_params"] for a in per],
+            "param_sha256_by_rank": [a["param_sha256"] for a in per],
+            "model_axis_calls": per[0]["model_axis"]["calls"],
+            "model_axis_bytes_per_rank_step":
+                per[0]["model_axis"]["payload_bytes_total"],
+            "model_axis_bytes_by_op": per[0]["model_axis"]["payload_bytes"],
+            "model_axis_ms_median_by_rank": [a["model_axis"]["ms_median"]
+                                             for a in per],
+            "model_axis_ms_median_by_op_by_rank": [
+                a["model_axis"]["ms_median_by_op"] for a in per],
+            "staging_copies_ms_median_by_rank": [
+                a["model_axis"]["staging_copies_ms_median"] for a in per]}
+        for extra in ("plain_step0", "plain_dyadic"):
+            if extra in per[0]:
+                arms[key][f"{extra}_by_rank"] = [a[extra] for a in per]
+    comp, dense = "granite-3-2b/compressed/none", "granite-3-2b/dense/none"
+    moe = {ex: f"deepseek-moe-16b/compressed/{ex}"
+           for ex in ("none", "dense", "compressed")}
+    rel = [abs(a - b) / abs(b) for a, b in zip(arms[dense]["losses"], emulated)]
+    moe_rel = [abs(a - b) / abs(b) for a, b in
+               zip(arms[moe["compressed"]]["losses"], arms[moe["none"]]["losses"])]
+    by_rank = {o["rank"]: o for o in outs}
+    rep_equal = all(
+        by_rank[r]["arms"][comp]["replicated_grad_sha256"]
+        == by_rank[r - r % MODEL_PARALLEL]["arms"][comp]["replicated_grad_sha256"]
+        for r in by_rank)
+    line = {"phase": "dist_model", "card": smi,
+            "grid": {"data": WORKERS, "model": MODEL_PARALLEL},
+            "ranks": WORKERS * MODEL_PARALLEL, "global_batch": BATCH,
+            "seq_len": SEQ, "steps": DIST_MODEL_STEPS, "warmup_steps": 1,
+            "layers": {"granite-3-2b": LAYERS,
+                       "deepseek-moe-16b": DIST_MODEL_MOE_LAYERS},
+            "backend": outs[0]["backend"], "staging": outs[0]["staging"],
+            "devices": [o["device"] for o in outs],
+            "coords": [o["coords"] for o in outs],
+            "wall_s": wall, "card_peak_used_bytes": peak[0], "arms": arms,
+            "emulated_dense_losses": emulated,
+            "dense_loss_rel_diff_to_emulated": rel,
+            "dense_loss_rtol": DIST_MODEL_LOSS_RTOL,
+            "moe_compressed_loss_rel_diff_to_none": moe_rel,
+            "replicated_grads_equal_across_model_ranks": rep_equal}
+    emit(line)
+    steps = DIST_MODEL_STEPS
+    for o in outs:
+        a = o["arms"]
+        if (a[comp]["launches"]["encode_pack_quantize"],
+                a[comp]["launches"]["dequant_peel_unpack"]) != (steps, steps) \
+                or any(a[dense]["launches"].values()):
+            raise AssertionError(f"dist_model: rank {o['rank']} launches "
+                                 f"{a[comp]['launches']} / {a[dense]['launches']}")
+        real, dyad = a[comp]["plain_step0"], a[comp]["plain_dyadic"]
+        if not (real["within_tol"] and real["residual_equal"]
+                and dyad["aggregate_equal"] and dyad["residual_equal"]):
+            raise AssertionError(f"dist_model: rank {o['rank']}'s aggregate "
+                                 f"differs from the plain aggregator's: "
+                                 f"{real} {dyad}")
+        if a[moe["compressed"]]["launches"]["encode_pack_quantize"] <= \
+                a[moe["none"]]["launches"]["encode_pack_quantize"]:
+            raise AssertionError("dist_model: the compressed exchange "
+                                 "launched no producer")
+        if a[moe["compressed"]]["losses"] != a[moe["dense"]]["losses"] or \
+                a[moe["compressed"]]["param_sha256"] != a[moe["dense"]]["param_sha256"]:
+            raise AssertionError(f"dist_model: rank {o['rank']}'s compressed "
+                                 "exchange differs from the dense exchange")
+    for key, arm in arms.items():
+        if any(a["losses"] != arm["losses"] for a in
+               (o["arms"][key] for o in outs)) or \
+                not all(map(math.isfinite, arm["losses"])):
+            raise AssertionError(f"dist_model {key}: ranks report different "
+                                 "or non-finite losses")
+    if not rep_equal:
+        raise AssertionError("dist_model: a replicated leaf's gradient "
+                             "differs across the model ranks")
+    if max(rel) > DIST_MODEL_LOSS_RTOL or max(moe_rel) > 1e-2:
+        raise AssertionError(f"dist_model: losses off: dense {rel}, "
+                             f"moe {moe_rel}")
+    return {key: {k: sum(o["arms"][key]["launches"][k] for o in outs)
+                  for k in outs[0]["arms"][key]["launches"]}
+            for key in outs[0]["arms"]}
+
+
 PHASE_SECONDS = {}      # wall seconds of each phase (or group), in order
 
 
@@ -4771,8 +5164,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # one spawn runs the rank work of every dist_* phase but dist_ckpt;
     # each phase then checks its own ranks' results
-    ranks, dist_wall = timed("dist_spawn", spawn_dist, shapes_dtypes,
-                             cfg.num_buckets(train["params"]))
+    ranks, dist_wall, dist_ckpt_dir = timed(
+        "dist_spawn", spawn_dist, shapes_dtypes,
+        cfg.num_buckets(train["params"]), train["params"])
     launches_dist, link = timed("dist_train", phase_dist_train,
                                 train["losses"], ranks["dist_train"], dist_wall)
     launches_dist_rs = timed("dist_rs", phase_dist_rs, tc.compression, rs_arms,
@@ -4817,7 +5211,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_ckpt = timed("ckpt_train", phase_ckpt_train, dev, train)
     torch.cuda.empty_cache()
-    launches_dist_ckpt = timed("dist_ckpt", phase_dist_ckpt, dev, train)
+    launches_dist_ckpt = timed("dist_ckpt", phase_dist_ckpt, dev, train,
+                               ranks["dist_ckpt"], dist_ckpt_dir, dist_wall)
     torch.cuda.empty_cache()
     launches_serve = {"serve": timed("serve", serve_model, dev, "granite-3-2b",
                                      "serve", True)}
@@ -4850,6 +5245,9 @@ def main() -> int:
         "encdec_serve", serve_model, dev, ENCDEC_ARCH, "encdec_serve", False,
         prompt_len=ENCDEC_PROMPT, max_len=ENCDEC_SEQ)
     torch.cuda.empty_cache()
+    launches_dist_model = timed("dist_model", phase_dist_model, dev,
+                                train["losses"])
+    torch.cuda.empty_cache()
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the
     # standalone kernels from the Bloom train
@@ -4880,7 +5278,9 @@ def main() -> int:
             **{k: v[r["name"]] for k, v in launches_family.items()},
             **{f"dist_ckpt/{k}": v.get(r["name"], 0)
                for k, v in launches_dist_ckpt.items()},
-            **{k: v[r["name"]] for k, v in launches_serve.items()}}
+            **{k: v[r["name"]] for k, v in launches_serve.items()},
+            **{f"dist_model/{k}": v[r["name"]]
+               for k, v in launches_dist_model.items()}}
         if r["name"] in a2a:
             r["a2a"] = a2a[r["name"]]
         if r["name"] in elastic_k:

@@ -2,9 +2,11 @@
 
 Each ``configs/<arch>.py`` exposes ``ARCH: ArchSpec`` with the published
 ``model`` configuration, a reduced same-family ``smoke`` config for CPU
-tests, the per-arch ``train`` overrides and the ``source`` it cites. The
-reference's sharding profile has no counterpart until tensor parallelism
-is ported.
+tests, its ``profile`` (the reference's ``ShardingProfile``: which dims
+the model axis splits, ``repro_torch.parallel.sharding``; the default
+for every arch but kimi-k2), the per-arch ``train`` overrides and the
+``source`` it cites. The profile is threaded into ``train.sharding``, as
+the reference's ``ArchSpec`` does.
 
 ``SHAPES`` holds the reference's four input-shape cells;
 ``ArchSpec.shape_supported`` applies its rule (``long_500k`` only for
@@ -21,6 +23,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import ShardingProfile
 from repro_torch.train.config import TrainConfig
 
 
@@ -45,7 +48,14 @@ class ArchSpec:
     model: ModelConfig
     smoke: ModelConfig
     train: TrainConfig
+    profile: ShardingProfile = dataclasses.field(default_factory=ShardingProfile)
     source: str = ""
+
+    def __post_init__(self):
+        # the profile is authoritative: the train config carries it
+        if self.train.sharding is not self.profile:
+            object.__setattr__(self, "train", dataclasses.replace(
+                self.train, sharding=self.profile))
 
     def shape_supported(self, shape: ShapeConfig) -> Tuple[bool, str]:
         if shape.name == "long_500k" and not self.model.supports_long_context:

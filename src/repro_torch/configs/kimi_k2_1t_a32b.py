@@ -7,14 +7,16 @@
 The reference's train settings, field for field: the dense
 aggregator, momentum with a bf16 state (AdamW's f32 moments would be
 8 TB at this size), top-k without error feedback (its f32 residual would
-be 4 TB). The reference's sharding profile (experts over the data axis,
-gradient DP across pods only) has no counterpart until tensor and
-expert parallelism are ported.
+be 4 TB). Its sharding profile is the reference's: experts over the
+data axis and their d_ff over the model axis, gradient DP across pods
+only, the batch on the pod and data axes. The port's model axis does
+not run this layout yet (it raises under model_parallel > 1).
 """
 import dataclasses
 
 from repro_torch.core.config import CompressionConfig
 from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.parallel.sharding import ShardingProfile
 from repro_torch.train.config import TrainConfig
 from repro_torch.train.optimizer import OptimizerConfig
 from .base import ArchSpec
@@ -34,6 +36,9 @@ _SMOKE = dataclasses.replace(
 
 ARCH = ArchSpec(
     model=_MODEL, smoke=_SMOKE,
+    profile=ShardingProfile(
+        dp_axes=(), ep_axes=("data",), ep_ff_axis="model",
+        batch_auto_axes=("pod", "data")),
     train=TrainConfig(
         aggregator="dense",
         accum_steps=8,

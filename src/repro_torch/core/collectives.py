@@ -344,15 +344,24 @@ def gather_chunk_slices(parts: Sequence[torch.Tensor], group) -> torch.Tensor:
 
 
 class ProcessGroupWorkers:
-    """This process as one of W data-parallel ranks of the default
-    ``torch.distributed`` process group, one worker a rank.
+    """This process as one of W data-parallel ranks, one worker a rank:
+    by default the ranks of the default ``torch.distributed`` process
+    group; with ``partition`` the ranks of this process's part.
+
+    ``partition``: the world's ranks cut into equal parts, each a
+    sequence of global ranks in worker order (the grid's data-parallel
+    groups, one a model index; or its model-axis groups, one a data
+    index: :func:`repro_torch.launch.mesh.make_host_mesh`). W is the
+    size of a part, and this process's group is the part that holds its
+    rank. Every rank must pass the same partition: every part's process
+    group, and every part's level subgroups, are created by every rank
+    in the same order, as ``dist.new_group`` requires.
 
     ``levels`` are the data-parallel level sizes, innermost first,
-    multiplying to W (default: one level of all W); rank w's index on
+    multiplying to W (default: one level of all W); worker w's index on
     them is rank-major, as in :class:`LocalWorkers`. Each level becomes
     a subgroup (``dist.new_group``) of the ranks that differ only in that
-    level's index; every rank creates every subgroup, in the same order,
-    as ``new_group`` requires.
+    level's index.
 
     ``staging``: gloo moves host memory (its point-to-point ops take
     host tensors only), so on a gloo group every collective copies a CUDA
@@ -363,12 +372,18 @@ class ProcessGroupWorkers:
 
     local_workers = 1
 
-    def __init__(self, levels: Sequence[int] = ()):
+    def __init__(self, levels: Sequence[int] = (), partition=None):
         if not dist.is_initialized():
             raise RuntimeError("ProcessGroupWorkers needs an initialized "
                                "default process group")
-        self.workers = dist.get_world_size()
-        self.rank = dist.get_rank()
+        world, me = dist.get_world_size(), dist.get_rank()
+        parts = ([tuple(range(world))] if partition is None
+                 else [tuple(int(r) for r in p) for p in partition])
+        if sorted(r for p in parts for r in p) != list(range(world)) or \
+                len({len(p) for p in parts}) != 1:
+            raise ValueError(f"partition {parts} does not cut the {world} "
+                             "ranks into equal parts")
+        self.workers = len(parts[0])
         levels = tuple(int(s) for s in levels) or (self.workers,)
         if min(levels) < 1 or math.prod(levels) != self.workers:
             raise ValueError(f"levels {levels} do not multiply to "
@@ -376,19 +391,32 @@ class ProcessGroupWorkers:
         self.levels = levels
         self.backend = dist.get_backend()
         self.staging = "host" if self.backend == "gloo" else "device"
-        self.dp_levels: List[DPLevel] = []
+        for part in parts:
+            pg = None if len(part) == world else dist.new_group(list(part))
+            dp_levels = self._level_groups(part, levels)
+            if me in part:
+                self.ranks, self.pg, self.dp_levels = part, pg, dp_levels
+                self.rank = part.index(me)
+
+    @staticmethod
+    def _level_groups(part, levels) -> List[DPLevel]:
+        """Each level's subgroup of ``part`` as its member ranks see it
+        (None for the others); created by every rank."""
+        me, W = dist.get_rank(), len(part)
+        out: List[DPLevel] = []
         for l, size in enumerate(levels):
             mine = None
-            for w in range(self.workers):
+            for w in range(W):
                 idx = level_indices(w, levels)
                 if idx[l]:
                     continue       # each subgroup once, from its index-0 rank
-                ranks = tuple(linear_rank(idx[:l] + (j,) + idx[l + 1:], levels)
-                              for j in range(size))
+                ranks = tuple(part[linear_rank(idx[:l] + (j,) + idx[l + 1:],
+                                               levels)] for j in range(size))
                 sub = dist.new_group(list(ranks)) if size > 1 else None
-                if self.rank in ranks:
-                    mine = DPLevel(sub, ranks, ranks.index(self.rank))
-            self.dp_levels.append(mine)
+                if me in ranks:
+                    mine = DPLevel(sub, ranks, ranks.index(me))
+            out.append(mine)
+        return out
 
     @property
     def first_worker(self) -> int:
@@ -410,7 +438,7 @@ class ProcessGroupWorkers:
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         buf = self.to_wire(x)
-        dist.all_reduce(buf, op=op)
+        dist.all_reduce(buf, op=op, group=self.pg)
         return buf.to(x.device)
 
     def sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -450,10 +478,12 @@ class ProcessGroupWorkers:
         wire = self.to_wire(x)
         if x.dim() == 0:
             raise ValueError("gather needs a slice with a leading dim")
-        raw = wire.view(torch.uint8)
+        # flat first: a contiguous tensor may carry any stride on a dim
+        # of size 1, which a byte view refuses
+        raw = wire.reshape(-1).view(torch.uint8)
         out = torch.empty((self.workers,) + tuple(raw.shape), dtype=torch.uint8,
                           device=raw.device, pin_memory=raw.is_pinned())
-        dist.all_gather(list(out.unbind(0)), raw)
+        dist.all_gather(list(out.unbind(0)), raw, group=self.pg)
         out = out.view(x.dtype).reshape((self.workers * x.shape[0],)
                                         + tuple(x.shape[1:]))
         return out.to(x.device)
@@ -587,7 +617,9 @@ def compressed_all_reduce(grads_w, agg_state: AggregationState, group, cfg,
     and ``outer_manual`` have no counterpart: they place a ``shard_map``
     region on a device mesh, and the port's workers are ``group`` (a
     ``LocalWorkers`` or ``ProcessGroupWorkers``), whose W is the
-    data-parallel size; nothing is tensor-parallel yet."""
+    data-parallel size; on a grid with a model axis, pass the rank's
+    data-parallel group and its shard-local leaves
+    (``launch/mesh.RankMesh.data``)."""
     # late: aggregators imports this module's primitives
     from .aggregators import make_aggregator
     name = "compressed_rs" if reduce_scatter else "compressed"

@@ -222,12 +222,15 @@ class Membership:
     # ---- device-side sizing hook ------------------------------------
 
     def local_mesh(self, model_parallel: int = 1,
-                   axis_names=("data", "model")):
-        """A local device mesh sized for this cohort, through
-        :func:`repro_torch.ft.failures.elastic_mesh`, which waits for the
-        port of ``launch/mesh.py``."""
+                   axis_names=("data", "model"), devices=None):
+        """A local mesh's shape sized for this cohort
+        (:func:`repro_torch.ft.failures.elastic_mesh`): the data axis
+        fits both the device pool and the cohort. ``devices``: the pool
+        as a count (default ``torch.cuda.device_count()``)."""
+        import torch
         from repro_torch.ft.failures import elastic_mesh
         if not self._roster:
             raise ValueError("cannot size a mesh for an empty roster")
-        return elastic_mesh(len(self._roster) * model_parallel,
+        pool = torch.cuda.device_count() if devices is None else int(devices)
+        return elastic_mesh(min(pool, len(self._roster) * model_parallel),
                             model_parallel, axis_names)

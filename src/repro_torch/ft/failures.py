@@ -16,8 +16,8 @@ numpy, no tensors):
   retransmit budget, and :meth:`SwitchRetransmitPolicy.shard_view` the
   per-shard view the elastic service's sharded fold prices through;
 - :func:`elastic_data_parallel` is the sizing rule of the data axis for
-  a surviving device count. :func:`elastic_mesh`, which builds a device
-  mesh from it, waits for the port of ``launch/mesh.py``.
+  a surviving device count, and :func:`elastic_mesh` the ``(data,
+  model)`` mesh shape it gives.
 """
 
 from __future__ import annotations
@@ -258,10 +258,12 @@ def elastic_data_parallel(available_devices: int,
 
 def elastic_mesh(available_devices: int, model_parallel: int,
                  axis_names=("data", "model")):
-    """The largest (data, model) device mesh fitting the surviving
-    devices, sized by :func:`elastic_data_parallel`. Its torch
-    ``DeviceMesh`` belongs with the port of ``launch/mesh.py``."""
-    raise NotImplementedError(
-        "elastic_mesh builds a device mesh, which waits for the port of "
-        "launch/mesh.py (ROADMAP queue 1 item 5); elastic_data_parallel "
-        "gives its data-axis size")
+    """The largest ``(data, model)`` mesh fitting the surviving devices,
+    sized by :func:`elastic_data_parallel`, as its shape
+    (:class:`repro_torch.launch.mesh.MeshShape`): the port places ranks,
+    not devices, so the grid a restart spawns is this shape's
+    (``make_host_mesh(model_parallel)`` over ``size`` ranks), and the
+    layout-free checkpoint restores onto it."""
+    from repro_torch.launch.mesh import MeshShape
+    data = elastic_data_parallel(available_devices, model_parallel)
+    return MeshShape(dict(zip(axis_names, (data, model_parallel))))

@@ -6,7 +6,11 @@ starts ``world`` processes with the ``spawn`` method (never ``fork``: the
 caller may have CUDA up), joins them in one ``torch.distributed`` process
 group through a ``file://`` rendezvous in a temporary directory, and
 returns each rank's ``fn(group, device, *args)`` in rank order, where
-``group`` is the rank's :class:`ProcessGroupWorkers` on ``levels``.
+``group`` is the rank's :class:`ProcessGroupWorkers` on ``levels``; with
+``model_parallel=MP`` it is the rank's
+:class:`~repro_torch.launch.mesh.RankMesh` on a grid of ``world / MP``
+data-parallel indices times MP model ones (its ``data`` group on
+``levels``).
 ``fn`` must be a module-level function and its result picklable (send
 numbers or numpy arrays back, not tensors).
 
@@ -47,9 +51,10 @@ def placement(world: int, device) -> Tuple[str, List[str]]:
     return "gloo", ["cuda:0"] * world
 
 
-def _rank_main(rank, world, init_file, backend, device, levels, timeout,
-               threads, fn, args, results):
+def _rank_main(rank, world, init_file, backend, device, levels,
+               model_parallel, timeout, threads, fn, args, results):
     from repro_torch.core.collectives import ProcessGroupWorkers
+    from repro_torch.launch.mesh import make_host_mesh
     try:
         torch.set_num_threads(threads)
         dev = torch.device(device)
@@ -58,7 +63,9 @@ def _rank_main(rank, world, init_file, backend, device, levels, timeout,
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", world_size=world,
             rank=rank, timeout=datetime.timedelta(seconds=timeout))
-        out = fn(ProcessGroupWorkers(levels), dev, *args)
+        group = (ProcessGroupWorkers(levels) if model_parallel is None
+                 else make_host_mesh(model_parallel, levels))
+        out = fn(group, dev, *args)
         dist.barrier()       # no rank leaves while a peer still sends
         results.put((rank, None, out))
     except BaseException:
@@ -98,12 +105,15 @@ def _collect(procs, results, world, deadline):
 
 def spawn_ranks(fn: Callable, world: int, args: Sequence = (), *,
                 device="cuda", levels: Sequence[int] = (),
+                model_parallel: int | None = None,
                 timeout: float = 600.0, init_dir=None,
                 threads: int | None = None,
                 backend: str | None = None) -> list:
     """Run ``fn(group, device, *args)`` on ``world`` spawned ranks and
     return their results in rank order; raises if any rank raises, dies
-    or outlasts ``timeout``. ``device``: the card by default (see
+    or outlasts ``timeout``. ``model_parallel``: hand ``fn`` the rank's
+    ``RankMesh`` on that many model ranks instead of its group.
+    ``device``: the card by default (see
     :func:`placement`), ``"cpu"`` for gloo ranks on the CPU. ``init_dir``: where the rendezvous file's
     temporary directory goes (default: the system's). ``threads``: each
     rank's intra-op CPU threads (default: this process's cores shared
@@ -122,7 +132,8 @@ def spawn_ranks(fn: Callable, world: int, args: Sequence = (), *,
         procs = [ctx.Process(
             target=_rank_main, name=f"rank{r}",
             args=(r, world, init_file, backend, devices[r], tuple(levels),
-                  timeout, threads, fn, tuple(args), results))
+                  model_parallel, timeout, threads, fn, tuple(args),
+                  results))
             for r in range(world)]
         try:
             for p in procs:

@@ -37,14 +37,23 @@ config's default is ``block``).
 ``--arch deepseek-moe-16b`` trains the MoE family; ``--ep-exchange
 {none,dense,compressed}`` picks the wire of its expert-parallel combine
 and ``--ep-workers N`` the EP ranks each worker's forward emulates
-(``--procs`` with ``--ep-workers`` above 1 raises: the ``dp x ep``
-process layout is not built yet).
+(on ranks the EP ranks are the model ranks of ``--model-parallel``,
+below; ``--procs`` with another ``--ep-workers`` above 1 raises).
 
 ``--procs W`` runs the W workers as W spawned processes, one rank each
 (:mod:`repro_torch.launch.ranks`): gloo where the ranks share a device
 (the CPU, or one card), NCCL with rank r on ``cuda:r`` where there are W
 cards. The summary printed is rank 0's; a rank that fails, or a run
 past ``--timeout`` seconds, ends the launch with an error.
+
+``--procs P --model-parallel N`` runs a grid of ``W = P/N``
+data-parallel workers times N model ranks (``launch/mesh.py``): the
+dense, attention and vocab dims and the routed experts split over the
+model axis as the arch's sharding profile says, each model rank
+aggregating its own shard-local gradients over its W data-parallel
+peers; a MoE's ``--ep-exchange`` then runs over the model ranks. One
+process cannot hold a model axis: ``--model-parallel`` above 1 needs
+``--procs``.
 """
 
 from __future__ import annotations
@@ -54,9 +63,10 @@ import dataclasses
 import json
 
 
-def _train(group, device, args):
-    """Train as ``args`` say on ``device``: every worker here (``group``
-    None), or this rank's of ``group``. Returns the summary."""
+def _train(mesh, device, args):
+    """Train as ``args`` say on ``device``: every worker here (``mesh``
+    None), or this rank's of the grid ``mesh`` (a ``RankMesh``). Returns
+    the summary."""
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import model_api
     from repro_torch.train.loop import run_training
@@ -88,16 +98,18 @@ def _train(group, device, args):
     if args.lr:
         tc = dataclasses.replace(tc, optimizer=dataclasses.replace(
             tc.optimizer, lr=args.lr, total_steps=args.steps))
-    quiet = group is not None and group.rank != 0
+    quiet = mesh is not None and mesh.rank != 0
     res = run_training(model_api(cfg), tc, global_batch=args.global_batch,
                        seq_len=args.seq_len, steps=args.steps,
-                       device=device, group=group,
+                       device=device,
+                       group=None if mesh is None else mesh.data,
+                       model=None if mesh is None else mesh.model,
                        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                        log_every=0 if quiet else 10,
                        log_fn=(lambda _: None) if quiet else print)
     return {
         "arch": args.arch, "layers": cfg.n_layers, "workers": tc.workers,
-        "procs": args.procs or 1,
+        "procs": args.procs or 1, "model_parallel": args.model_parallel,
         "aggregator": tc.aggregator, "wire": tc.compression.wire_dtype,
         "index": tc.compression.index,
         "topk_ratio": tc.compression.topk_ratio,
@@ -125,6 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="data-parallel workers W (default 2, or --procs)")
     ap.add_argument("--procs", type=int, default=None,
                     help="run the W workers as this many processes")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model ranks a data-parallel worker (needs "
+                    "--procs; W = procs / this)")
     ap.add_argument("--timeout", type=float, default=3600.0,
                     help="seconds the spawned ranks may take in all")
     ap.add_argument("--steps", type=int, default=100)
@@ -170,18 +185,28 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    mp = args.model_parallel
+    if mp < 1:
+        ap.error(f"--model-parallel {mp}: must be >= 1")
     if args.procs is not None:
-        if args.workers not in (None, args.procs):
-            ap.error(f"--workers {args.workers} with --procs {args.procs}: "
-                     "one worker a process")
-        args.workers = args.procs
+        if args.procs % mp:
+            ap.error(f"--procs {args.procs} does not split into "
+                     f"--model-parallel {mp}")
+        if args.workers not in (None, args.procs // mp):
+            ap.error(f"--workers {args.workers} with --procs {args.procs} "
+                     f"--model-parallel {mp}: one worker a data index")
+        args.workers = args.procs // mp
+    elif mp > 1:
+        ap.error(f"--model-parallel {mp} needs --procs: one process cannot "
+                 "hold a model axis")
     elif args.workers is None:
         args.workers = 2
 
     if args.procs:
         from repro_torch.launch.ranks import spawn_ranks
         summary = spawn_ranks(_train, args.procs, (args,),
-                              device=args.device, timeout=args.timeout)[0]
+                              device=args.device, timeout=args.timeout,
+                              model_parallel=mp)[0]
     else:
         summary = _train(None, args.device, args)
     print(json.dumps(summary))

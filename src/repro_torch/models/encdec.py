@@ -37,7 +37,8 @@ from torch.utils import checkpoint as ckpt_lib
 
 from .config import ModelConfig
 from .params import ParamTree
-from .transformer import REMAT_POLICIES, _layer
+from repro_torch.parallel import hints
+from .transformer import REMAT_POLICIES, _layer, check_model_axis
 from . import layers as L
 
 # the reference checkpoints the decoder's scan body under these policies
@@ -134,6 +135,8 @@ def encdec_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     MoE, so anything but None raises."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; have {list(REMAT_POLICIES)}")
+    if hints.model_group() is not None:
+        check_model_axis(cfg, hints.model_group().workers)
     if ep_exchange is not None:
         raise ValueError("the encdec family has no MoE layer for an "
                          "expert-parallel exchange")

@@ -14,6 +14,15 @@ and padding change only the rounding (padded keys are masked, padded
 queries dropped). Decode (``attention_decode``,
 ``attention_cross_decode``) normalises before its value product, as the
 reference's does.
+
+Inside a model region (``repro_torch.parallel.hints.model_region``) the
+training layers run on their shards of the model axis, Megatron-style:
+``wq/wk/wv`` (and ``bq/bk/bv``), ``w_gate/w_up`` are column shards
+(heads ``H/MP`` and ``KV/MP`` a rank), ``wo`` and ``w_down`` row shards
+whose partial outputs are summed over the axis (``reduce_from_model``),
+their inputs entering through ``copy_to_model``; the MoE layer's routed
+experts are split into contiguous groups of ``E/MP`` (see
+:func:`moe_ffn`). Outside a region nothing changes.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import hints
 from .config import ModelConfig, MoEConfig
 
 
@@ -56,11 +66,13 @@ def layernorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
-def mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """-1e30 in the padding columns of a padded-vocab logit tensor."""
+def mask_padded_vocab(logits: torch.Tensor, cfg: ModelConfig,
+                      col0: int = 0) -> torch.Tensor:
+    """-1e30 in the padding columns of a padded-vocab logit tensor whose
+    first column is vocab id ``col0`` (a vocab shard's offset)."""
     if cfg.padded_vocab == cfg.vocab:
         return logits
-    col = torch.arange(logits.shape[-1], device=logits.device)
+    col = torch.arange(logits.shape[-1], device=logits.device) + col0
     return torch.where(col < cfg.vocab, logits,
                        torch.full((), -1e30, dtype=logits.dtype,
                                   device=logits.device))
@@ -123,16 +135,17 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 def _project_qkv(x, p, cfg: ModelConfig, kv_input=None):
     """Returns q (B,S,H,hd), k/v (B,Skv,KV,hd): k and v from ``kv_input``
-    (B,Skv,D) where given (cross-attention), else from ``x``."""
+    (B,Skv,D) where given (cross-attention), else from ``x``. On column
+    shards of the projections, the heads are this rank's."""
     B, S, _ = x.shape
     kv_x = x if kv_input is None else kv_input
     q, k, v = x @ p["wq"], kv_x @ p["wk"], kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     Skv = kv_x.shape[1]
-    return (q.reshape(B, S, cfg.n_heads, cfg.hd),
-            k.reshape(B, Skv, cfg.n_kv_heads, cfg.hd),
-            v.reshape(B, Skv, cfg.n_kv_heads, cfg.hd))
+    return (q.reshape(B, S, -1, cfg.hd),
+            k.reshape(B, Skv, -1, cfg.hd),
+            v.reshape(B, Skv, -1, cfg.hd))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -168,8 +181,14 @@ def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
 
     RoPE goes on q and k whenever ``kv_input`` is None, causal or not
     (the reference's rule: the encdec encoder's non-causal
-    self-attention takes it too), and never on cross-attention."""
+    self-attention takes it too), and never on cross-attention. In a
+    model region the heads are this rank's shard (query head h of the
+    shard reads its KV head ``h // (H/KV)``, which needs ``KV % MP ==
+    0``) and the output is summed over the model axis."""
     B, S, _ = x.shape
+    x = hints.copy_to_model(x)
+    if kv_input is not None:
+        kv_input = hints.copy_to_model(kv_input)
     q, k, v = _project_qkv(x, p, cfg, kv_input=kv_input)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -177,7 +196,7 @@ def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions[:, :k.shape[1]], cfg.rope_theta)
     o = attention(q, k, v, causal=causal).reshape(B, S, -1)
-    return o @ p["wo"], (k, v)
+    return hints.reduce_from_model(o @ p["wo"]), (k, v)
 
 
 def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, position: int,
@@ -243,13 +262,15 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype,
 
 def mlp(x, p):
     """SwiGLU where ``p`` has ``w_gate``, else GELU in its tanh form
-    (``jax.nn.gelu``'s default)."""
+    (``jax.nn.gelu``'s default); in a model region on this rank's
+    ``d_ff`` shard, its output summed over the model axis."""
+    x = hints.copy_to_model(x)
     h = x @ p["w_up"]
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"]) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_down"]
+    return hints.reduce_from_model(h @ p["w_down"])
 
 
 # ----------------------------------------------------------------------
@@ -409,10 +430,15 @@ def moe_ffn(x: torch.Tensor, p, m: MoEConfig,
     adds each token's terms group by group, so its value differs from
     the local combine's in the last bits where a token's terms span
     several groups.
+
+    In a model region (:func:`_moe_model_axis`) the routed experts are
+    sharded instead: rank t holds experts ``[t·E/MP, (t+1)·E/MP)``.
     """
     T, D = x.shape
     E = m.num_experts
     rt = moe_route(x, p, m, capacity_factor)
+    if hints.model_group() is not None:
+        return _moe_model_axis(x, p, m, rt, ep_exchange)
     xg = _Dispatch.apply(x, rt.gather_idx, rt.tok_slots)
     y = moe_experts(xg.reshape(E, rt.capacity, D), p)
     contrib = torch.cat([y.to(torch.float32) * rt.slot_w[:, None],
@@ -424,12 +450,55 @@ def moe_ffn(x: torch.Tensor, p, m: MoEConfig,
             merged = ep_exchange(moe_partials(contrib, rt, group))
             wire = group.gather([m_r[0] for m_r in merged])[:T]
         out = out + (wire - out).detach()
-    out = out.to(x.dtype)
 
+    return _moe_tail(out, x, p, m, rt)
+
+
+def _moe_tail(out, x, p, m: MoEConfig, rt: MoERouting):
+    """The combine cast to ``x``'s dtype, plus the shared experts, and
+    the Switch-style load-balance aux loss."""
+    out = out.to(x.dtype)
     if m.shared_experts:
         out = out + mlp(x, p["shared"])
-
-    # Switch-style load-balance aux loss
-    frac = rt.counts.to(torch.float32) / max(T * m.top_k, 1)
-    aux = E * (frac * rt.probs.mean(dim=0)).sum()
+    frac = rt.counts.to(torch.float32) / max(x.shape[0] * m.top_k, 1)
+    aux = m.num_experts * (frac * rt.probs.mean(dim=0)).sum()
     return out, aux
+
+
+def _moe_model_axis(x, p, m: MoEConfig, rt: MoERouting, ep_exchange):
+    """:func:`moe_ffn` on this rank's contiguous group of ``E_loc =
+    E/MP`` experts (the reference's ``P("model", ...)`` split of the
+    ``we_*`` leaves, the group ``moe_partials`` gives EP rank t).
+
+    The routing is replicated (every model rank sees the same ``x`` and
+    router). Rank t runs only its experts' slots, and its partial
+    combine sends every other slot to the trash row, as
+    :func:`moe_partials` does; the partials are summed over the model
+    axis by ``reduce_from_model`` (``ep_exchange`` None) or by the
+    exchange's wire over the model group (``hints.exchange_sum``), whose
+    backward is the identity to the partial. ``x`` reaches the experts
+    and the slots' routing weights reach the combine through
+    ``copy_to_model``, so their gradients (partial on each rank: its
+    slots only) are summed over the axis; the router's own input
+    gradient is whole on every rank."""
+    T, D = x.shape
+    E_loc, C = p["we_gate"].shape[0], rt.capacity
+    lo = hints.model_index() * E_loc * C
+    hi = lo + E_loc * C
+    slots = rt.tok_slots
+    mine = torch.where((slots >= lo) & (slots < hi), slots - lo,
+                       E_loc * C).sort(dim=1).values
+    xg = _Dispatch.apply(hints.copy_to_model(x), rt.gather_idx[lo:hi], mine)
+    y = moe_experts(xg.reshape(E_loc, C, D), p)
+    w = hints.copy_to_model(rt.slot_w)[lo:hi]
+    contrib = torch.cat([y.to(torch.float32) * w[:, None],
+                         y.new_zeros(1, D, dtype=torch.float32)])
+    partial = _combine(contrib, mine)
+    if ep_exchange is None:
+        out = hints.reduce_from_model(partial)
+    else:
+        if ep_exchange.group is not hints.model_group():
+            raise ValueError("on the model axis the exchange runs over the "
+                             "model group")
+        out = hints.exchange_sum(partial, ep_exchange)
+    return _moe_tail(out, x, p, m, rt)

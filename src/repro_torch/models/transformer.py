@@ -35,7 +35,16 @@ attn_period - 1, B, ...)`` beside ``{"kv": {"k", "v"}}`` of ``(n_super,
 B, max_len, KV, hd)``.
 
 ``ep_exchange`` (the expert-parallel combine wire, from
-``core.aggregators.make_exchange``) reaches every MoE layer. ``remat``
+``core.aggregators.make_exchange``) reaches every MoE layer.
+
+Inside a model region (``parallel.hints.model_region``, bound by the
+train step on a grid of MP > 1 model ranks) the tree holds this rank's
+shards (``parallel.sharding.param_pspecs``): the layers run
+tensor-parallel (``layers``), the embedding is a lookup of this rank's
+vocab rows summed over the axis, and the head gives this rank's logit
+columns, whose ``logsumexp`` and label logit are taken over the vocab
+shards (``hints.vocab_parallel_lse``). Only the dense and moe families
+run there (:func:`check_model_axis`). ``remat``
 takes the reference's policies (:data:`REMAT_POLICIES`, see
 :func:`lm_hidden`); any other value raises.
 """
@@ -48,6 +57,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils import checkpoint as ckpt_lib
 
+from repro_torch.parallel import hints
 from .config import ModelConfig
 from .params import ParamTree
 from . import layers as L
@@ -69,6 +79,44 @@ def _require_ported(cfg: ModelConfig):
         raise NotImplementedError(
             f"family {cfg.family!r}: the port runs {list(PORTED_FAMILIES)} "
             "only, the reference's six")
+
+
+MODEL_AXIS_FAMILIES = ("dense", "moe")
+
+
+def check_model_axis(cfg: ModelConfig, mp: int, prof=None) -> None:
+    """Raise unless ``cfg`` can run on ``mp`` model ranks (under the
+    sharding profile ``prof``, where given): the dense and moe families only
+    (``NotImplementedError`` for the others, ROADMAP queue 1 item 7),
+    the default profile's layout (tensor, vocab and expert dims on the
+    ``model`` axis), and every split dim divisible by ``mp``
+    (``ValueError``)."""
+    if mp <= 1:
+        return
+    if cfg.family not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} under model_parallel={mp}: the model "
+            f"axis runs {list(MODEL_AXIS_FAMILIES)} only so far (ROADMAP "
+            "queue 1 item 7: the ssm, hybrid, vlm and encdec forwards on "
+            "the model axis)")
+    if prof is not None and (prof.tp_axis, prof.vocab_axis,
+                             tuple(prof.ep_axes), prof.ep_ff_axis) != \
+            ("model", "model", ("model",), None):
+        raise NotImplementedError(
+            f"sharding profile {prof} under model_parallel={mp}: the model "
+            "axis runs the default profile's layout only (ROADMAP queue 1 "
+            "item 7)")
+    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "padded_vocab": cfg.padded_vocab}
+    if cfg.moe is not None:
+        dims["num_experts"] = cfg.moe.num_experts
+        dims["shared d_ff"] = cfg.moe.shared_experts * cfg.moe.expert_d_ff
+    else:
+        dims["d_ff"] = cfg.d_ff
+    for name, n in dims.items():
+        if n % mp:
+            raise ValueError(f"{cfg.name}: {name} {n} does not split over "
+                             f"model_parallel={mp}")
 
 
 def _require_decoder_lm(cfg: ModelConfig):
@@ -212,8 +260,13 @@ def _hybrid_superblock(x, p, cfg: ModelConfig, positions, ep_exchange=None,
 
 
 def _unembed(tree: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits, padding masked; in a model region this rank's vocab
+    columns (``lm_head``'s column shard, or ``embed``'s row shard
+    transposed where tied)."""
     head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
-    return L.mask_padded_vocab((x @ head).to(torch.float32), cfg)
+    logits = (hints.copy_to_model(x) @ head).to(torch.float32)
+    return L.mask_padded_vocab(logits, cfg,
+                               hints.model_index() * head.shape[-1])
 
 
 def _layer(stacked: Dict, i) -> Dict:
@@ -224,7 +277,7 @@ def _layer(stacked: Dict, i) -> Dict:
 def _embed(tree: Dict, tokens: torch.Tensor, vis_embed=None) -> torch.Tensor:
     """Token embeddings, after ``vis_embed`` (B, V, D) in their dtype
     where given (the vlm family's visual prefix)."""
-    x = tree["embed"][tokens]
+    x = hints.vocab_embed(tree["embed"], tokens)
     if vis_embed is not None:
         x = torch.cat([vis_embed.to(x.dtype), x], dim=1)
     return x
@@ -308,6 +361,8 @@ def lm_hidden(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     exchange's kernels and collectives run once a step under every
     policy."""
     _require_decoder_lm(cfg)
+    if hints.model_group() is not None:
+        check_model_axis(cfg, hints.model_group().workers)
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; have {list(REMAT_POLICIES)}")
     x = _embed(tree, tokens, vis_embed)
@@ -342,8 +397,7 @@ def lm_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if vis is not None:
         x = x[:, vis.shape[1]:]                       # text positions only
     logits = _unembed(tree, cfg, x)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+    lse, ll = hints.vocab_parallel_lse(logits, batch["labels"])
     nll = (lse - ll).mean()
     zloss = 1e-4 * lse.square().mean()
     loss = nll + zloss + 0.01 * aux

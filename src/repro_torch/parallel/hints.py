@@ -1,0 +1,185 @@
+"""The model axis as the layers see it: logical activation hints, the
+bound model-axis group, and the tensor-parallel collectives.
+
+The reference's ``constrain(x, ("dp", None, "tp"))`` maps logical axis
+names onto mesh axes for GSPMD, and is a no-op when no mapping is active
+(the single-device CPU path). The port's layout is explicit instead:
+each rank holds its shards and the layers compute on them, so a hint
+places nothing and :func:`constrain` returns its input.
+
+:func:`model_region` binds the model-axis group (the ranks of one
+data-parallel index, a ``ProcessGroupWorkers``); inside it the layers
+call Megatron's two conjugate functions:
+
+- :func:`copy_to_model`: identity forward, all-reduce of the gradient
+  backward (before a column-parallel product, whose input every model
+  rank reads whole);
+- :func:`reduce_from_model`: all-reduce forward, identity backward
+  (after a row-parallel product, whose output is a partial sum);
+
+and the vocab-parallel ends: :func:`vocab_embed`, a lookup of the rows
+this rank holds, and :func:`vocab_parallel_lse`, the ``logsumexp`` and
+label logit over the vocab shards. Outside a region (or in a region of
+one rank) every one of them is the identity or the unsharded form, so
+every single-rank path computes what it computed before.
+
+The binding is a module global, not a thread-local: a checkpointed
+block's recompute runs on autograd's device thread for CUDA tensors, and
+must see the group the forward saw. Run the backward inside the region
+too. The all-reduces sum in the payload's dtype (bf16 on the card; gloo
+sums bf16).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+
+_GROUP = None
+
+
+@contextlib.contextmanager
+def model_region(group):
+    """Bind ``group`` (the model-axis process group, or None) as the
+    model axis for the layers; a group of one binds nothing."""
+    global _GROUP
+    prev = _GROUP
+    _GROUP = group if group is not None and group.workers > 1 else None
+    try:
+        yield
+    finally:
+        _GROUP = prev
+
+
+def model_group():
+    """The bound model-axis group, or None outside a region."""
+    return _GROUP
+
+
+def model_index() -> int:
+    """This rank's index on the model axis (0 outside a region)."""
+    return 0 if _GROUP is None else _GROUP.first_worker
+
+
+def constrain(x: torch.Tensor, logical_spec) -> torch.Tensor:
+    """The reference's activation hint: ``x`` itself (the port's shards
+    are explicit, so there is nothing to place)."""
+    del logical_spec
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum([g.contiguous()]), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.sum([x.contiguous()])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Identity; its gradient is summed over the model axis."""
+    return x if _GROUP is None else _CopyToModel.apply(x, _GROUP)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the model axis; its gradient passes as is."""
+    return x if _GROUP is None else _ReduceFromModel.apply(x, _GROUP)
+
+
+class _WireSum(torch.autograd.Function):
+    """The sum over the model axis carried by an expert-parallel
+    exchange: forward, the exchange's merged token blocks gathered back
+    to ``(T, D)``; backward, the identity to the partial (the conjugate
+    of the sum, as :func:`reduce_from_model`)."""
+
+    @staticmethod
+    def forward(ctx, partial, exchange):
+        group = exchange.group
+        T, D = partial.shape
+        W = group.workers
+        blk = -(-T // W)
+        payload = torch.nn.functional.pad(partial, (0, 0, 0, W * blk - T))
+        merged = exchange([[payload.reshape(W, blk, D)]])
+        return group.gather([merged[0][0]])[:T]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def exchange_sum(partial: torch.Tensor, exchange) -> torch.Tensor:
+    """``partial`` (T, D) summed over ``exchange``'s group by the
+    exchange's wire (token block r merged at rank r, then gathered)."""
+    return _WireSum.apply(partial, exchange)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` with ``table`` this rank's rows of the padded
+    vocab (``[t·n, (t+1)·n)``): the rows it holds looked up, zeros for
+    the rest, summed over the model axis."""
+    if _GROUP is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - model_index() * n
+    inside = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return reduce_from_model(x)
+
+
+class _VocabParallelLse(torch.autograd.Function):
+    """(lse, label logit) of logits split by columns over the model
+    axis: the max all-reduced, then the sums of ``exp(l - max)`` and the
+    owning shard's label logit in one all-reduce. Backward:
+    ``softmax_local · d_lse + onehot_local · d_ll``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        n = logits.shape[-1]
+        m = group.max([logits.amax(dim=-1)])
+        local = labels - start
+        inside = (local >= 0) & (local < n)
+        idx = local.clamp(0, n - 1)
+        ll = torch.where(inside, logits.gather(-1, idx[..., None])[..., 0],
+                         torch.zeros((), dtype=logits.dtype,
+                                     device=logits.device))
+        s = torch.exp(logits - m[..., None]).sum(dim=-1)
+        s, ll = group.sum([torch.stack([s, ll])]).unbind(0)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(logits, lse, idx, inside)
+        return lse, ll
+
+    @staticmethod
+    def backward(ctx, d_lse, d_ll):
+        logits, lse, idx, inside = ctx.saved_tensors
+        g = torch.exp(logits - lse[..., None]) * d_lse[..., None]
+        g = g.scatter_add(-1, idx[..., None],
+                          (d_ll * inside.to(d_ll.dtype))[..., None])
+        return g, None, None, None
+
+
+def vocab_parallel_lse(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(logsumexp(logits), logits[label])`` over the whole vocab, where
+    ``logits`` are this rank's columns of it (f32)."""
+    if _GROUP is None:
+        return (torch.logsumexp(logits, dim=-1),
+                logits.gather(-1, labels[..., None].long())[..., 0])
+    start = model_index() * logits.shape[-1]
+    return _VocabParallelLse.apply(logits, labels.long(), start, _GROUP)

@@ -1,12 +1,16 @@
 """Top-level training configuration: aggregation mode (the paper's knob),
 data-parallel world, optimizer, memory policy.
 
-The reference's ``TrainConfig`` without ``sharding``: ``workers`` stands
-in for the data-parallel world (W workers, emulated on one device or run
-as W ranks: see ``core/collectives``) and ``dp_levels`` for the mesh's
+The reference's ``TrainConfig``: ``workers`` stands in for the
+data-parallel world (W workers, emulated on one device or run as W
+ranks: see ``core/collectives``) and ``dp_levels`` for the mesh's
 data-parallel axes (the level sizes, innermost first, that the
 in-network tier's ``tor_spine`` tree maps onto; empty means one level of
-all W).
+all W). ``sharding`` is the reference's ``ShardingProfile``: on a grid
+of W x MP ranks (``launch/mesh.py``) it says which dims of each leaf the
+model axis splits (``parallel/sharding.param_pspecs``); the step reads
+it only where MP > 1. The update's ZeRO-1 switch is ``zero1`` below;
+the profile's own ``zero1`` field is kept as the reference's.
 
 ``remat`` is the reference's memory policy, ``"block"`` by default as
 there: ``"none"``, ``"block"`` and ``"block_nocse"`` (one checkpoint a
@@ -22,7 +26,8 @@ expert-parallel combine (``"none"`` keeps the local combine;
 reference's ``ShardingProfile.ep_axes``: the EP ranks each
 data-parallel worker's forward emulates (``workers x ep_workers``
 devices whose EP ranks share their worker's rows). The exchange runs
-only for a MoE model with ``ep_workers > 1``.
+only for a MoE model with ``ep_workers > 1``, or on a grid of MP > 1
+model ranks, which are then the EP ranks (``ep_workers`` 1 or MP).
 
 ``zero1`` is the reference's ``ShardingProfile.zero1``, on by default
 as there: the optimizer update is sliced over the W workers on each
@@ -41,6 +46,7 @@ import math
 from typing import Tuple
 
 from repro_torch.core.config import CompressionConfig
+from repro_torch.parallel.sharding import ShardingProfile
 from .optimizer import OptimizerConfig
 
 
@@ -53,6 +59,8 @@ class TrainConfig:
         default_factory=CompressionConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)
+    sharding: ShardingProfile = dataclasses.field(
+        default_factory=ShardingProfile)
     remat: str = "block"                 # "none" | "block" |
                                          # "block_nocse" | "dots"
     accum_steps: int = 1                 # microbatch gradient accumulation

@@ -12,7 +12,10 @@ A checkpoint holds the layout-free view of the state
 rows, so a run on W ranks and a run on ``LocalWorkers`` of W read each
 other's checkpoints. On ranks every rank enters the save's gathers and
 rank 0 alone writes; the step to restore is rank 0's ``latest_step``,
-agreed over the group after rank 0's writes have finished.
+agreed over the group after rank 0's writes have finished. On a grid of
+W x MP ranks (``model``: the rank's model-axis group) the view gathers
+the model shards too, global rank 0 alone writes, and the agreement
+runs over the data group, then the model group.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from repro_torch.models.params import ParamTree
 from repro_torch.models.registry import ModelAPI
 from .config import TrainConfig
 from .step import (TrainState, build_train_step, init_train_state,
-                   load_state_view, state_view, view_paths)
+                   load_state_view, shard_params, state_view, view_paths)
 
 
 @dataclasses.dataclass
@@ -55,39 +58,45 @@ def device_batch(host: Dict, device) -> Dict[str, torch.Tensor]:
     return {k: v.to(device) for k, v in host_tensors(host).items()}
 
 
-def _agreed_latest(ckpt_dir: str, group, writer: bool, device) -> Optional[int]:
+def _agreed_latest(ckpt_dir: str, group, writer: bool, device,
+                   model=None) -> Optional[int]:
     """Rank 0's ``latest_step`` (None: no checkpoint), the same on every
-    rank of ``group`` (a max over the group, which every rank enters)."""
+    rank of ``group`` and of ``model`` (a max over each, which every rank
+    enters)."""
     last = ckpt.latest_step(ckpt_dir) if writer else None
     if group is None:
         return last
     t = torch.tensor([-1 if last is None else last], dtype=torch.int64,
                      device=device)
-    got = int(group.max([t] * group.local_workers).item())
+    t = group.max([t] * group.local_workers)
+    if model is not None:
+        t = model.max([t])
+    got = int(t.item())
     return None if got < 0 else got
 
 
 def _restore(state: TrainState, ckpt_dir: str, step: int, tc: TrainConfig,
-             group) -> Dict[str, float]:
+             group, model=None) -> Dict[str, float]:
     t0 = time.perf_counter()
     manifest, leaves = ckpt.restore(ckpt_dir, step)
     paths = [e["path"] for e in manifest["leaves"]]
     if paths != view_paths(state):
         raise ValueError(f"checkpoint step {step} under {ckpt_dir} holds "
                          "another model's state")
-    load_state_view(state, leaves, tc, group)
+    load_state_view(state, leaves, tc, group, model)
     return {"kind": "restore", "step": step,
             "ms": (time.perf_counter() - t0) * 1e3}
 
 
 def _reset(state: TrainState, api: ModelAPI, tc: TrainConfig,
-           initial: Optional[List[torch.Tensor]]):
+           initial: Optional[List[torch.Tensor]], model=None):
     """Back to the run's initial state in place: its initial parameters
     (``initial``, or the init from ``tc.seed``), zero moments and
     residuals, step 0, as ``init_train_state`` made them."""
     leaves = state.params.leaves()
     if initial is None:
-        initial = api.init(tc.seed, leaves[0].device).leaves()
+        initial = shard_params(api.init(tc.seed, leaves[0].device), tc,
+                               model).leaves()
     with torch.no_grad():
         for p, x in zip(leaves, initial):
             p.copy_(x)
@@ -107,12 +116,13 @@ def run_training(api: ModelAPI, tc: TrainConfig, *, global_batch: int,
                  recovery: RecoveryPolicy = RecoveryPolicy(),
                  log_every: int = 10,
                  log_fn: Callable[[str], None] = print,
-                 group=None, wire_plan=None) -> TrainResult:
+                 group=None, wire_plan=None, model=None) -> TrainResult:
     """Train up to step ``steps`` (``params`` replaces the random init);
     batch ``s`` is the pipeline's batch of step ``s``, prefetched on a
     background thread. ``group`` picks the workers this process runs
-    (default: all ``tc.workers`` emulated here) and ``wire_plan`` the
-    aggregator's wire plan (see ``build_train_step``).
+    (default: all ``tc.workers`` emulated here), ``model`` its
+    model-axis group on a grid (``launch/mesh.RankMesh``) and
+    ``wire_plan`` the aggregator's wire plan (see ``build_train_step``).
 
     With ``ckpt_dir``: resume from its latest checkpoint, save every
     ``ckpt_every`` steps (``metadata={"loss": ...}``, the host copy
@@ -127,17 +137,20 @@ def run_training(api: ModelAPI, tc: TrainConfig, *, global_batch: int,
     make_batch = batch_fn(api.cfg, global_batch, seq_len, seed=tc.seed)
     monitor = StragglerMonitor()
     saver = ckpt.AsyncCheckpointer()
-    writer = group is None or group.first_worker == 0
+    writer = (group is None or group.first_worker == 0) and \
+        (model is None or model.first_worker == 0)
+    state = init_train_state(api, tc, device, params=params, group=group,
+                             model=model)
     # a restart with no checkpoint yet goes back to the caller's params
-    initial = ([p.detach().cpu().clone() for p in params.leaves()]
+    initial = ([p.detach().cpu().clone() for p in state.params.leaves()]
                if params is not None and ckpt_dir else None)
-    state = init_train_state(api, tc, device, params=params, group=group)
-    step_fn = build_train_step(api, tc, group=group, wire_plan=wire_plan)
+    step_fn = build_train_step(api, tc, group=group, wire_plan=wire_plan,
+                               model=model)
     events: List[dict] = []
 
     if ckpt_dir and (last := _agreed_latest(ckpt_dir, group, writer,
-                                            device)) is not None:
-        events.append(_restore(state, ckpt_dir, last, tc, group))
+                                            device, model)) is not None:
+        events.append(_restore(state, ckpt_dir, last, tc, group, model))
         log_fn(f"[loop] resumed from checkpoint step {last}")
 
     losses, all_metrics, secs = [], [], []
@@ -167,7 +180,7 @@ def run_training(api: ModelAPI, tc: TrainConfig, *, global_batch: int,
                 step += 1
                 if ckpt_dir and step % ckpt_every == 0:
                     t1 = time.perf_counter()
-                    view = state_view(state, tc, group)
+                    view = state_view(state, tc, group, model)
                     events.append({"kind": "view", "step": step, "ms":
                                    (time.perf_counter() - t1) * 1e3})
                     if writer:
@@ -181,11 +194,12 @@ def run_training(api: ModelAPI, tc: TrainConfig, *, global_batch: int,
                     raise
                 saver.wait()
                 batches.close()
-                last = _agreed_latest(ckpt_dir, group, writer, device)
+                last = _agreed_latest(ckpt_dir, group, writer, device, model)
                 if last is None:
-                    _reset(state, api, tc, initial)
+                    _reset(state, api, tc, initial, model)
                 else:
-                    events.append(_restore(state, ckpt_dir, last, tc, group))
+                    events.append(_restore(state, ckpt_dir, last, tc, group,
+                                           model))
                 step = state.step
                 batches = Prefetcher(make_batch, device=device,
                                      start_step=step)

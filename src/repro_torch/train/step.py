@@ -39,9 +39,26 @@ With ``tc.ep_exchange`` set, a MoE model and ``tc.ep_workers > 1``, each
 worker's forward runs the MoE combine through that exchange over a
 ``LocalWorkers(tc.ep_workers)`` of EP ranks, at the reference's
 exchange codec: ``tc.compression`` at ratio 2.5 with top-k and error
-feedback off, where a fully dense payload peels exactly. On ranks
-(``ProcessGroupWorkers``) ``ep_workers > 1`` raises: it needs a ``dp x
-ep`` process layout the launcher does not build yet.
+feedback off, where a fully dense payload peels exactly.
+
+On a grid of W x MP ranks (``launch/mesh.RankMesh``: ``group`` its
+data-parallel group, ``model`` its model-axis group) each rank holds its
+shards of the leaves (``parallel/sharding.param_pspecs`` of
+``tc.sharding``: Megatron's column and row splits, the vocab, the
+routed experts) and the model ranks of data index d take the same rows
+``[d·B/W, (d+1)·B/W)``; the forward and backward run in a
+``model_region`` (``parallel/hints``). Everything after the backward is
+shard-local, the reference's nested branch: each rank's bucket plan,
+top-k, error feedback and residual are over its local leaves, its
+aggregator runs over its data-parallel group (the same block ids on
+every model rank), a compressed aggregate of a replicated leaf is taken
+from model rank 0 (:func:`sync_replicated`), ZeRO-1 slices each leaf on
+``zero_slice_dim(shape, spec, W)``, never the model-sharded dim, and the
+grad norm sums the sharded leaves' squares over the model axis and
+counts a replicated leaf once. The EP ranks are the model ranks: with
+``ep_exchange`` set the MoE partials are summed by the exchange over the
+model group (``ep_workers`` 1 or MP). On ranks with one model rank,
+``ep_workers > 1`` raises: the experts are not sharded there.
 
 :func:`state_view` gives the state without its layout (whole moments,
 every worker's residual row), as a checkpoint holds it, and
@@ -60,6 +77,9 @@ from repro_torch.core.collectives import AggregationState, LocalWorkers
 from repro_torch.core.streams import zero_slice_dim
 from repro_torch.models.params import ParamTree, unflatten_tree
 from repro_torch.models.registry import ModelAPI
+from repro_torch.models.transformer import check_model_axis
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.hints import model_region
 from .config import TrainConfig
 from . import optimizer as opt_lib
 
@@ -72,29 +92,68 @@ class TrainState:
     step: int
 
 
-def zero1_dims(leaves: Sequence[torch.Tensor],
-               tc: TrainConfig) -> List[Optional[int]]:
+def _mp(model) -> int:
+    return 1 if model is None else model.workers
+
+
+def leaf_specs(params: ParamTree, tc: TrainConfig, model=None) -> List[tuple]:
+    """Each leaf's model-axis spec: ``tc.sharding``'s where the grid has
+    MP > 1 model ranks, else ``()`` (nothing sharded)."""
+    if _mp(model) == 1:
+        return [()] * len(params.paths)
+    return [shd.leaf_spec(p, t.ndim, tc.sharding)
+            for p, t in zip(params.paths, params.leaves())]
+
+
+def zero1_dims(leaves: Sequence[torch.Tensor], tc: TrainConfig,
+               specs: Optional[Sequence[tuple]] = None
+               ) -> List[Optional[int]]:
     """Each leaf's ZeRO-1 slice dim (None: updated replicated); all None
-    unless ``tc.zero1`` and W > 1."""
+    unless ``tc.zero1`` and W > 1. ``specs`` (:func:`leaf_specs`): the
+    dims a spec shards are never sliced."""
     if not (tc.zero1 and tc.workers > 1):
         return [None] * len(leaves)
-    return [zero_slice_dim(tuple(p.shape), (), tc.workers) for p in leaves]
+    specs = specs or [()] * len(leaves)
+    return [zero_slice_dim(tuple(p.shape), s, tc.workers)
+            for p, s in zip(leaves, specs)]
+
+
+def _model_shard(x: torch.Tensor, spec, model) -> torch.Tensor:
+    """This model rank's block of the whole leaf ``x`` (a view)."""
+    return shd.shard_leaf(x, spec, {"model": model.workers},
+                          {"model": model.first_worker})
+
+
+def shard_params(params: ParamTree, tc: TrainConfig, model=None) -> ParamTree:
+    """``params`` (whole) as this rank's shards, copies; ``params``
+    itself on a grid of one model rank."""
+    if _mp(model) == 1:
+        return params
+    specs = leaf_specs(params, tc, model)
+    return ParamTree(unflatten_tree([
+        (path, _model_shard(p.detach(), s, model).clone())
+        for path, p, s in zip(params.paths, params.leaves(), specs)]))
 
 
 def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
                      params: ParamTree | None = None,
-                     group=None) -> TrainState:
-    """Fresh state; ``params`` (e.g. from ``convert.params_from_jax``)
-    replaces the random init from ``tc.seed``. The error-feedback
-    residuals have one row per local worker of ``group`` (default: all
-    ``tc.workers``); with ``tc.zero1``, a rank of W (a group with fewer
-    local workers than W) holds only its slice of each sliced leaf's
-    moments."""
+                     group=None, model=None) -> TrainState:
+    """Fresh state; ``params`` (whole, e.g. from
+    ``convert.params_from_jax``) replaces the random init from
+    ``tc.seed``. With ``model`` (the model-axis group of MP > 1 ranks)
+    the state holds this rank's shards of the whole tree. The
+    error-feedback residuals have one row per local worker of ``group``
+    (default: all ``tc.workers``); with ``tc.zero1``, a rank of W (a
+    group with fewer local workers than W) holds only its slice of each
+    sliced leaf's moments."""
+    check_model_axis(api.cfg, _mp(model), tc.sharding)
     params = api.init(tc.seed, device) if params is None else params
+    params = shard_params(params, tc, model)
     leaves = params.leaves()
     local = tc.workers if group is None else group.local_workers
     shapes = []
-    for p, d in zip(leaves, zero1_dims(leaves, tc)):
+    for p, d in zip(leaves, zero1_dims(leaves, tc,
+                                       leaf_specs(params, tc, model))):
         shape = list(p.shape)
         if d is not None and local < tc.workers:
             shape[d] //= tc.workers
@@ -112,7 +171,8 @@ def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
     return TrainState(params=params, opt=opt, residual=residual, step=0)
 
 
-def state_view(state: TrainState, tc: TrainConfig, group=None) -> TrainState:
+def state_view(state: TrainState, tc: TrainConfig, group=None,
+               model=None) -> TrainState:
     """The state with no layout, as a checkpoint holds it: the
     reference's ``TrainState`` tree, every leaf whole.
 
@@ -121,30 +181,40 @@ def state_view(state: TrainState, tc: TrainConfig, group=None) -> TrainState:
     paths are the reference's; ``step`` is an int32 scalar. A rank's
     ZeRO-1 moment slices and its local workers' residual rows are
     gathered over ``group`` (``group.gather``, as ``apply_update``
-    gathers its deltas): every rank of a group must call this together.
-    On ``LocalWorkers`` (``group`` None) the leaves are the live tensors
-    themselves."""
+    gathers its deltas), and on a grid the model shards over ``model``
+    (``sharding.gather_leaf``): every rank of the grid must call this
+    together. On ``LocalWorkers`` (``group`` None) the leaves are the
+    live tensors themselves."""
     params = state.params
     leaves = params.leaves()
     whole = group is None or group.local_workers == group.workers
+    specs = leaf_specs(params, tc, model)
 
     def tree(ts):
         return unflatten_tree(list(zip(params.paths, ts)))
 
-    def moment(m, p, d):
-        if whole or d is None or m.shape == p.shape:
-            return m
-        return group.gather([m.movedim(d, 0).contiguous()]).movedim(0, d)
+    def moment(m, p, d, s):
+        if not (whole or d is None or m.shape == p.shape):
+            m = group.gather([m.movedim(d, 0).contiguous()]).movedim(0, d)
+        return shd.gather_leaf(m, s, model)
 
-    def rows(r):
-        return r if whole or r.numel() == 0 else group.gather([r])
+    def rows(r, s):
+        if r.numel() == 0:
+            return r
+        if not whole:
+            r = group.gather([r])
+        return shd.gather_leaf(r, (None,) + tuple(s), model)
 
-    dims = zero1_dims(leaves, tc)
-    opt = {k: tree([moment(m, p, d) for m, p, d in zip(ms, leaves, dims)])
+    dims = zero1_dims(leaves, tc, specs)
+    opt = {k: tree([moment(m, p, d, sp) for m, p, d, sp
+                    in zip(ms, leaves, dims, specs)])
            for k, ms in state.opt.items()}
-    return TrainState(params=tree(leaves), opt=opt,
-                      residual=tree([rows(r) for r in state.residual]),
-                      step=torch.tensor(state.step, dtype=torch.int32))
+    return TrainState(
+        params=tree([shd.gather_leaf(p.detach(), sp, model)
+                     for p, sp in zip(leaves, specs)]),
+        opt=opt, residual=tree([rows(r, sp) for r, sp
+                                in zip(state.residual, specs)]),
+        step=torch.tensor(state.step, dtype=torch.int32))
 
 
 def view_paths(state: TrainState) -> List[str]:
@@ -156,20 +226,27 @@ def view_paths(state: TrainState) -> List[str]:
 
 
 def load_state_view(state: TrainState, leaves: Sequence[torch.Tensor],
-                    tc: TrainConfig, group=None) -> None:
+                    tc: TrainConfig, group=None, model=None) -> None:
     """The inverse of :func:`state_view`: ``leaves`` (whole, on any
-    device, in :func:`view_paths` order) narrowed to this group's
-    ZeRO-1 slice of each moment and its local workers' residual rows,
-    and copied into the live tensors in place (``build_train_step`` keeps
-    references to them); ``state.step`` set. A leaf of another shape or
-    dtype raises."""
+    device, in :func:`view_paths` order) narrowed to this rank's model
+    shard (with ``model``), this group's ZeRO-1 slice of each moment and
+    its local workers' residual rows, and copied into the live tensors in
+    place (``build_train_step`` keeps references to them); ``state.step``
+    set. A leaf of another shape or dtype raises."""
     params = state.params.leaves()
     moms = sorted(state.opt)
     want = (2 + len(moms)) * len(params) + 1
     if len(leaves) != want:
         raise ValueError(f"{len(leaves)} leaves for a state of {want}")
-    src = iter(leaves)
     first = 0 if group is None else group.first_worker
+    specs = leaf_specs(state.params, tc, model)
+    if _mp(model) > 1:
+        lead = [(None,) + tuple(sp) for sp in specs]
+        per = list(specs) * (1 + len(moms)) + lead + [()]
+        leaves = [_model_shard(x, sp, model)        # not the (0,) stubs
+                  if x.dim() == len(sp) else x
+                  for x, sp in zip(leaves, per)]
+    src = iter(leaves)
 
     def put(dst, x, what):
         if tuple(x.shape) != tuple(dst.shape) or x.dtype != dst.dtype:
@@ -182,7 +259,7 @@ def load_state_view(state: TrainState, leaves: Sequence[torch.Tensor],
             put(p, next(src), "param")
         for k in moms:
             for i, (m, p, d) in enumerate(zip(state.opt[k], params,
-                                              zero1_dims(params, tc))):
+                                              zero1_dims(params, tc, specs))):
                 x = next(src)
                 if d is not None and m.shape != p.shape:
                     blk = m.shape[d]
@@ -196,9 +273,39 @@ def load_state_view(state: TrainState, leaves: Sequence[torch.Tensor],
         state.step = int(next(src))
 
 
+def model_axis_sq_norm(grads: Sequence[torch.Tensor], specs, model
+                       ) -> torch.Tensor:
+    """The squared norm of the whole gradient from this rank's shards:
+    the sharded leaves' squares summed over the model axis (one
+    all-reduce), a replicated leaf's (the norms, the router) counted
+    once."""
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    sharded, replicated = zero, zero
+    for g, sp in zip(grads, specs):
+        sq = g.to(torch.float32).square().sum()
+        if any(a is not None for a in sp):
+            sharded = sharded + sq
+        else:
+            replicated = replicated + sq
+    return model.sum([sharded]) + replicated
+
+
+def sync_replicated(grads: List[torch.Tensor], specs, model
+                    ) -> List[torch.Tensor]:
+    """Model rank 0's aggregate of every replicated leaf, on every model
+    rank. Each model rank's data group recovers its own shard-local
+    stream, and a lossy codec's recovery of a replicated leaf's
+    coordinates depends on the other coordinates of their blocks, which
+    differ between the model ranks; the replicated leaves (the norm
+    scales, the router) must stay one value."""
+    return [model.gather([g[None].contiguous()])[0]
+            if all(a is None for a in sp) else g
+            for g, sp in zip(grads, specs)]
+
+
 def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
                  group, ocfg: opt_lib.OptimizerConfig,
-                 skip: bool = False) -> torch.Tensor:
+                 skip: bool = False, specs=None, model=None) -> torch.Tensor:
     """The optimizer update of one step, in place; returns the grad norm.
 
     ``grads`` is the aggregate (every local worker's), or with ``skip``
@@ -207,11 +314,20 @@ def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
     leaf replicated; otherwise each local worker updates its slice with
     its slice of the moments (a rank's moments are that slice; a
     ``LocalWorkers``' are whole) and the leaf gains the gathered deltas.
+    With ``model`` (MP > 1) the leaves are shards as ``specs`` say, and
+    the norm is the whole gradient's (:func:`model_axis_sq_norm`).
     """
     W = group.workers
     leaves = state.params.leaves()
     lr = opt_lib.lr_schedule(state.step, ocfg, leaves[0].device)
-    if skip:
+    if _mp(model) > 1:
+        if skip:
+            gnorm = torch.sqrt(group.sum([model_axis_sq_norm(g, specs, model)
+                                          for g in grads]))
+        else:
+            gnorm = torch.sqrt(model_axis_sq_norm(grads, specs, model))
+            grads = [grads]
+    elif skip:
         # each worker's aggregate is exact on its own coordinates and
         # zero elsewhere: every coordinate is counted once
         norms = [opt_lib.global_grad_norm(g) for g in grads]
@@ -249,7 +365,7 @@ def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
 
 
 def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
-                     wire_plan=None):
+                     wire_plan=None, model=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``; ``batch``
     holds the global batch's tensors on the params' device, and the step
     runs the rows of ``group``'s local workers (default: a
@@ -261,8 +377,14 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
     dense (one worker, or ``tc.aggregator="dense"``). With
     ``tc.aggregator="auto"`` and no plan the step executes the analytic
     plan, and the metrics carry the per-bucket ``bucket_occupancy``
-    (a vector) for the controller."""
-    W = tc.workers
+    (a vector) for the controller.
+
+    ``model``: this rank's model-axis group on a grid of MP > 1 model
+    ranks (``launch/mesh.RankMesh.model``; ``group`` is then its
+    data-parallel group), for a state from ``init_train_state(...,
+    model=model)``."""
+    W, mp = tc.workers, _mp(model)
+    check_model_axis(api.cfg, mp, tc.sharding)
     if group is None:
         group = LocalWorkers(W, tc.dp_levels)
     if group.workers != W or tuple(group.levels) != (tc.dp_levels or (W,)):
@@ -272,23 +394,29 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
     ocfg = tc.optimizer
     built = {}
     ep_exchange = None
-    if tc.ep_workers > 1 and not isinstance(group, LocalWorkers):
+    if not isinstance(group, LocalWorkers) and tc.ep_workers not in (1, mp):
         raise NotImplementedError(
-            f"ep_workers={tc.ep_workers} on ranks needs a dp x ep process "
-            "layout (launch/ranks.py), which a later slice of the port "
-            "adds; emulate the EP ranks with LocalWorkers instead")
-    if tc.ep_exchange != "none" and api.cfg.moe is not None \
-            and tc.ep_workers > 1:
-        ex_cfg = dataclasses.replace(tc.compression, ratio=2.5,
-                                     topk_ratio=None, error_feedback=False)
-        ep_exchange = agg_lib.make_exchange(tc.ep_exchange, ex_cfg,
-                                            LocalWorkers(tc.ep_workers))
+            f"ep_workers={tc.ep_workers} on ranks with {mp} model rank(s): "
+            "the dp x ep process layout shards the experts over the model "
+            "axis (ep_workers 1 or model_parallel); emulate other EP "
+            "ranks with LocalWorkers instead")
+    ex_cfg = dataclasses.replace(tc.compression, ratio=2.5,
+                                 topk_ratio=None, error_feedback=False)
+    if tc.ep_exchange != "none" and api.cfg.moe is not None:
+        if mp > 1:
+            ep_exchange = agg_lib.make_exchange(tc.ep_exchange, ex_cfg, model)
+        elif tc.ep_workers > 1:
+            ep_exchange = agg_lib.make_exchange(tc.ep_exchange, ex_cfg,
+                                                LocalWorkers(tc.ep_workers))
 
-    def aggregator_for(leaves):
-        """The step's aggregator, the leaves' ZeRO-1 dims and whether the
-        aggregator skips its gather (static per shapes: built once)."""
+    def aggregator_for(params):
+        """The step's aggregator, the leaves' ZeRO-1 dims and specs, and
+        whether the aggregator skips its gather (static per shapes:
+        built once)."""
+        leaves = params.leaves()
         if not built:
-            dims = zero1_dims(leaves, tc)
+            specs = leaf_specs(params, tc, model)
+            dims = zero1_dims(leaves, tc, specs)
             agg = agg_lib.make_aggregator(
                 tc.aggregator if W > 1 else "dense", tc.compression, group)
             if wire_plan is not None and \
@@ -299,17 +427,20 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
                     and tc.zero1 and tc.rs_gather_skip:
                 agg = dataclasses.replace(agg, zero1_dims=dims)
                 skip = agg.gather_skip_active(leaves)
-            built.update(agg=agg, dims=dims, skip=skip)
-        return built["agg"], built["dims"], built["skip"]
+            built.update(agg=agg, dims=dims, skip=skip, specs=specs)
+        return built["agg"], built["dims"], built["skip"], built["specs"]
 
     def local_grads(params: ParamTree, batch):
         """One worker's (loss, metrics, grads)."""
         leaves = params.leaves()
 
         def loss_grads(b):
-            loss, metrics = api.loss(params.tree(), b, remat=tc.remat,
-                                     ep_exchange=ep_exchange)
-            grads = torch.autograd.grad(loss, leaves)
+            # the backward too: a checkpointed block's recompute runs
+            # the model axis's collectives again
+            with model_region(model):
+                loss, metrics = api.loss(params.tree(), b, remat=tc.remat,
+                                         ep_exchange=ep_exchange)
+                grads = torch.autograd.grad(loss, leaves)
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
         if tc.accum_steps <= 1:
@@ -344,12 +475,16 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
             losses.append(loss)
             metrics_w.append(metrics)
             grads_w.append(grads)
-        aggregator, dims, skip = aggregator_for(state.params.leaves())
+        aggregator, dims, skip, specs = aggregator_for(state.params)
         with torch.no_grad():
             grads, agg_state = aggregator(
                 grads_w, AggregationState(residual=state.residual))
             del grads_w
-            gnorm = apply_update(state, grads, dims, group, ocfg, skip)
+            if mp > 1 and not isinstance(aggregator, agg_lib.DenseAggregator):
+                grads = ([sync_replicated(g, specs, model) for g in grads]
+                         if skip else sync_replicated(grads, specs, model))
+            gnorm = apply_update(state, grads, dims, group, ocfg, skip,
+                                 specs=specs, model=model)
         stats = agg_state.stats
         names = list(metrics_w[0])    # one reduction for the loss and metrics
         mean = group.sum([torch.stack([l, *(m[k] for k in names)])

@@ -165,8 +165,10 @@ def test_membership_admission_queue_and_leave(J):
     assert outs[0] == outs[1]
     assert outs[0] == ["admitted", "admitted", "queued", (0, 1), (2,), (2,),
                        (1, 2)]
-    with pytest.raises(NotImplementedError, match="launch/mesh.py"):
-        ms[0].local_mesh()
+    # 2 members on a pool of 8 devices: data 2 (the reference's sizing)
+    assert ms[0].local_mesh(devices=8).shape == {"data": 2, "model": 1}
+    with pytest.raises(ValueError, match="model_parallel"):
+        ms[0].local_mesh(model_parallel=2, devices=1)
 
 
 # ----------------------------------------------------------------------
@@ -620,8 +622,11 @@ def test_straggler_monitor_flags_outlier(J):
 
 
 def test_elastic_mesh_waits_for_the_mesh_port():
-    with pytest.raises(NotImplementedError, match="launch/mesh.py"):
-        elastic_mesh(available_devices=1, model_parallel=1)
+    # the mesh port has landed: elastic_mesh gives the (data, model) shape
+    assert elastic_mesh(available_devices=1, model_parallel=1).shape == \
+        {"data": 1, "model": 1}
+    with pytest.raises(ValueError):
+        elastic_mesh(available_devices=1, model_parallel=2)
 
 
 @pytest.mark.parametrize("avail,mp,data", [
