@@ -9,12 +9,14 @@ Phases (each prints one JSON line; any failure ends the run non-zero):
 2. build   — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card,
    on 2048 blocks of the main path's geometry at offset block ids:
-   dyadic inputs at 4% and 40% density bit for bit, Gaussian inputs to
-   rtol=1e-5, atol=1e-6 (the plain version's ``index_add_`` sums in
-   atomic order on the card), words and residual exactly; two runs of
-   each kernel bit-identical. Then, dyadic and bit for bit, the lossless
-   profile (rows 60, ratio 2) and G=120, whose state the kernels keep in
-   device memory.
+   dyadic inputs at 4% and 40% density bit for bit; on Gaussian inputs
+   every encode (rows 1, 3, 5: sketch, maxabs, q) bit for bit, the
+   plain encode summing each cell in the kernels' order on every
+   device, and the peels' values to rtol=1e-5, atol=1e-6 (whether they
+   were bit for bit too is printed, ``gaussian_bit_equal``); words and
+   residual exactly; two runs of each kernel bit-identical. Then,
+   dyadic and bit for bit, the lossless profile (rows 60, ratio 2) and
+   G=120, whose state the kernels keep in device memory.
 4. train   — granite-3-2b at full width, depth cut 40 -> 4, bf16, W=2
    data-parallel workers emulated on the card, global batch 8 x 1024
    tokens, aggregator ``compressed`` (ratio 0.1, top-k 4%), AdamW with
@@ -50,8 +52,7 @@ The in-network slice (``aggregator="compressed_innet"``, fxp32 wire):
 8. kernels_q — the quantize producer and dequant consumer legs against
    their plain versions on 2048 blocks at offset ids, with W=2 exponents
    from the f32 producer's real maxabs: dyadic inputs at 4% and 40%
-   bit for bit; Gaussian inputs with q within one step of the plain q
-   plus phase 3's f32 tolerance at the block's scale, values to
+   bit for bit; Gaussian inputs with q bit for bit, values to
    rtol=1e-5, atol=1e-6; words and residual exactly; on every input
    each leg equals its f32 kernel composed with ``FixedPointWire``'s
    ``encode``/``decode`` bit for bit. Then dyadic, bit for bit, in the
@@ -327,8 +328,8 @@ read 0 just after.
     against ``generate``'s (inputs equal, logits within a bound), the
     second wave's slots 0 and 7 against a batch-1 engine fed the slot's
     tokens at the positions the shared position implies (576 on, past
-    ``max_len``), the prompt's last 3 tokens decoded against its prefill,
-    each within a bound from the card's readings; one request through a
+    ``max_len``), the prompt's last 3 tokens decoded, each step against
+    the prefill of the prompt up to its token, each within a bound from the card's readings; one request through a
     batch-1 batcher equal to a batch-1 ``generate`` call for call, logits
     bit for bit. The decode step's kernels come from two profiled
     ``generate`` runs (5 and 1 new tokens), their difference. Prints
@@ -344,8 +345,8 @@ read 0 just after.
     that no token drops.
 36. serve_consistency — the reference's prefill/decode check
     (``tests/test_decode_consistency.py``) at full width, f32, depth 4,
-    B 2: prefill 64 tokens, decode 3, the logits equal to the prefill of
-    67 tokens within atol 2e-3; granite-3-2b, and deepseek-moe-16b with
+    B 2: prefill 64 tokens, decode 3, each step's logits equal to the
+    prefill up to its token (65, 66, 67) within atol 2e-3; granite-3-2b, and deepseek-moe-16b with
     both capacity factors E / K (no token drops).
 
 The ssm, hybrid, vlm and encdec families (after phase 36, its memory
@@ -402,25 +403,49 @@ The model axis (after phase 42, its memory freed):
     ranks sharing ``cuda:0`` (host-staged), each holding its shards of
     the sharding profile's splits (attention and MLP columns / rows,
     the vocab, the routed experts in groups of E/2) and its data
-    index's rows of phase 4's global batch; granite-3-2b at full width,
-    depth 4, under ``compressed`` (top-k 4%, ZeRO-1) and ``dense``, and
+    index's rows of a global batch of 8; granite-3-2b at full width,
+    depth 4, under ``compressed`` (top-k 4%, ZeRO-1) and ``dense``,
     deepseek-moe-16b at full width, depth 1, under ``ep_exchange``
     ``none``, ``dense`` and ``compressed`` (the exchange over the model
-    ranks), two steps an arm (``DIST_MODEL_STEPS``). Holds on every
-    rank: one producer and one consumer a step (compressed granite),
-    none on dense; the step-0 shard-local aggregate within phase 3's
-    tolerance of the plain aggregator's on the same group and inputs,
-    the residuals bit for bit, and on dyadic gradients of the same
-    leaves the two aggregates bit for bit;
+    ranks), whisper-tiny whole (3 of 6 heads a rank; rows of 448 tokens
+    and 1500 frames) and internvl2-2b at full width, depth 4 (its 256
+    visual tokens replicated) under ``compressed``, two steps an arm
+    (``DIST_MODEL_STEPS``), one arm after another with the caches
+    emptied between them. Holds on every rank: one producer and one
+    consumer a step (the compressed arms), none on dense; the step-0 shard-local aggregate and residuals equal
+    to the plain aggregator's on the same group and inputs bit for bit,
+    and so on dyadic gradients of the same leaves;
     the replicated leaves' step-0 gradients equal across the model ranks
     of a data index; the compressed exchange equal to the dense one bit
     for bit (losses, parameter shards) and within rtol 1e-2 of ``none``;
-    the dense arm's losses within ``DIST_MODEL_LOSS_RTOL`` of the
-    emulated W=2 train's (phase 4's first two, which run at the initial
-    parameters: the learning rate is 0 at step 0). Prints, beside the card's name and power
-    limit, step ms, peak memory a rank and the card's (polled), the
-    launches a rank, and the last step's model-axis collectives replayed
-    alone (ms and bytes a rank).
+    granite's dense arm, whisper's and internvl's losses within
+    ``DIST_MODEL_LOSS_RTOL`` of their emulated W=2 trains' (the first
+    two of phases 4, 41 and 38, which run at the initial parameters: the
+    learning rate is 0 at step 0). Prints, beside the card's name and
+    power limit, step ms, peak memory a rank and the card's (polled over
+    the phase and over each arm), the launches a rank, and the last
+    step's model-axis collectives replayed alone (ms and bytes a rank).
+
+The long-sequence shapes (after phase 43, its memory freed; every
+training and prefill attention above is blockwise too,
+``layers.flash_attention``):
+
+44. long_train — granite-3-2b at full width, depth 40 -> 4, at
+    ``train_4k``'s S 4,096, global batch 4 (cut from 256), W=2
+    emulated, ``compressed``, the ``block`` remat, ZeRO-1, one warm-up
+    and two timed steps: W producer launches and one consumer launch a
+    step; step ms and peak memory. Then ``flash_attention`` against the
+    plain one-pass softmax at granite's heads (32 / 8 of 64), S 4,096,
+    B 1, causal, f32 and bf16: output and q, k, v gradients within
+    ``FLASH_ATOL`` of the largest entry; each one's ms forward and
+    forward + backward, its peak memory and the blockwise bound.
+45. long_serve — granite-3-2b whole (40 layers, bf16) through
+    ``ServeEngine.generate``: 2 prompts of 32,768 tokens
+    (``prefill_32k``'s length), 16 new; prefill ms, decode ms a step
+    beside its bound, the peak memory of the prefill and of the decode;
+    no codec kernel launched. Then at depth 4 in f32 (one row) each of 3
+    decode steps after a 32,768-token prefill against a prefill of the
+    prompt up to its token, within atol 2e-3.
 
 Each phase's wall seconds follow it on a ``phase_seconds`` line, and all
 of them together (``phase_seconds_all``) precede the kernels line. To
@@ -432,13 +457,14 @@ phases 18, 21-22, 24 and 28 are spawned once (``dist_spawn``).
 Then the ``{"kernels": [...]}`` line (all six kernel rows, each with
 its resident blocks an SM, threads a block and shared-memory bytes from
 the occupancy query, its launches on each train path (the ``auto``
-phases', the MoE trains' and phases 37-38's and 41's too), ``dist_train``'s, ``dist_rs``'s,
+phases', the MoE trains' and phases 37-38's, 41's and 44's too), ``dist_train``'s, ``dist_rs``'s,
 ``dist_auto``'s and ``dist_a2a``'s summed over the ranks, each
 ``dist_model`` arm's summed over its 4 ranks, rows 1 and 2
 with their ``kernels_a2a`` times under ``a2a``, rows 1, 2 and 4 with
 their ``kernels_elastic`` times under ``elastic`` and every row's
 launches on each ``elastic`` arm, in phases 31-33 (``dist_ckpt``'s
-ranks summed) and in phases 34-36, 39-40 and 42 (0), for the three peel kernels the rounds histogram, for
+ranks summed) and in phases 34-36, 39-40, 42 and 45 (0), for the three
+peel kernels the rounds histogram, for
 the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``. There is no
@@ -465,6 +491,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 on the tensor cores, dense
 CHECK_BLOCKS = 2048
 BIG_BLOCKS = 256               # blocks of each geometry with state in device memory
 CHECK_OFFSET = 7000            # a block range inside the main path's stream
@@ -560,7 +587,9 @@ class Checker:
         self.err = {"encode_pack_quantize": 0.0, "dequant_peel_unpack": 0.0,
                     "encode_pack_quantize_q": 0.0, "dequant_peel_unpack_dq": 0.0,
                     "sketch_encode": 0.0, "sketch_peel": 0.0}
-        self.q_steps = 0       # largest |q_kernel - q_plain| of a case (Gaussian)
+        # whether every output held to a tolerance (the peels' values on
+        # Gaussian inputs) was bit for bit all the same
+        self.gaussian_bit_equal = dict.fromkeys(self.err, True)
 
     def __call__(self, name, got, want, exact):
         import torch
@@ -568,21 +597,22 @@ class Checker:
             ok = torch.equal(got, want)
         else:
             ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+            self.gaussian_bit_equal[name] &= torch.equal(got, want)
         if got.dtype.is_floating_point:
             self.err[name] = max(self.err[name], float((got - want).abs().max()))
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version ({'exact' if exact else 'rtol=1e-5'})")
 
-    def producer(self, xb, ids, cfg, exact):
-        """Producer kernel vs plain on ``xb``; returns the kernel's outputs
-        (the plain version's Gaussian sketch sums in atomic order, so only
-        the kernel's repeats bit for bit from run to run)."""
+    def producer(self, xb, ids, cfg):
+        """Producer kernel vs plain on ``xb``, bit for bit on any input
+        (the plain encode sums each cell in the kernel's order); returns
+        the kernel's outputs."""
         from repro_torch.kernels import ops, ref
         want = ref.encode_pack_quantize_ref(xb, ids, cfg)
         got = ops.encode_pack_quantize(xb, ids, cfg)
-        for g, w, ex in zip(got, want, (exact, True, exact)):
-            self("encode_pack_quantize", g, w, ex)
+        for g, w in zip(got, want):
+            self("encode_pack_quantize", g, w, True)
         return got
 
     def consumer(self, sk, w, ids, cfg, exact):
@@ -595,17 +625,12 @@ class Checker:
         self("dequant_peel_unpack", got[1], want[1], True)
         return got
 
-    def producer_q(self, xb, ids, cfg, f32, wire, e, exact):
+    def producer_q(self, xb, ids, cfg, f32, wire, e):
         """Quantize leg vs plain on ``xb``, and vs the f32 kernel's outputs
-        ``f32`` composed with ``wire.encode`` (bit for bit on any input).
-        On Gaussian inputs the plain version's f32 sketch (summed in
-        atomic order) differs from the kernel's within phase 3's rtol=1e-5,
-        atol=1e-6, and an ulp of a cell near the block's max is 2^(M-24)
-        steps of q: q must lie within one step of the plain q plus that
-        tolerance at the block's scale. Returns the kernel's outputs."""
-        import torch
+        ``f32`` composed with ``wire.encode``, bit for bit on any input
+        (the plain encode sums in the kernels' order, so its q is the
+        kernel's). Returns the kernel's outputs."""
         from repro_torch.kernels import ops, ref
-        from repro_torch.net.fixedpoint import pow2
         name, M, nb = "encode_pack_quantize_q", wire.mantissa_bits, xb.shape[0]
         got = ops.encode_pack_quantize(xb, ids, cfg, exponents=e, mantissa_bits=M)
         sk, w, mx = f32
@@ -614,21 +639,8 @@ class Checker:
         self(name, got[2], mx, True)
         want = ref.encode_pack_quantize_ref(xb, ids, cfg, exponents=e,
                                             mantissa_bits=M)
-        self(name, got[1], want[1], True)
-        self(name, got[2], want[2], exact)
-        if exact:
-            self(name, got[0], want[0], True)
-        else:
-            dq = (got[0] - want[0]).abs()
-            steps = ((1e-5 * sk.abs() + 1e-6).reshape(nb, -1)
-                     * pow2(M - e)[:, None]).reshape(dq.shape)
-            if not bool((dq <= steps + 1).all()):
-                raise AssertionError(f"{name}: q off the plain q by more than "
-                                     "one step plus the f32 tolerance")
-            self.q_steps = max(self.q_steps, int(dq.max()))
-            dec = lambda q: wire.decode(q.reshape(nb, -1), e)
-            self.err[name] = max(self.err[name],
-                                 float((dec(got[0]) - dec(want[0])).abs().max()))
+        for g, wv in zip(got, want):
+            self(name, g, wv, True)
         return got
 
     def consumer_dq(self, q, w, ids, cfg, wire, e, exact):
@@ -648,13 +660,13 @@ class Checker:
         self(name, got[1], want[1], True)
         return got
 
-    def encode_std(self, xb, ids, cfg, exact):
+    def encode_std(self, xb, ids, cfg):
         """Standalone encode kernel vs plain on ``xb``, and, on an aligned
-        geometry, vs the fused producer's sketch bit for bit (any input).
+        geometry, vs the fused producer's sketch, bit for bit on any input.
         Returns the kernel's sketch."""
         from repro_torch.kernels import ops, ref
         got = ops.sketch_encode(xb, ids, cfg)
-        self("sketch_encode", got, ref.sketch_encode_ref(xb, ids, cfg), exact)
+        self("sketch_encode", got, ref.sketch_encode_ref(xb, ids, cfg), True)
         twin = fused_twin(cfg)
         if twin is not None:
             self("sketch_encode", got, ops.encode_pack_quantize(xb, ids, twin)[0],
@@ -705,7 +717,7 @@ def phase_kernels(cfg, dev, check):
     for kind, frac in [("dyadic", 0.04), ("dyadic", 0.40), ("gauss", 0.04)]:
         xb = make_blocks(cfg, nb, frac, kind, gen)
         exact = kind == "dyadic"
-        sk, w, _ = check.producer(xb, ids, cfg, exact)
+        sk, w, _ = check.producer(xb, ids, cfg)
         _, res = check.consumer(sk, w, ids, cfg, exact)
         if kind == "gauss":   # no atomics: a second run repeats bit for bit
             runs = [ops.encode_pack_quantize(xb, ids, cfg) for _ in range(2)]
@@ -723,7 +735,7 @@ def phase_kernels(cfg, dev, check):
         nbb = BIG_BLOCKS
         xb = make_blocks(big, nbb, 0.04, "dyadic", gen)
         idb = ids[:nbb]
-        sk, w, _ = check.producer(xb, idb, big, True)
+        sk, w, _ = check.producer(xb, idb, big)
         _, res = check.consumer(sk, w, idb, big, True)
         emit({"phase": "kernels", "case": f"dyadic@0.04 rows={big.rows} "
               f"G={big.group}", "blocks": nbb, "agree": True,
@@ -752,11 +764,10 @@ def phase_kernels_q(cfg, dev, check):
               (dc.replace(cfg, ratio=2.0, rows=60), dc.replace(cfg, ratio=0.05))]
     for c, nb, kind, frac in cases:
         exact = kind == "dyadic"
-        check.q_steps = 0
         xs = [make_blocks(c, nb, frac, kind, gen) for _ in range(WORKERS)]
         f32 = [ops.encode_pack_quantize(x, ids[:nb], c) for x in xs]
         e = wire.exponents_from_maxabs(group.max([f[2] for f in f32]))
-        qs = [check.producer_q(x, ids[:nb], c, f, wire, e, exact)
+        qs = [check.producer_q(x, ids[:nb], c, f, wire, e)
               for x, f in zip(xs, f32)]
         q = group.sum([g[0] for g in qs])
         w = group.bor([g[1] for g in qs])
@@ -765,7 +776,6 @@ def phase_kernels_q(cfg, dev, check):
               f"G={c.group}", "blocks": nb, "workers": WORKERS,
               "mantissa_bits": wire.mantissa_bits, "agree": True,
               "exponent_range": [int(e.min()), int(e.max())],
-              "max_q_steps_vs_plain": check.q_steps,
               "nnz": int(index_lib.popcount(w)), "residual": int(res.sum())})
 
 
@@ -795,7 +805,7 @@ def phase_kernels_std(cfg, dev, check):
         exact = kind == "dyadic"
         xb = make_blocks(c, nb, frac, kind, gen)
         idb = ids[:nb]
-        sk = check.encode_std(xb, idb, c, exact)
+        sk = check.encode_std(xb, idb, c)
         bits = index_lib.bloom_query(xb.shape, c, index_lib.bloom_build(xb, c))
         if not bool(bits[xb != 0].all()):
             raise AssertionError("the Bloom query missed a non-zero")
@@ -813,10 +823,11 @@ def phase_kernels_std(cfg, dev, check):
               "residual": int(res.sum())})
 
 
-def bound(nbytes, nops):
-    """(ms, what bounds it): bytes over the HBM rate, operations over the
-    float32 rate, the larger of the two."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+def bound(nbytes, nops, ops_per_s=F32_OPS_PER_S):
+    """(ms, what bounds it): bytes over the HBM rate, operations over
+    ``ops_per_s`` (the float32 rate unless given), the larger of the
+    two."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (max(tb, to), "bytes" if tb >= to else "operations")
 
 
@@ -870,13 +881,14 @@ def round_stats(bits, ids, cfg):
     from repro_torch.core import hashing
     from repro_torch.core.sketch import (device_tables, gather_rows,
                                          roll_from_sketch, roll_to_sketch,
-                                         scatter_rows)
+                                         row_lists, scatter_rows)
     rows_flat, _ = device_tables(cfg, bits.device)
+    lists = row_lists(cfg, bits.device)
     rot = hashing.block_rotations(ids, cfg.group, cfg.lanes, cfg.seed)
 
     def to_cells(mask):
         return scatter_rows(roll_to_sketch(mask.to(torch.int32), rot, cfg.lanes),
-                            rows_flat, cfg.rows)
+                            lists)
 
     deg, b, nb, out = to_cells(bits), bits.clone(), bits.shape[0], []
     for _ in range(cfg.rounds):
@@ -932,7 +944,7 @@ def phase_main_stream(cfg, dev, n_blocks, check):
     nb = n_blocks
     ids = torch.arange(nb, dtype=torch.int32, device=dev)
     xb = make_blocks(cfg, nb, 0.04, "gauss", gen)
-    sk, w, mx = check.producer(xb, ids, cfg, False)
+    sk, w, mx = check.producer(xb, ids, cfg)
     enc_digests = {"gauss@0.04": digest(sk, w, mx)}
     digests = {"gauss@0.04": digest(*check.consumer(sk, w, ids, cfg, False))}
     del xb, sk, w, mx
@@ -940,7 +952,7 @@ def phase_main_stream(cfg, dev, n_blocks, check):
 
     group = LocalWorkers(WORKERS)
     xs = [make_blocks(cfg, nb, 0.04, "dyadic", gen) for _ in range(WORKERS)]
-    enc = [check.producer(x, ids, cfg, True) for x in xs]
+    enc = [check.producer(x, ids, cfg) for x in xs]
     for k, e in enumerate(enc):
         enc_digests[f"dyadic@0.04 worker{k}"] = digest(*e)
     sk = group.sum([e[0] for e in enc])
@@ -1001,7 +1013,9 @@ def phase_main_stream(cfg, dev, n_blocks, check):
         recs.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/sketch_wire.cu",
                      "replaces": replaces, "launches": None,
-                     "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
+                     "max_abs_err": check.err[name],
+                     "gaussian_bit_equal": check.gaussian_bit_equal[name],
+                     "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, 5, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
                      "bytes": nbytes, "ops": nops, **extra[name],
@@ -1056,14 +1070,14 @@ class BloomObserver:
 
 def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
                 want=None, emit_line=True, wire_plan=None, steps=STEPS,
-                arch_name="granite-3-2b", layers=LAYERS, seq=SEQ):
+                arch_name="granite-3-2b", layers=LAYERS, seq=SEQ, batch=BATCH):
     """The main path: ``compressed`` (``wire="f32"``) or, with
     ``wire="fxp32"``, ``compressed_innet`` on the fxp32 wire; ``fields``
     override the config's compression fields (the Bloom path:
     ``index="bloom"``, a 0.1% top-k; the streamed paths: ``overlap``),
     ``tc_fields`` its train fields (``aggregator``, ``zero1``,
     ``ep_exchange``, ``ep_workers``), ``arch_name`` and ``layers`` the
-    model and its depth, ``seq`` the tokens a row,
+    model and its depth, ``seq`` the tokens a row, ``batch`` the rows,
     ``wire_plan`` the aggregator's wire plan, and ``want`` the launch
     counts the run of ``steps`` steps must give (default: the unstreamed
     paths'). The launch counters are zeroed just before the run and read
@@ -1100,11 +1114,11 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
         ops.LAUNCHES[k] = 0
     if bloom:
         with observer:
-            res = run_training(api, tc, global_batch=BATCH, seq_len=seq,
+            res = run_training(api, tc, global_batch=batch, seq_len=seq,
                                steps=steps, device=dev, params=params,
                                log_every=1, log_fn=after_step)
     else:
-        res = run_training(api, tc, global_batch=BATCH, seq_len=seq,
+        res = run_training(api, tc, global_batch=batch, seq_len=seq,
                            steps=steps, device=dev, params=params,
                            log_every=1, log_fn=after_step,
                            wire_plan=wire_plan)
@@ -1134,7 +1148,7 @@ def phase_train(dev, phase="train", wire="f32", fields=None, tc_fields=None,
            "params": n_params,
            "reduced": ({} if layers == arch.model.n_layers else
                        {"n_layers": f"{arch.model.n_layers} -> {layers}"}),
-           "workers": WORKERS, "global_batch": BATCH, "seq_len": seq,
+           "workers": WORKERS, "global_batch": batch, "seq_len": seq,
            "aggregator": tc.aggregator, "wire": wire,
            "index": tc.compression.index, "topk_ratio": tc.compression.topk_ratio,
            "topology": tc.compression.topology,
@@ -1399,7 +1413,7 @@ def phase_innet_stream(cfg, dev, n_params, check):
     e_bucket = group.max([wire.exponents_from_maxabs(
         f[2].reshape(nbk, nbpb).amax(dim=1)) for f in f32])
     e = e_bucket.repeat_interleave(nbpb)
-    qw = [check.producer_q(x, ids, cfg, f, wire, e, True)
+    qw = [check.producer_q(x, ids, cfg, f, wire, e)
           for x, f in zip(xs, f32)]
     enc_digests = {f"dyadic@0.04 worker{k}": digest(*g) for k, g in enumerate(qw)}
     del f32
@@ -1471,7 +1485,9 @@ def phase_innet_stream(cfg, dev, n_params, check):
         recs.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/sketch_wire.cu",
                      "replaces": replaces, "launches": None,
-                     "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
+                     "max_abs_err": check.err[name],
+                     "gaussian_bit_equal": check.gaussian_bit_equal[name],
+                     "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, pit, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
                      "bytes": nbytes, "ops": nops, **extra[name],
@@ -1619,13 +1635,13 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
     group = LocalWorkers(WORKERS)
     density = cfg.topk_ratio
     xg = make_blocks(cfg, nb, density, "gauss", gen)
-    skg = check.encode_std(xg, ids, cfg, False)
+    skg = check.encode_std(xg, ids, cfg)
     enc_digests = {"gauss@0.001": digest(skg)}
     bits = index_lib.bloom_query((nb, G, c), cfg, index_lib.bloom_build(xg, cfg))
     digests = {"gauss@0.001": digest(*check.peel_std(skg, bits, ids, cfg, False))}
     del xg, skg, bits
     xs = [make_blocks(cfg, nb, density, "dyadic", gen) for _ in range(WORKERS)]
-    enc = [check.encode_std(x, ids, cfg, True) for x in xs]
+    enc = [check.encode_std(x, ids, cfg) for x in xs]
     for k, y in enumerate(enc):
         enc_digests[f"dyadic@0.001 worker{k}"] = digest(y)
     sk = group.sum(enc)
@@ -1715,7 +1731,9 @@ def phase_bloom_stream(cfg, dev, n_blocks, check):
         recs.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/sketch_codec.cu",
                      "replaces": replaces, "launches": None,
-                     "max_abs_err": check.err[name], "ms": cuda_ms(kfn, 10),
+                     "max_abs_err": check.err[name],
+                     "gaussian_bit_equal": check.gaussian_bit_equal[name],
+                     "ms": cuda_ms(kfn, 10),
                      "plain_ms": cuda_ms(pfn, pit, warmup=1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None, "blocks": nb,
                      "bytes": nbytes, "ops": nops, **extra[name],
@@ -3033,7 +3051,7 @@ def phase_kernels_a2a(dev, check):
     for kind in ("dyadic", "gauss"):
         xb = make_blocks(cfg, nb, 1.0, kind, gen)
         exact = kind == "dyadic"
-        sk, w, _ = check.producer(xb, ids, cfg, exact)
+        sk, w, _ = check.producer(xb, ids, cfg)
         vals, res = check.consumer(sk, w, ids, cfg, exact)
         nnz, n_res = int(index_lib.popcount(w)), int(res.sum())
         if nnz != xb.numel() or n_res:
@@ -3051,7 +3069,7 @@ def phase_kernels_a2a(dev, check):
     xs = [make_blocks(cfg, nb, 1.0, "dyadic", gen) for _ in range(2)]
     enc = []
     for x in xs:
-        sk, w, _ = check.producer(x, ids, cfg, True)
+        sk, w, _ = check.producer(x, ids, cfg)
         leaf, _ = comp.exchange_wire(x.reshape(2, 1, lane_nb * G * c), CHECK_OFFSET)
         if not (torch.equal(leaf.sketch.reshape(sk.shape), sk)
                 and torch.equal(leaf.index_words.reshape(w.shape), w)):
@@ -3466,9 +3484,8 @@ def phase_kernels_elastic(dev, check, n_params):
     ids = torch.arange(nb, dtype=torch.int32, device=dev) + ELASTIC_OFFSET
     for kind, frac in [("dyadic", 0.1), ("dyadic", 0.4), ("gauss", 0.1)]:
         exact = kind == "dyadic"
-        check.q_steps = 0
         xs = [make_blocks(cfg, nb, frac, kind, gen) for _ in range(W)]
-        enc = [check.producer(x, ids, cfg, exact) for x in xs]
+        enc = [check.producer(x, ids, cfg) for x in xs]
         sk = group.sum([e[0] for e in enc])
         w = group.bor([e[1] for e in enc])
         _, res = check.consumer(sk, w, ids, cfg, exact)
@@ -3492,11 +3509,11 @@ def phase_kernels_elastic(dev, check, n_params):
     for kind in ("dyadic", "gauss"):
         exact = kind == "dyadic"
         x = make_blocks(cfg, nbf, 0.1, kind, gen)
-        full.producer(x, fids, cfg, exact)
+        full.producer(x, fids, cfg)
         if exact:
             del x
         xa = make_blocks(cfg, nbf, 1 - 0.9 ** W, kind, gen)
-        ska, wa, mxa = full.producer(xa, fids, cfg, exact)
+        ska, wa, mxa = full.producer(xa, fids, cfg)
         del xa
         ea = wire.exponents_from_maxabs(mxa)
         qa = wire.encode(ska.reshape(nbf, -1), ea).reshape(ska.shape)
@@ -4244,25 +4261,33 @@ def no_drop(cfg):
         cfg.moe, capacity_factor=cf, capacity_factor_decode=cf))
 
 
-def decode_prefill_err(api, params, prompts, max_len, extra=None):
+def decode_prefill_err(api, params, prompts, max_len, extra=None, start=None):
     """The reference's prefill/decode consistency check
-    (``tests/test_decode_consistency.py``) in the model's own dtype:
-    prefill all but the last 3 prompt tokens, decode those 3, and the
-    last logits against the prefill of the whole prompt (both prefills
-    given ``extra``, the encdec family's frames)."""
+    (``tests/test_decode_consistency.py``) in the model's own dtype, held
+    at every decode step: prefill ``prompts[:, :start]`` (all but the
+    last 3 prompt tokens by default), decode the rest one token at a
+    time, and each step's logits against the last-position logits of a
+    prefill of the prompt up to that token (every prefill given
+    ``extra``, the encdec family's frames) -> the error at each step,
+    the largest, and the logits' largest magnitude."""
     import torch
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(api, params, max_len=max_len, batch=prompts.shape[0])
-    S = prompts.shape[1]
-    _, cache = eng.prefill(prompts[:, :S - 3], extra)
-    for p in range(S - 3, S):
+    B, S = prompts.shape
+    start = S - 3 if start is None else start
+    eng = ServeEngine(api, params, max_len=max_len, batch=B)
+    _, cache = eng.prefill(prompts[:, :start], extra)
+    errs, top, V = [], 0.0, api.cfg.vocab
+    for p in range(start, S):
         tok = torch.as_tensor(prompts[:, p], device=eng.device).long()
         logits_d, cache = eng.decode(tok, cache, p)
-    logits_p, _ = eng.prefill(prompts, extra)
-    V = api.cfg.vocab
-    return {"rows": prompts.shape[0], "prompt_len": S,
-            "max_abs_err": logits_err(logits_d, logits_p, V),
-            "logits_max_abs": logits_max_abs(logits_p, V)}
+        logits_p, _ = eng.prefill(prompts[:, :p + 1], extra)
+        errs.append(logits_err(logits_d, logits_p, V))
+        top = max(top, logits_max_abs(logits_p, V))
+        del logits_p
+        torch.cuda.empty_cache()
+    return {"rows": B, "prompt_len": start, "decoded": S - start,
+            "max_abs_err_by_step": errs, "max_abs_err": max(errs),
+            "logits_max_abs": top}
 
 
 def batcher_checks(eng, one, prompts, gen_clock, cont_clock, done, max_new):
@@ -4514,8 +4539,8 @@ def serve_model(dev, arch_name, phase, continuous, layers=None,
 def phase_serve_consistency(dev):
     """Phase 36: the reference's prefill/decode consistency
     (``tests/test_decode_consistency.py``) at full width, f32, depth 4:
-    prefill S tokens, decode 3, and the logits equal the prefill of
-    S + 3 to atol 2e-3; granite-3-2b, and deepseek-moe-16b with
+    prefill S tokens, decode 3, and each step's logits equal the prefill
+    up to its token to atol 2e-3; granite-3-2b, and deepseek-moe-16b with
     ``capacity_factor = capacity_factor_decode = E / K`` (no token
     drops)."""
     import numpy as np
@@ -4608,7 +4633,7 @@ def stream_check(api, tc, state, check, dev, seq=SEQ, timed=False):
             xb = to_blocks(stream, lp)
             ids = torch.arange(lp.nb, dtype=torch.int32, device=dev)
             nnz_w.append(int((xb != 0).sum()))
-            payloads.append(check.producer(xb, ids, cfg, False))
+            payloads.append(check.producer(xb, ids, cfg))
             if timed and w == 0:
                 xb0 = xb
             del stream, xb
@@ -4707,7 +4732,8 @@ def phase_family_train(dev, check, phase, arch_name, layers, seq=SEQ,
     the next step's stream (``stream_check``) and step 0 replayed under
     ``use_pallas="never"`` (``plain_replay``), bit for bit. With
     ``timed``, rows 1 and 2 timed on that stream beside their plain
-    versions and bounds (``time_codec``)."""
+    versions and bounds (``time_codec``). Returns the launches and the
+    losses."""
     import torch
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -4736,6 +4762,257 @@ def phase_family_train(dev, check, phase, arch_name, layers, seq=SEQ,
     if not line["plain_replay"]["digest_equal"]:
         raise AssertionError(f"{phase}: step 0 under use_pallas='never' "
                              "differs from the kernels' step 0")
+    return launches, line["losses"]
+
+
+# ----------------------------------------------------------------------
+# The long-sequence shapes (blockwise attention)
+# ----------------------------------------------------------------------
+
+# train_4k's row length at 4 rows (cut from its 256 so that one card
+# holds the step), one warm-up and two timed steps
+LONG_SEQ, LONG_BATCH, LONG_STEPS = 4096, 4, 3
+# prefill_32k's length at 2 rows (cut from its 32 and decode_32k's 128:
+# the KV cache alone is 2.7 GB a row), then 16 new tokens; the f32
+# decode/prefill hold at this length on one row (four prefills of 32k)
+LONG_PROMPT, LONG_SERVE_BATCH, LONG_NEW = 32768, 2, 16
+# flash_attention against the one-pass softmax on the card: outputs and
+# gradients within these fractions of the largest entry. f32: the two
+# sum a row's 4,096 terms in other orders (a few ulps); bf16 operands:
+# one bf16 ulp of the output's largest binade (2^-7 of its entry), two to
+# four of a gradient's (each rounds its f32 result once, from sums in
+# other orders)
+FLASH_ATOL = {"float32": {"out": 1e-5, "grad": 1e-5},
+              "bfloat16": {"out": 2.0 ** -7, "grad": 2.0 ** -6}}
+
+
+def onepass_attention(q, k, v, causal):
+    """The plain one-pass softmax: the whole (B, H, Sq, Skv) f32 score
+    tensor, the causal mask at -1e30, ``exp(s - max)``, the unnormalised
+    probabilities in v's dtype times v in f32, then divided by their
+    sum: the function ``flash_attention`` computes, in one block."""
+    import torch
+    S, H, hd = q.shape[1:]
+    rep = H // k.shape[2]
+    kh = k.repeat_interleave(rep, dim=2).to(torch.float32)
+    vh = v.repeat_interleave(rep, dim=2).to(torch.float32)
+    s = q.to(torch.float32).transpose(1, 2) @ kh.permute(0, 2, 3, 1) \
+        * (1.0 / math.sqrt(hd))
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[:, None] < torch.arange(k.shape[1],
+                                                      device=q.device), -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = p.to(v.dtype).to(torch.float32) @ vh.transpose(1, 2)
+    return (o / p.sum(dim=-1, keepdim=True)).transpose(1, 2).to(q.dtype)
+
+
+def attention_bound(B, H, KV, hd, pairs, backward, dtype):
+    """(ms, "bytes" | "operations"): the least time of the visited block
+    pairs' products (scores and values; in the backward the scores again
+    and four products) at the card's rate for ``dtype`` operands (bf16
+    on the tensor cores, the reference's block products; f32 outside
+    them), against q, the output (and in the backward the output's
+    gradient and dq) at H heads and k, v (dk, dv) at KV heads, each
+    moved once."""
+    import torch
+    cells = sum((qs[1] - qs[0]) * (ks[1] - ks[0]) for qs, row in pairs
+                for ks, _ in row)
+    ops = 2 * B * H * cells * hd * (7 if backward else 2)
+    sq = pairs[-1][0][1]
+    size = torch.finfo(dtype).bits // 8
+    nbytes = B * sq * hd * (2 * H + 2 * KV) * size * (2 if backward else 1)
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound(nbytes, ops, rate)
+
+
+def flash_hold(cfg, dev):
+    """``flash_attention`` against :func:`onepass_attention` at ``cfg``'s
+    heads (32 query heads, 8 KV heads of 64 for granite) at S
+    ``LONG_SEQ``, B 1, causal, in f32 and with bf16 operands: the output
+    and the gradients of q, k and v within :data:`FLASH_ATOL` of the
+    largest entry; then each one's CUDA-event ms forward and forward +
+    backward (bf16), its peak memory over a forward and backward, and
+    the blockwise bound."""
+    import torch
+    from repro_torch.models import layers as L
+    S, H, KV, hd = LONG_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4096)
+    out = {"seq": S, "batch": 1, "heads": H, "kv_heads": KV, "head_dim": hd,
+           "q_block": cfg.q_block, "kv_block": L.KV_BLOCK, "atol": FLASH_ATOL}
+    fns = {"flash": lambda q, k, v: L.flash_attention(q, k, v, True, cfg.q_block),
+           "onepass": lambda q, k, v: onepass_attention(q, k, v, True)}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        x = [torch.randn((1, S, h, hd), generator=gen, device=dev).to(dt)
+             .requires_grad_() for h in (H, KV, KV)]
+        do = torch.randn((1, S, H, hd), generator=gen, device=dev).to(dt)
+        res = {}
+        for key, fn in fns.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            o = fn(*x)
+            res[key] = [o] + list(torch.autograd.grad(o, x, do))
+            res[key + "_peak"] = torch.cuda.max_memory_allocated(dev)
+        errs, ok = {}, True
+        for i, part in enumerate(("out", "dq", "dk", "dv")):
+            got = res["flash"][i].detach().float()
+            want = res["onepass"][i].detach().float()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            errs[part] = {"max_abs_err": err, "max_abs": scale}
+            ok = ok and err <= FLASH_ATOL[name]["out" if i == 0 else "grad"] * scale
+        out[name] = {"errors": errs, "ok": ok,
+                     "peak_mem_bytes": {k: res[k + "_peak"] for k in fns}}
+        if dt == torch.bfloat16:
+            pairs = L._block_pairs(S, S, True, cfg.q_block, L.KV_BLOCK, 0)
+            for key, fn in fns.items():
+                out[name][f"{key}_fwd_ms"] = cuda_ms(lambda: fn(*x), 3, warmup=1)
+                out[name][f"{key}_fwd_bwd_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(fn(*x), x, do), 3, warmup=1)
+            out[name]["fwd_bound_ms"], out[name]["bound_by"] = \
+                attention_bound(1, H, KV, hd, pairs, False, dt)
+            out[name]["fwd_bwd_bound_ms"] = attention_bound(
+                1, H, KV, hd, pairs, True, dt)[0]
+            out[name]["bound_ops_per_s"] = BF16_OPS_PER_S
+        del x, do, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_long_train(dev):
+    """Phase 44: granite-3-2b at full width (d_model 2048, 32 / 8 heads,
+    d_ff 8192, bf16), depth 40 -> 4, at ``train_4k``'s S 4,096 with a
+    global batch of 4 rows (cut from 256): W=2 emulated, ``compressed``
+    (ratio 0.1, top-k 4%), the ``block`` remat, ZeRO-1, one warm-up and
+    two timed steps, every attention blockwise (8 query blocks x 4 key
+    blocks a row, 20 pairs visited); W producer launches and one
+    consumer launch a step (``phase_train`` holds the counts). Then
+    :func:`flash_hold` at granite's heads. Prints step ms, peak memory,
+    the launches, beside the card's name and power limit."""
+    import torch
+    line, launches, api, tc, state = phase_train(
+        dev, phase="long_train", steps=LONG_STEPS, seq=LONG_SEQ,
+        batch=LONG_BATCH, emit_line=False)
+    del state
+    torch.cuda.empty_cache()
+    line.update(card=smi_line(), shape="train_4k", remat=tc.remat)
+    line["reduced"]["global_batch"] = f"256 -> {LONG_BATCH}"
+    line["flash_vs_onepass"] = hold = flash_hold(api.cfg, dev)
+    emit(line)
+    if not (hold["float32"]["ok"] and hold["bfloat16"]["ok"]):
+        raise AssertionError("long_train: flash_attention differs from the "
+                             "one-pass softmax beyond FLASH_ATOL")
+    return launches
+
+
+class PeakClock(ServeClock):
+    """A :class:`ServeClock` that also splits the peak memory: the
+    prefill's, read right after the prefill call (then the peak is
+    reset), and the decode's, the peak since (the cache included)."""
+
+    prefill_peak = None
+
+    def _wrap(self, kind, fn):
+        call = super()._wrap(kind, fn)
+        if kind != "prefill":
+            return call
+
+        def prefill(*args):
+            import torch
+            out = call(*args)
+            self.prefill_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            return out
+        return prefill
+
+
+def phase_long_serve(dev):
+    """Phase 45: granite-3-2b whole (40 layers, bf16, random weights from
+    seed 0) through ``ServeEngine.generate``, the serve launcher's call:
+    2 prompts of 32,768 tokens (``prefill_32k``'s length; 2 rows, cut
+    from its 32 and ``decode_32k``'s 128), 16 new tokens, ``max_len``
+    prompt + 24 as the launcher's default; every attention of the
+    prefill blockwise (64 query blocks x 32 key blocks a row, 1,056 pairs
+    visited), the decode one pass over the whole cache. The launch
+    counters zeroed before and read after (serving runs no codec
+    kernel). Prints the prefill ms and its tokens/s beside the bound of
+    its attention products (bf16 on the tensor cores), the decode ms a step
+    (CUDA events, the engine's own loop) beside its bound (the weights'
+    and the whole cache's bytes at 3.35 TB/s), the peak memory of the
+    prefill and of the decode. Then ``serve_consistency``'s hold at
+    this length: depth 4, f32, one row, the prefill of 32,768 tokens and
+    3 decode steps, each step's logits against the last-position logits
+    of a prefill of the prompt up to its token, within atol 2e-3."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import model_api
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_arch("granite-3-2b").model
+    api = model_api(cfg)
+    params = api.init(0, dev)
+    leaves = params.leaves()
+    w_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    B, S, new = LONG_SERVE_BATCH, LONG_PROMPT, LONG_NEW
+    max_len = S + new + 8
+    kv_bytes = cache_bytes(api, params, B, max_len)
+    eng = ServeEngine(api, params, max_len=max_len, batch=B)
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, (B, S),
+                                                dtype=np.int32)
+    zero_launches()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with PeakClock(eng) as clock:
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=new)
+        torch.cuda.synchronize(dev)
+        gen_s = time.perf_counter() - t0
+    launches = read_launches("long_serve")
+    peaks = {"prefill": clock.prefill_peak,
+             "decode": torch.cuda.max_memory_allocated(dev)}
+    step_ms = clock.step_ms()
+    prefill_ms = clock.prefill_ms()[0]
+    del eng, params, leaves, clock
+    torch.cuda.empty_cache()
+
+    f32 = model_api(dataclasses.replace(cfg, dtype="float32",
+                                        n_layers=CONSISTENCY_LAYERS))
+    toks = np.random.default_rng(1).integers(1, cfg.vocab, (1, S + 3),
+                                            dtype=np.int32)
+    consistency = decode_prefill_err(f32, f32.init(0, dev), toks, S + 3,
+                                     start=S)
+    consistency.update(layers=CONSISTENCY_LAYERS, dtype="float32", atol=2e-3,
+                       ok=consistency["max_abs_err"] <= 2e-3)
+    torch.cuda.empty_cache()
+    line = {"phase": "long_serve", "card": smi_line(), "arch": cfg.name,
+            "layers": cfg.n_layers, "dtype": str(cfg.activation_dtype),
+            "shape": ["prefill_32k", "decode_32k"], "batch": B,
+            "prompt_len": S, "max_new": new, "max_len": max_len,
+            "reduced": {"batch": f"32 (prefill_32k) / 128 (decode_32k) -> {B}"},
+            "weight_bytes": w_bytes, "cache_bytes": kv_bytes,
+            "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": B * S / (prefill_ms / 1e3),
+            "prefill_attention_bound_ms": cfg.n_layers * attention_bound(
+                B, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                L._block_pairs(S, S, True, cfg.q_block, L.KV_BLOCK, 0),
+                False, cfg.activation_dtype)[0],
+            "decode_step_ms": step_ms,
+            "decode_step_ms_median": statistics.median(step_ms),
+            "decode_bound_ms": (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+            "peak_mem_bytes": peaks,
+            "generate_s": gen_s, "tokens_sha256": tokens_digest(out),
+            "first_row": out[0].tolist(), "consistency": consistency,
+            "launches": launches, "wall_s": time.perf_counter() - t_phase}
+    emit(line)
+    if not consistency["ok"]:
+        raise AssertionError("long_serve: a decode step's logits differ from "
+                             "the prefill's beyond atol 2e-3")
     return launches
 
 
@@ -4745,13 +5022,27 @@ def phase_family_train(dev, check, phase, arch_name, layers, seq=SEQ,
 
 MODEL_PARALLEL = 2        # model ranks a data index (a grid of WORKERS x this)
 DIST_MODEL_STEPS = 2      # steps of each dist_model arm: a warm-up, a timed one
-DIST_MODEL_MOE_LAYERS = 1     # deepseek-moe-16b's depth on the grid
+# each arch's depth and tokens a row on the grid: granite, internvl2-2b as
+# phases 4 and 38 (depth 4; internvl's rows also take their 256 visual
+# tokens), deepseek at depth 1, whisper-tiny whole as phase 41 (448
+# decoder tokens and 1500 frames a row)
+DIST_MODEL_LAYERS = {"granite-3-2b": LAYERS, "deepseek-moe-16b": 1,
+                     "whisper-tiny": 4, "internvl2-2b": 4}
+DIST_MODEL_SEQ = {"whisper-tiny": 448}
 # (arch, data-parallel aggregator, ep_exchange) of each arm, in order
 DIST_MODEL_ARMS = (("granite-3-2b", "compressed", "none"),
                    ("granite-3-2b", "dense", "none"),
                    ("deepseek-moe-16b", "compressed", "none"),
                    ("deepseek-moe-16b", "compressed", "dense"),
-                   ("deepseek-moe-16b", "compressed", "compressed"))
+                   ("deepseek-moe-16b", "compressed", "compressed"),
+                   ("whisper-tiny", "compressed", "none"),
+                   ("internvl2-2b", "compressed", "none"))
+# the arms held to an emulated W=2 train of the same arch, seed and rows
+# (their first two losses run at the initial parameters): granite's dense
+# arm to phase 4, the families' compressed arms to phases 38 and 41
+DIST_MODEL_EMULATED = {"granite-3-2b/dense/none": "train",
+                       "internvl2-2b/compressed/none": "vlm_train",
+                       "whisper-tiny/compressed/none": "encdec_train"}
 # the dense grid's losses against the emulated W=2 train's: the card's
 # readings 2.5e-6 and 1.4e-6 (PERF.md, the model axis), a bf16 rehearsal
 # on the CPU at the smoke width 1.0e-4; a reduction missed or doubled
@@ -4824,15 +5115,14 @@ class AggregateHold:
 
     def plain_check(self, seed):
         """The same aggregator under ``use_pallas="never"`` over the same
-        group. On the kept inputs (the step's gradients): the aggregate's
-        largest difference, whether it lies within phase 3's Gaussian
-        tolerance (the plain encode's ``index_add_`` sums in the card's
-        atomic order, so the plain sketch, and what peels from it, round
-        differently), whether its non-zeros sit where the kernels' do,
-        and the residuals bit for bit. Then, on dyadic gradients of the
-        same leaves (``seed``; every sum exact in any order), the kernels'
-        aggregator and the plain one: aggregate and residuals bit for
-        bit."""
+        group. On the kept inputs (the step's gradients): the aggregate
+        bit for bit (the plain encode sums each cell in the kernels'
+        order, and the plain peel subtracts a round's values in it), its
+        largest difference, whether its non-zeros sit where the kernels'
+        do, and the residuals bit for bit. Then, on dyadic gradients of
+        the same leaves (``seed``; every sum exact in any order), the
+        kernels' aggregator and the plain one: aggregate and residuals bit
+        for bit."""
         import torch
         grads_w, res = self.inputs
         out, st = self._run(True, grads_w, res)
@@ -4840,9 +5130,8 @@ class AggregateHold:
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(out, ref))
         real = {"max_abs_err": err,
-                "within_tol": all(torch.allclose(a.float(), b.float(),
-                                                 rtol=1e-5, atol=1e-6)
-                                  for a, b in zip(out, ref)),
+                "aggregate_equal": all(torch.equal(a, b)
+                                       for a, b in zip(out, ref)),
                 "nonzeros_equal": all(torch.equal(a != 0, b != 0)
                                       for a, b in zip(out, ref)),
                 "residual_equal": all(torch.equal(a, b) for a, b in
@@ -4871,12 +5160,15 @@ def dist_model_rank(mesh, dev):
     """One rank of ``dist_model`` on its grid (``mesh``: a ``RankMesh``),
     every arm of :data:`DIST_MODEL_ARMS` in turn, each a fresh train
     from ``tc.seed`` of ``DIST_MODEL_STEPS`` steps on the global batch's
-    rows of this rank's data index. Per arm: losses, step ms, peak
-    memory, the launch counters (zeroed just before the run, read just
-    after), the sha256 of this rank's parameter shards after every step,
-    the last step's model-axis collectives replayed alone; on granite's
-    compressed arm the step-0 aggregate against the plain aggregator
-    and the sha256 of the replicated leaves' step-0 gradients."""
+    rows of this rank's data index, the caches emptied between arms. Per
+    arm: losses, step ms, peak memory, the card's used memory (rank 0
+    polls it), the launch counters (zeroed just before the run, read
+    just after), the sha256 of this rank's parameter shards after every
+    step, the last step's model-axis collectives replayed alone; on
+    granite's compressed arm the step-0 aggregate against the plain
+    aggregator and the sha256 of the replicated leaves' step-0
+    gradients."""
+    import threading
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_arch
@@ -4892,8 +5184,8 @@ def dist_model_rank(mesh, dev):
            "arms": {}}
     for arch_name, aggregator, exchange in DIST_MODEL_ARMS:
         arch = get_arch(arch_name)
-        layers = LAYERS if arch_name == "granite-3-2b" else DIST_MODEL_MOE_LAYERS
-        api = model_api(dataclasses.replace(arch.model, n_layers=layers))
+        api = model_api(dataclasses.replace(
+            arch.model, n_layers=DIST_MODEL_LAYERS[arch_name]))
         tc = dataclasses.replace(arch.train, workers=WORKERS, accum_steps=1,
                                  aggregator=aggregator, ep_exchange=exchange)
         log = ModelAxisLog(mesh.model)
@@ -4904,19 +5196,31 @@ def dist_model_rank(mesh, dev):
 
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        stop, card = threading.Event(), [0]
+        poller = threading.Thread(target=_card_peak, args=(stop, card),
+                                  daemon=True)
+        if mesh.rank == 0:
+            poller.start()
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
-        with hold:
-            res = run_training(api, tc, global_batch=BATCH, seq_len=SEQ,
-                               steps=DIST_MODEL_STEPS, device=dev,
-                               log_every=1, log_fn=after_step,
-                               group=mesh.data, model=log)
+        try:
+            with hold:
+                res = run_training(api, tc, global_batch=BATCH,
+                                   seq_len=DIST_MODEL_SEQ.get(arch_name, SEQ),
+                                   steps=DIST_MODEL_STEPS, device=dev,
+                                   log_every=1, log_fn=after_step,
+                                   group=mesh.data, model=log)
+        finally:
+            stop.set()
+            if poller.is_alive():
+                poller.join()
         launches = dict(ops.LAUNCHES)
         arm = {"losses": res.losses, "launches": launches,
                "grad_norm": [m["grad_norm"] for m in res.metrics],
                "step_ms": [t * 1e3 for t in res.step_seconds[1:]],
                "warmup_ms": res.step_seconds[0] * 1e3,
                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+               "card_peak_used_bytes": card[0] if mesh.rank == 0 else None,
                "param_sha256": param_digest(res.state.params),
                "local_params": sum(p.numel() for p in res.state.params.leaves())}
         paths = res.state.params.paths
@@ -4960,28 +5264,33 @@ def phase_dist_model(dev, emulated):
     """A grid of ``WORKERS`` data-parallel x ``MODEL_PARALLEL`` model
     ranks, 4 gloo ranks sharing ``cuda:0`` (host-staged, as
     ``dist_train``): each arm of :data:`DIST_MODEL_ARMS` trains
-    ``DIST_MODEL_STEPS`` steps at full width (granite-3-2b at depth 4,
-    deepseek-moe-16b at depth 1) on the global batch of phase 4, each
-    rank on its shards (the sharding profile's tensor, vocab and expert
-    splits) and its data index's rows. Fails unless, on every rank:
+    ``DIST_MODEL_STEPS`` steps at full width (granite-3-2b and
+    internvl2-2b at depth 4, deepseek-moe-16b at depth 1, whisper-tiny
+    whole) on a global batch of 8 rows, each rank on its shards (the
+    sharding profile's tensor, vocab and expert splits) and its data
+    index's rows. Fails unless, on every rank:
     granite's compressed arm launched one producer and one consumer a
-    step and its dense arm none; its step-0 aggregate lies within phase
-    3's tolerance of the plain aggregator's (``use_pallas="never"``, the
-    same group and inputs) with the residuals bit for bit, and on dyadic
-    gradients of the same shard-local leaves the two aggregate bit for
-    bit (``AggregateHold.plain_check``); the replicated leaves' step-0 gradients equal
+    step and its dense arm none; its step-0 aggregate and residuals equal
+    the plain aggregator's (``use_pallas="never"``, the same group and
+    inputs) bit for bit, and so do they on dyadic gradients of the same
+    shard-local leaves (``AggregateHold.plain_check``); the replicated
+    leaves' step-0 gradients equal
     bit for bit across the model ranks of a data index; every rank
-    reports the same losses; the dense arm's losses lie within
-    ``DIST_MODEL_LOSS_RTOL`` of the emulated W=2 train's (one process,
-    same seed and rows: ``emulated``, phase 4's first two losses; the
-    warm-up's learning rate is 0 at step 0, so both steps run at the
-    initial parameters whatever the aggregator, and a dense emulated
-    run gives these losses bit for bit); deepseek's ``compressed`` exchange
-    equals its ``dense`` exchange bit for bit (losses and the parameter
-    shards' sha256) and lies within rtol 1e-2 of ``none``'s losses.
-    Prints, beside the card's name and power limit: step ms, peak memory
-    a rank and the card's (polled), the launches a rank, and the last
-    step's model-axis collectives replayed alone (ms and bytes a rank)."""
+    reports the same losses; the arms of :data:`DIST_MODEL_EMULATED`
+    (granite's dense arm, the whisper-tiny and internvl2-2b arms) lie
+    within ``DIST_MODEL_LOSS_RTOL`` of the emulated W=2 train of their
+    arch (one process, same seed and rows: ``emulated`` by phase name,
+    the first two losses of phases 4, 41 and 38; the warm-up's learning
+    rate is 0 at step 0, so both steps run at the initial parameters
+    whatever the aggregator, and a dense emulated run gives phase 4's
+    losses bit for bit), and the families' arms launch one producer and
+    one consumer a step; deepseek's ``compressed`` exchange equals its
+    ``dense`` exchange bit for bit (losses and the parameter shards'
+    sha256) and lies within rtol 1e-2 of ``none``'s losses. Prints,
+    beside the card's name and power limit: step ms, peak memory a rank
+    and the card's (polled over the phase, and by rank 0 over each arm),
+    the launches a rank, and the last step's model-axis collectives
+    replayed alone (ms and bytes a rank)."""
     import threading
     import torch
     from repro_torch.launch.ranks import spawn_ranks
@@ -5000,7 +5309,6 @@ def phase_dist_model(dev, emulated):
         poller.join()
     wall = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    emulated = list(emulated[:DIST_MODEL_STEPS])
 
     arms = {}
     for key in outs[0]["arms"]:
@@ -5010,6 +5318,7 @@ def phase_dist_model(dev, emulated):
             "step_ms_by_rank": [a["step_ms"] for a in per],
             "warmup_ms_by_rank": [a["warmup_ms"] for a in per],
             "peak_mem_bytes_by_rank": [a["peak_mem_bytes"] for a in per],
+            "card_peak_used_bytes": per[0]["card_peak_used_bytes"],
             "launches_by_rank": [a["launches"] for a in per],
             "local_params_by_rank": [a["local_params"] for a in per],
             "param_sha256_by_rank": [a["param_sha256"] for a in per],
@@ -5029,7 +5338,13 @@ def phase_dist_model(dev, emulated):
     comp, dense = "granite-3-2b/compressed/none", "granite-3-2b/dense/none"
     moe = {ex: f"deepseek-moe-16b/compressed/{ex}"
            for ex in ("none", "dense", "compressed")}
-    rel = [abs(a - b) / abs(b) for a, b in zip(arms[dense]["losses"], emulated)]
+    rel = {}
+    for key, phase in DIST_MODEL_EMULATED.items():
+        want = emulated[phase][:DIST_MODEL_STEPS]
+        arms[key]["emulated_losses"] = want
+        rel[key] = [abs(a - b) / abs(b) for a, b in
+                    zip(arms[key]["losses"], want)]
+        arms[key]["loss_rel_diff_to_emulated"] = rel[key]
     moe_rel = [abs(a - b) / abs(b) for a, b in
                zip(arms[moe["compressed"]]["losses"], arms[moe["none"]]["losses"])]
     by_rank = {o["rank"]: o for o in outs}
@@ -5040,16 +5355,14 @@ def phase_dist_model(dev, emulated):
     line = {"phase": "dist_model", "card": smi,
             "grid": {"data": WORKERS, "model": MODEL_PARALLEL},
             "ranks": WORKERS * MODEL_PARALLEL, "global_batch": BATCH,
-            "seq_len": SEQ, "steps": DIST_MODEL_STEPS, "warmup_steps": 1,
-            "layers": {"granite-3-2b": LAYERS,
-                       "deepseek-moe-16b": DIST_MODEL_MOE_LAYERS},
+            "seq_len": {a: DIST_MODEL_SEQ.get(a, SEQ) for a in DIST_MODEL_LAYERS},
+            "steps": DIST_MODEL_STEPS, "warmup_steps": 1,
+            "layers": DIST_MODEL_LAYERS,
             "backend": outs[0]["backend"], "staging": outs[0]["staging"],
             "devices": [o["device"] for o in outs],
             "coords": [o["coords"] for o in outs],
             "wall_s": wall, "card_peak_used_bytes": peak[0], "arms": arms,
-            "emulated_dense_losses": emulated,
-            "dense_loss_rel_diff_to_emulated": rel,
-            "dense_loss_rtol": DIST_MODEL_LOSS_RTOL,
+            "loss_rtol_to_emulated": DIST_MODEL_LOSS_RTOL,
             "moe_compressed_loss_rel_diff_to_none": moe_rel,
             "replicated_grads_equal_across_model_ranks": rep_equal}
     emit(line)
@@ -5062,11 +5375,17 @@ def phase_dist_model(dev, emulated):
             raise AssertionError(f"dist_model: rank {o['rank']} launches "
                                  f"{a[comp]['launches']} / {a[dense]['launches']}")
         real, dyad = a[comp]["plain_step0"], a[comp]["plain_dyadic"]
-        if not (real["within_tol"] and real["residual_equal"]
+        if not (real["aggregate_equal"] and real["residual_equal"]
                 and dyad["aggregate_equal"] and dyad["residual_equal"]):
             raise AssertionError(f"dist_model: rank {o['rank']}'s aggregate "
                                  f"differs from the plain aggregator's: "
                                  f"{real} {dyad}")
+        for key in ("whisper-tiny/compressed/none",
+                    "internvl2-2b/compressed/none"):
+            if (a[key]["launches"]["encode_pack_quantize"],
+                    a[key]["launches"]["dequant_peel_unpack"]) != (steps, steps):
+                raise AssertionError(f"dist_model {key}: rank {o['rank']} "
+                                     f"launches {a[key]['launches']}")
         if a[moe["compressed"]]["launches"]["encode_pack_quantize"] <= \
                 a[moe["none"]]["launches"]["encode_pack_quantize"]:
             raise AssertionError("dist_model: the compressed exchange "
@@ -5084,9 +5403,10 @@ def phase_dist_model(dev, emulated):
     if not rep_equal:
         raise AssertionError("dist_model: a replicated leaf's gradient "
                              "differs across the model ranks")
-    if max(rel) > DIST_MODEL_LOSS_RTOL or max(moe_rel) > 1e-2:
-        raise AssertionError(f"dist_model: losses off: dense {rel}, "
-                             f"moe {moe_rel}")
+    if max(max(r) for r in rel.values()) > DIST_MODEL_LOSS_RTOL \
+            or max(moe_rel) > 1e-2:
+        raise AssertionError(f"dist_model: losses off: against the emulated "
+                             f"trains {rel}, moe {moe_rel}")
     return {key: {k: sum(o["arms"][key]["launches"][k] for o in outs)
                   for k in outs[0]["arms"][key]["launches"]}
             for key in outs[0]["arms"]}
@@ -5223,10 +5543,11 @@ def main() -> int:
     launches_serve["serve_consistency"] = timed(
         "serve_consistency", phase_serve_consistency, dev)
     torch.cuda.empty_cache()
-    launches_family = {
-        "ssm_train": timed("ssm_train", phase_family_train, dev, check,
-                           "ssm_train", SSM_ARCH, SSM_TRAIN_LAYERS)}
-    launches_family["vlm_train"] = timed(
+    launches_family, family_losses = {}, {"train": train["losses"]}
+    launches_family["ssm_train"], _ = timed(
+        "ssm_train", phase_family_train, dev, check, "ssm_train", SSM_ARCH,
+        SSM_TRAIN_LAYERS)
+    launches_family["vlm_train"], family_losses["vlm_train"] = timed(
         "vlm_train", phase_family_train, dev, check, "vlm_train", VLM_ARCH,
         VLM_TRAIN_LAYERS)
     torch.cuda.empty_cache()
@@ -5237,7 +5558,7 @@ def main() -> int:
         "hybrid_serve", serve_model, dev, HYBRID_ARCH, "hybrid_serve", False,
         layers=HYBRID_SERVE_LAYERS)
     torch.cuda.empty_cache()
-    launches_family["encdec_train"] = timed(
+    launches_family["encdec_train"], family_losses["encdec_train"] = timed(
         "encdec_train", phase_family_train, dev, check, "encdec_train",
         ENCDEC_ARCH, ENCDEC_LAYERS, seq=ENCDEC_SEQ, timed=True)
     torch.cuda.empty_cache()
@@ -5246,7 +5567,11 @@ def main() -> int:
         prompt_len=ENCDEC_PROMPT, max_len=ENCDEC_SEQ)
     torch.cuda.empty_cache()
     launches_dist_model = timed("dist_model", phase_dist_model, dev,
-                                train["losses"])
+                                family_losses)
+    torch.cuda.empty_cache()
+    launches_long = timed("long_train", phase_long_train, dev)
+    torch.cuda.empty_cache()
+    launches_serve["long_serve"] = timed("long_serve", phase_long_serve, dev)
     torch.cuda.empty_cache()
     # each row's launches come from the path it serves: the f32 legs from
     # the compressed train, the fxp32 legs from the in-network train, the
@@ -5276,6 +5601,7 @@ def main() -> int:
             **{f"remat/{k}": v[r["name"]] for k, v in launches_remat.items()},
             "ckpt_train": launches_ckpt[r["name"]],
             **{k: v[r["name"]] for k, v in launches_family.items()},
+            "long_train": launches_long[r["name"]],
             **{f"dist_ckpt/{k}": v.get(r["name"], 0)
                for k, v in launches_dist_ckpt.items()},
             **{k: v[r["name"]] for k, v in launches_serve.items()},

@@ -29,7 +29,8 @@ import torch
 from .config import CompressionConfig
 from . import hashing
 from .sketch import (block_ranges, device_tables, gather_rows, median3,
-                     roll_from_sketch, roll_to_sketch, scatter_rows)
+                     roll_from_sketch, roll_to_sketch, row_lists,
+                     scatter_rows)
 
 
 class PeelResult(NamedTuple):
@@ -57,11 +58,12 @@ def peel_blocks(sketch: torch.Tensor, bits: torch.Tensor,
 def _peel(sketch: torch.Tensor, bits: torch.Tensor, block_ids: torch.Tensor,
           cfg: CompressionConfig) -> PeelResult:
     rows_flat, signs_t = device_tables(cfg, sketch.device)
+    lists = row_lists(cfg, sketch.device)
     signs = signs_t[None, :, :, None]                                # (1,G,3,1)
     rot = hashing.block_rotations(block_ids, cfg.group, cfg.lanes, cfg.seed)
 
     deg = scatter_rows(roll_to_sketch(bits.to(torch.int32), rot, cfg.lanes),
-                       rows_flat, cfg.rows)                           # (nb,rows,c)
+                       lists)                                         # (nb,rows,c)
     y = sketch.to(torch.float32)
     b = bits.clone()
     x_rec = torch.zeros(bits.shape, dtype=torch.float32, device=sketch.device)
@@ -79,10 +81,9 @@ def _peel(sketch: torch.Tensor, bits: torch.Tensor, block_ids: torch.Tensor,
                           torch.where(p1, val_at[:, :, 1], val_at[:, :, 2]))
         val = torch.where(any_peel, val, zero)
         y = y - scatter_rows(roll_to_sketch(val, rot, cfg.lanes) * signs,
-                             rows_flat, cfg.rows)
+                             lists)
         deg = deg - scatter_rows(
-            roll_to_sketch(any_peel.to(torch.int32), rot, cfg.lanes),
-            rows_flat, cfg.rows)
+            roll_to_sketch(any_peel.to(torch.int32), rot, cfg.lanes), lists)
         b = b & ~any_peel
         x_rec = x_rec + val
         it += 1

@@ -15,7 +15,7 @@ with a plain sum.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +52,39 @@ def device_tables(cfg: CompressionConfig, device: torch.device):
             torch.from_numpy(signs).to(device))
 
 
+def plan_row_lists(cfg: CompressionConfig) -> np.ndarray:
+    """int64 (rows, K): row r's sources ``t = 3i + j`` (``h_j(i) == r``)
+    in ascending order, padded to the longest list with -1."""
+    rows_tbl = plan_tables(cfg)[0].reshape(-1)
+    lists = [np.flatnonzero(rows_tbl == r) for r in range(cfg.rows)]
+    out = np.full((cfg.rows, max(map(len, lists))), -1, np.int64)
+    for r, lst in enumerate(lists):
+        out[r, :len(lst)] = lst
+    return out
+
+
+class RowLists(NamedTuple):
+    """:func:`plan_row_lists` on a device: the sources (padding read as
+    source 0), where a list holds no source, how many leading list
+    positions every row fills, and each source's row (``index_add_``'s
+    index)."""
+    src: torch.Tensor       # int64 (rows, K)
+    real: torch.Tensor      # bool (rows, K)
+    full: int
+    rows_flat: torch.Tensor  # int64 (G*3,)
+
+
+@functools.lru_cache(maxsize=64)
+def row_lists(cfg: CompressionConfig, device: torch.device) -> RowLists:
+    """:func:`plan_row_lists` on ``device``, cached."""
+    lists = plan_row_lists(cfg)
+    real = lists >= 0
+    return RowLists(src=torch.from_numpy(np.where(real, lists, 0)).to(device),
+                    real=torch.from_numpy(real).to(device),
+                    full=int(real.all(axis=0).sum()),
+                    rows_flat=device_tables(cfg, device)[0])
+
+
 # ----------------------------------------------------------------------
 # Lane rotations (the §3.4 locality randomisation)
 # ----------------------------------------------------------------------
@@ -73,12 +106,38 @@ def roll_from_sketch(y: torch.Tensor, rot: torch.Tensor, lanes: int) -> torch.Te
 # Scatter / gather between batches and sketch rows
 # ----------------------------------------------------------------------
 
-def scatter_rows(contrib: torch.Tensor, rows_flat: torch.Tensor,
-                 rows: int) -> torch.Tensor:
-    """contrib (nb,G,3,c) -> sketch (nb,rows,c), summed at h_j(i)."""
+def scatter_rows(contrib: torch.Tensor, lists: RowLists) -> torch.Tensor:
+    """contrib (nb,G,3,c) -> sketch (nb,rows,c), summed at h_j(i).
+
+    Each cell adds its sources in ascending ``t = 3i + j`` from +0.0, the
+    hand encode's order, on every device. On the CPU ``index_add_`` adds
+    one source slice at a time in index order, which is that order, in
+    one call; elsewhere (a CUDA ``index_add_`` adds in atomic order)
+    :func:`scatter_rows_ordered` does."""
+    if contrib.device.type != "cpu":
+        return scatter_rows_ordered(contrib, lists)
     nb, g, _, c = contrib.shape
-    out = torch.zeros((nb, rows, c), dtype=contrib.dtype, device=contrib.device)
-    return out.index_add_(1, rows_flat, contrib.reshape(nb, g * 3, c))
+    out = torch.zeros((nb, lists.src.shape[0], c), dtype=contrib.dtype)
+    return out.index_add_(1, lists.rows_flat, contrib.reshape(nb, g * 3, c))
+
+
+def scatter_rows_ordered(contrib: torch.Tensor, lists: RowLists) -> torch.Tensor:
+    """:func:`scatter_rows` by gathers and adds, no atomics: a gather and
+    an add a list position (``lists``, :func:`row_lists`). A padding
+    entry adds +0.0 (a ``torch.where``, so no infinite source is
+    multiplied by 0); no sum that starts at +0.0 can be -0.0, so it
+    changes no bit."""
+    nb, g, _, c = contrib.shape
+    flat = contrib.reshape(nb, g * 3, c)
+    zero = torch.zeros((), dtype=contrib.dtype, device=contrib.device)
+    out = torch.zeros((nb, lists.src.shape[0], c), dtype=contrib.dtype,
+                      device=contrib.device)
+    for k in range(lists.src.shape[1]):
+        term = flat[:, lists.src[:, k], :]
+        if k >= lists.full:
+            term = torch.where(lists.real[:, k, None], term, zero)
+        out = out + term
+    return out
 
 
 def gather_rows(sketch: torch.Tensor, rows_flat: torch.Tensor) -> torch.Tensor:
@@ -104,14 +163,15 @@ def encode_blocks(xb: torch.Tensor, block_ids: torch.Tensor,
                   cfg: CompressionConfig) -> torch.Tensor:
     """Count-Sketch encode: (nb,G,c) values -> (nb,rows,c) sketch (f32),
     in block ranges of ``PASS_ELEMS`` coordinates."""
-    rows_flat, signs = device_tables(cfg, xb.device)
+    _, signs = device_tables(cfg, xb.device)
+    lists = row_lists(cfg, xb.device)
     parts = []
     for sl in block_ranges(xb.shape[0], xb.shape[1] * xb.shape[2]):
         rot = hashing.block_rotations(block_ids[sl], cfg.group, cfg.lanes,
                                       cfg.seed)
         contrib = roll_to_sketch(xb[sl].to(torch.float32), rot, cfg.lanes) \
             * signs[None, :, :, None]
-        parts.append(scatter_rows(contrib, rows_flat, cfg.rows))
+        parts.append(scatter_rows(contrib, lists))
         del contrib
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 

@@ -64,7 +64,7 @@ class ModelConfig:
     enc_layers: int = 0           # encdec: encoder depth
     enc_seq: int = 1500           # encdec: encoder frames (whisper stub)
     vis_tokens: int = 0           # vlm: prepended patch-embedding tokens
-    q_block: int = 512            # kept for parity; attention is one block
+    q_block: int = 512            # flash_attention's query block
     dtype: str = "bfloat16"
     supports_long_context: bool = False
 

@@ -116,8 +116,11 @@ def _dec_block(x, p, cfg: ModelConfig, enc_out, positions):
 
 def _logits(tree: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Tied logits ``x @ embed.T`` in the working dtype, then f32, the
-    padded vocabulary masked."""
-    return L.mask_padded_vocab((x @ tree["embed"].T).to(torch.float32), cfg)
+    padded vocabulary masked; in a model region this rank's vocab
+    columns (``embed``'s row shard, transposed)."""
+    head = tree["embed"].T
+    logits = (hints.copy_to_model(x) @ head).to(torch.float32)
+    return L.mask_padded_vocab(logits, cfg, hints.model_index() * head.shape[-1])
 
 
 def encdec_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -132,7 +135,17 @@ def encdec_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     checkpointed); ``"none"`` and ``"block_nocse"`` keep every
     intermediate. The values and gradients equal ``"none"``'s bit for bit.
     ``ep_exchange`` exists for the train step's call; the family has no
-    MoE, so anything but None raises."""
+    MoE, so anything but None raises.
+
+    In a model region (``parallel.hints.model_region``) the tree holds
+    this rank's shards: the encoder's and decoder's self-attention, the
+    cross-attention (its ``kv_input`` entering through
+    ``copy_to_model``) and the GELU MLPs run tensor-parallel
+    (``layers.attention_train``, ``layers.mlp``), the embedding is a
+    lookup of this rank's vocab rows summed over the axis, and the tied
+    head gives this rank's logit columns, whose ``logsumexp`` and label
+    logit are taken over the vocab shards (``hints.vocab_parallel_lse``).
+    The frames, the sinusoid and the LayerNorms are replicated."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; have {list(REMAT_POLICIES)}")
     if hints.model_group() is not None:
@@ -142,7 +155,7 @@ def encdec_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                          "expert-parallel exchange")
     enc_out = encode(tree, cfg, batch["frames"])
     tokens, labels = batch["tokens"], batch["labels"]
-    x = tree["embed"][tokens]
+    x = hints.vocab_embed(tree["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
     def body(x, p):
@@ -155,9 +168,7 @@ def encdec_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         else:
             x = body(x, p)
     x = L.layernorm(x, tree["dec_ln"], cfg.norm_eps)
-    logits = _logits(tree, cfg, x)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    lse, ll = hints.vocab_parallel_lse(_logits(tree, cfg, x), labels)
     nll = (lse - ll).mean()
     return nll, {"nll": nll,
                  "aux": torch.zeros((), dtype=torch.float32, device=x.device)}

@@ -4,16 +4,15 @@ Functional, as in the reference: ``init_*`` build param subtrees (plain
 dicts of tensors, weights ``(in, out)``, layers stacked on dim 0 via the
 ``lead`` shape), and the apply functions are pure tensor functions.
 
-Attention is plain PyTorch math with the reference's semantics (f32
-scores, causal mask at -1e30, f32 softmax, unnormalised probabilities
-cast to the value dtype before the value product, division by the
-softmax sum after it), causal or not, self or cross (keys from another
-sequence, of any length). The reference's ``flash_attention`` is jnp,
-not a Pallas kernel, so no hand kernel is owed; its query/key blocking
-and padding change only the rounding (padded keys are masked, padded
-queries dropped). Decode (``attention_decode``,
-``attention_cross_decode``) normalises before its value product, as the
-reference's does.
+Training and prefill attention is the reference's ``flash_attention``,
+blockwise with an online softmax (:func:`flash_attention`), causal or
+not, self or cross (keys from another sequence, of any length): f32
+scores, the causal mask at -1e30, unnormalised probabilities cast to the
+value dtype before the value product, division by the softmax sum after
+it. The reference's is jnp, not a Pallas kernel, so no hand kernel is
+owed: its block products are ``torch.matmul``. Decode
+(``attention_decode``, ``attention_cross_decode``) is one pass and
+normalises before its value product, as the reference's does.
 
 Inside a model region (``repro_torch.parallel.hints.model_region``) the
 training layers run on their shards of the model axis, Megatron-style:
@@ -148,29 +147,165 @@ def _project_qkv(x, p, cfg: ModelConfig, kv_input=None):
             v.reshape(B, Skv, -1, cfg.hd))
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd); with
-    ``causal`` query i sees keys ``0..i``, else every key.
+KV_BLOCK = 1024       # the reference's key block (``flash_attention``'s default)
 
-    Query head h reads KV head ``h // (H // KV)``. Scores and the value
-    product are taken in f32 from the working-dtype operands, as the
-    reference's ``preferred_element_type=f32`` einsums do."""
-    B, S, H, hd = q.shape
+
+def _block_spans(n: int, block: int):
+    """``[start, stop)`` of each block of ``min(block, n)`` over ``range(n)``,
+    the last one short where ``n`` is no multiple: the reference pads it,
+    and its padded keys (masked) and queries (dropped) change no kept
+    value but for the order of a row's sum of ``p``."""
+    b = min(block, n)
+    return [(a, min(a + b, n)) for a in range(0, n, b)]
+
+
+def _block_pairs(sq: int, skv: int, causal: bool, q_block: int, kv_block: int,
+                 q_offset: int, skip: bool = True):
+    """``[(q span, [(k span, masked), ...]), ...]``: the key blocks each
+    query block visits in ascending order, and whether the causal mask
+    hides some key of the pair. With ``skip`` a causal key block that lies
+    wholly above its query block's diagonal is left out: every score there
+    is -1e30, so ``p`` underflows to 0 and ``corr`` is 1, and the block
+    adds exactly nothing to a row whose first key block holds a key it
+    sees (key 0, which every query sees)."""
+    out = []
+    for qs in _block_spans(sq, q_block):
+        first, last = q_offset + qs[0], q_offset + qs[1] - 1
+        row = [(ks, causal and ks[1] - 1 > first)
+               for ks in _block_spans(skv, kv_block)
+               if not (skip and causal and ks[0] > last)]
+        out.append((qs, row))
+    return out
+
+
+def _scores(qb, kb, scale, qs, ks, masked, q_offset):
+    """f32 scores ``(B, H, bq, bk)`` of a block pair times ``scale``, -1e30
+    where the causal mask hides a key (``masked``: some key is hidden)."""
+    s = torch.matmul(qb, kb.transpose(-1, -2)).mul_(scale)
+    if masked:
+        qpos = torch.arange(qs[0], qs[1], device=s.device) + q_offset
+        kpos = torch.arange(ks[0], ks[1], device=s.device)
+        s.masked_fill_(qpos[:, None] < kpos[None, :], -1e30)
+    return s
+
+
+def _heads_f32(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> a contiguous f32 (B, H, S, hd)."""
+    return x.to(torch.float32).transpose(1, 2).contiguous()
+
+
+def _flash_forward(q, k, v, vdtype, pairs, q_offset):
+    """The reference's online softmax over ``pairs`` -> (out, m, l): the
+    normalised output f32 ``(B, H, Sq, hd)``, each row's final running
+    max and its sum clamped at 1e-30, f32 ``(B, H, Sq)``. q, k, v are f32
+    ``(B, H, S, hd)`` copies of the working-dtype operands, k and v on
+    all H heads; ``p`` is cast to ``vdtype`` (the values' dtype) before
+    its value product, as the reference's ``p.astype(v_blk.dtype)``."""
+    B, H, Sq, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    out = q.new_empty(q.shape)
+    m_all, l_all = q.new_empty((B, H, Sq)), q.new_empty((B, H, Sq))
+    for qs, row in pairs:
+        qb = q[:, :, qs[0]:qs[1]]
+        m = q.new_full(qb.shape[:3], -math.inf)
+        l = q.new_zeros(qb.shape[:3])
+        acc = q.new_zeros(qb.shape)
+        for ks, masked in row:
+            s = _scores(qb, k[:, :, ks[0]:ks[1]], scale, qs, ks, masked,
+                        q_offset)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = s.sub_(m_new[..., None]).exp_()
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            if vdtype != torch.float32:
+                p = p.to(vdtype).to(torch.float32)
+            acc.mul_(corr[..., None]).add_(torch.matmul(p, v[:, :, ks[0]:ks[1]]))
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        out[:, :, qs[0]:qs[1]] = acc / l[..., None]
+        m_all[:, :, qs[0]:qs[1]] = m
+        l_all[:, :, qs[0]:qs[1]] = l
+    return out, m_all, l_all
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Blockwise attention on all H heads: q ``(B, Sq, H, hd)``, k and v
+    ``(B, Skv, H, hd)`` -> ``(B, Sq, H, hd)`` in q's dtype.
+
+    Forward: :func:`_flash_forward` under no autograd, so at most one
+    block pair's ``(B, H, bq, bk)`` scores live at a time. It saves q, k,
+    v (their working dtype), the f32 output and each row's ``m`` and
+    ``l``: O(B·S·H·hd), never the O(B·H·Sq·Skv) probabilities. Backward,
+    a query block at a time as the reference's ``checkpoint`` on its
+    ``q_step`` recomputes one: each visited pair's scores again, ``P =
+    exp(s - m) / l``, ``dV += Pᵀ dO``, ``dP = dO Vᵀ``, ``dS = P (dP - D)``
+    with ``D`` the row sum of ``dO · O`` (O in f32), then ``dQ += dS K``
+    and ``dK += dSᵀ Q`` times ``1/sqrt(hd)``, all in f32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pairs, q_offset):
+        out, m, l = _flash_forward(_heads_f32(q), _heads_f32(k), _heads_f32(v),
+                                   v.dtype, pairs, q_offset)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.pairs, ctx.q_offset = pairs, q_offset
+        return out.transpose(1, 2).to(q.dtype,
+                                      memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q0, k0, v0, out, m, l = ctx.saved_tensors
+        q, k, v = _heads_f32(q0), _heads_f32(k0), _heads_f32(v0)
+        do = _heads_f32(dout)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        d_row = (do * out).sum(dim=-1)
+        dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+        for qs, row in ctx.pairs:
+            sl = slice(qs[0], qs[1])
+            qb, dob = q[:, :, sl], do[:, :, sl]
+            for ks, masked in row:
+                kl = slice(ks[0], ks[1])
+                p = _scores(qb, k[:, :, kl], scale, qs, ks, masked,
+                            ctx.q_offset)
+                p.sub_(m[:, :, sl, None]).exp_().div_(l[:, :, sl, None])
+                dv[:, :, kl] += torch.matmul(p.transpose(-1, -2), dob)
+                dp = torch.matmul(dob, v[:, :, kl].transpose(-1, -2))
+                ds = p.mul_(dp.sub_(d_row[:, :, sl, None])).mul_(scale)
+                dq[:, :, sl] += torch.matmul(ds, k[:, :, kl])
+                dk[:, :, kl] += torch.matmul(ds.transpose(-1, -2), qb)
+
+        def back(g, like):
+            return g.transpose(1, 2).to(like.dtype)
+        return back(dq, q0), back(dk, k0), back(dv, v0), None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, q_block: int, kv_block: int = KV_BLOCK,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Blockwise online-softmax attention, the reference's
+    ``flash_attention`` (``models/layers.py:132-217``) step for step.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's
+    dtype. Query head h reads KV head ``h // (H // KV)``: the KV heads
+    are expanded to H before the score products. Query blocks of
+    ``q_block`` and key blocks of ``kv_block`` (each at most the
+    sequence); with ``causal`` query i, at position ``q_offset + i``,
+    sees keys ``0..q_offset + i``, masked at -1e30. Per query block the
+    running max ``m`` (from -inf) and sum ``l`` (from 0) and the
+    accumulator (from 0) are f32; per key block the scores are taken in
+    f32 from the working-dtype operands times ``1/sqrt(hd)``, ``m_new =
+    max(m, rowmax)``, ``p = exp(s - m_new)``, ``corr = exp(m - m_new)``,
+    ``l = l·corr + sum p``, ``acc = acc·corr + p (in v's dtype) @ v`` in
+    f32; then ``acc / max(l, 1e-30)`` in q's dtype. A causal key block
+    wholly above its query block's diagonal is skipped (it adds exactly
+    nothing; ``tests/test_torch_attention.py`` holds skip and no skip bit
+    for bit). Autograd keeps O(B·S·H·hd) and recomputes a query block at
+    a time (:class:`_FlashAttention`); no library attention is used."""
+    Sq, H = q.shape[1:3]
     rep = H // k.shape[2]
-    kh = k.repeat_interleave(rep, dim=2)
-    vh = v.repeat_interleave(rep, dim=2)
-    qf = q.to(torch.float32).transpose(1, 2)                      # (B,H,Sq,hd)
-    s = qf @ kh.to(torch.float32).permute(0, 2, 3, 1) * (1.0 / math.sqrt(hd))
-    if causal:
-        qpos = torch.arange(S, device=q.device)
-        kpos = torch.arange(k.shape[1], device=q.device)
-        s = s.masked_fill(qpos[:, None] < kpos[None, :], -1e30)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = p.to(v.dtype).to(torch.float32) @ vh.to(torch.float32).transpose(1, 2)
-    return (o / l).transpose(1, 2).to(q.dtype)
+    pairs = _block_pairs(Sq, k.shape[1], causal, q_block, kv_block, q_offset)
+    return _FlashAttention.apply(q, k.repeat_interleave(rep, dim=2),
+                                 v.repeat_interleave(rep, dim=2), pairs,
+                                 q_offset)
 
 
 def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
@@ -195,7 +330,7 @@ def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
     if kv_input is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions[:, :k.shape[1]], cfg.rope_theta)
-    o = attention(q, k, v, causal=causal).reshape(B, S, -1)
+    o = flash_attention(q, k, v, causal, cfg.q_block).reshape(B, S, -1)
     return hints.reduce_from_model(o @ p["wo"]), (k, v)
 
 

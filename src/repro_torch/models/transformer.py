@@ -43,8 +43,10 @@ shards (``parallel.sharding.param_pspecs``): the layers run
 tensor-parallel (``layers``), the embedding is a lookup of this rank's
 vocab rows summed over the axis, and the head gives this rank's logit
 columns, whose ``logsumexp`` and label logit are taken over the vocab
-shards (``hints.vocab_parallel_lse``). Only the dense and moe families
-run there (:func:`check_model_axis`). ``remat``
+shards (``hints.vocab_parallel_lse``). The dense, moe and vlm families
+run there (:func:`check_model_axis`; the vlm's visual prefix is an
+input, the same on every model rank), and encdec through
+``models/encdec.py``. ``remat``
 takes the reference's policies (:data:`REMAT_POLICIES`, see
 :func:`lm_hidden`); any other value raises.
 """
@@ -81,31 +83,31 @@ def _require_ported(cfg: ModelConfig):
             "only, the reference's six")
 
 
-MODEL_AXIS_FAMILIES = ("dense", "moe")
+MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def check_model_axis(cfg: ModelConfig, mp: int, prof=None) -> None:
     """Raise unless ``cfg`` can run on ``mp`` model ranks (under the
-    sharding profile ``prof``, where given): the dense and moe families only
-    (``NotImplementedError`` for the others, ROADMAP queue 1 item 7),
-    the default profile's layout (tensor, vocab and expert dims on the
-    ``model`` axis), and every split dim divisible by ``mp``
-    (``ValueError``)."""
+    sharding profile ``prof``, where given): the dense, moe, vlm and
+    encdec families only (``NotImplementedError`` for ssm and hybrid,
+    ROADMAP queue 1 item 1), the default profile's layout (tensor, vocab
+    and expert dims on the ``model`` axis), and every split dim divisible
+    by ``mp`` (``ValueError``)."""
     if mp <= 1:
         return
     if cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} under model_parallel={mp}: the model "
             f"axis runs {list(MODEL_AXIS_FAMILIES)} only so far (ROADMAP "
-            "queue 1 item 7: the ssm, hybrid, vlm and encdec forwards on "
-            "the model axis)")
+            "queue 1 item 1: the Mamba mixer on its head shard, for the "
+            "ssm and hybrid families)")
     if prof is not None and (prof.tp_axis, prof.vocab_axis,
                              tuple(prof.ep_axes), prof.ep_ff_axis) != \
             ("model", "model", ("model",), None):
         raise NotImplementedError(
             f"sharding profile {prof} under model_parallel={mp}: the model "
             "axis runs the default profile's layout only (ROADMAP queue 1 "
-            "item 7)")
+            "item 1: kimi-k2's profile)")
     dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
             "padded_vocab": cfg.padded_vocab}
     if cfg.moe is not None:

@@ -7,8 +7,7 @@ The serve launcher's elastic geometry (ratio 1, c 128, rows 6: G 6,
 580,550-block granite stream: the producer (row 1), the f32 consumer
 (row 2) and the dequant consumer (row 4) equal their plain versions bit
 for bit on dyadic inputs (every sum exact) and within ``rtol=1e-5,
-atol=1e-6`` on Gaussian ones (the plain encode's ``index_add_`` sums in
-atomic order on the card), words and residual exactly; and a small
+atol=1e-6`` on Gaussian ones, words and residual exactly; and a small
 elastic round folds and closes through them as it does plainly.
 """
 import dataclasses

@@ -40,18 +40,27 @@ references:
   ranks give the same losses and parameters bit for bit (the exchange's
   geometry peels a dense payload exactly), and ``none`` (the partials'
   all-reduce) the same losses within rtol 1e-6.
+- **internvl2-2b and whisper-tiny** (the vlm and encdec families; smoke
+  configs, whisper at 100 frames so its encoder runs two query blocks):
+  2 dense steps under the ``block`` remat on the grid, held to the
+  reference's own step on the same (data 2, model 2) mesh (the dense
+  step's subprocess runs it too) and, as a second witness, to the
+  port's own step on ``LocalWorkers(2)`` in the parent: losses and grad
+  norms at rtol 1e-5, parameters at rtol 1e-5 with atol 1e-6 of the
+  leaf's largest entry, as the dense step above.
 - **the checkpoint**: the layout-free state of 2 steps on the grid
   (granite smoke, compressed with top-k, EF and ZeRO-1) loads into
   ``LocalWorkers(2)`` and gives back the same view; the view of 2 steps
   on ``LocalWorkers(2)`` loads into the grid and gives back the same
   view; all bit for bit.
 
-Off the grid: the unported families (ssm, hybrid, vlm, encdec) and
-kimi-k2's profile raise ``NotImplementedError`` under MP > 1, and an
-indivisible head count ``ValueError``.
+Off the grid: the unported families (ssm, hybrid) and kimi-k2's
+profile raise ``NotImplementedError`` under MP > 1, and an indivisible
+head count ``ValueError``; vlm and encdec pass the check.
 """
 import concurrent.futures
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -101,12 +110,32 @@ AGG_CFG = CompressionConfig(ratio=0.1, topk_ratio=0.04, lanes=128,
                             bucket_bytes=4 * 128 * 640, use_pallas="never")
 CKPT_TC = dataclasses.replace(GRANITE.train, workers=2, accum_steps=1,
                               remat="none", optimizer=OPT)
+# the vlm and encdec families on the grid: dense steps under the block remat
+FAMILIES = {"internvl": get_arch("internvl2-2b").smoke,
+            "whisper": dataclasses.replace(get_arch("whisper-tiny").smoke,
+                                           enc_seq=100)}
+FAMILY_TC = dataclasses.replace(DENSE_TC, remat="block")
 
 
 def _batch(cfg, seed):
+    """Tokens and labels, and the vlm's visual prefix or the encdec's
+    frames (f32)."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["vis_embed"] = rng.standard_normal(
+            (B, cfg.vis_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _torch_batch(batch, device):
+    """The numpy batch on ``device``: ids as int64, the rest as they are."""
+    return {k: torch.from_numpy(v).to(device) if v.dtype.kind == "f"
+            else torch.from_numpy(v).to(device).long() for k, v in batch.items()}
 
 
 def _dyadic(shape, rng):
@@ -121,7 +150,7 @@ def _train(mesh, device, cfg, tc, np_params, batch, steps):
     state = init_train_state(api, tc, device, params_from_jax(np_params, device),
                              group=mesh.data, model=mesh.model)
     step = build_train_step(api, tc, group=mesh.data, model=mesh.model)
-    b = {k: torch.from_numpy(v).to(device).long() for k, v in batch.items()}
+    b = _torch_batch(batch, device)
     losses, norms = [], []
     for _ in range(steps):
         state, m = step(state, b)
@@ -185,6 +214,10 @@ def _rank(mesh, device, inputs):
                                   d_batch, 2)
         out[f"ep_{ex}"] = (losses, [p.detach().numpy().copy()
                                     for p in state.params.leaves()])
+    for name, cfg in FAMILIES.items():
+        losses, norms, state = _train(mesh, device, cfg, FAMILY_TC,
+                                      *inputs[name], 2)
+        out[name] = (losses, norms, _view(state, FAMILY_TC, mesh))
     # checkpoints across layouts
     _, _, state = _train(mesh, device, GRANITE.smoke, CKPT_TC, g_params,
                          g_batch, 2)
@@ -196,6 +229,24 @@ def _rank(mesh, device, inputs):
                     CKPT_TC, mesh.data, mesh.model)
     out["ckpt_from_local"] = _view(state, CKPT_TC, mesh)
     return out
+
+
+def _local_family(cfg, np_params, batch):
+    """2 dense steps on ``LocalWorkers(2)`` (one process) -> (losses, grad
+    norms, {path: params})."""
+    api = model_api(cfg)
+    state = init_train_state(api, FAMILY_TC, "cpu", params_from_jax(np_params,
+                                                                     "cpu"))
+    step = build_train_step(api, FAMILY_TC)
+    b = _torch_batch(batch, "cpu")
+    losses, norms = [], []
+    for _ in range(2):
+        state, m = step(state, b)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    params = {p: t.detach().numpy().copy() for p, t in
+              zip(state.params.paths, state.params.leaves())}
+    return losses, norms, params
 
 
 def _view_leaves(view):
@@ -226,7 +277,7 @@ def _local_ckpt(np_params, batch):
 _REFERENCE_DENSE = textwrap.dedent('''
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import dataclasses
+    import dataclasses, json
     import numpy as np
     import jax, jax.numpy as jnp
     from repro.compat import make_mesh
@@ -237,59 +288,79 @@ _REFERENCE_DENSE = textwrap.dedent('''
     from repro.train import init_train_state, build_train_step
     from repro.train.step import batch_specs
 
-    src, dst = sys.argv[1], sys.argv[2]
-    data = np.load(src)
-    tree = {}
-    for key in data.files:
-        if key.startswith("p/"):
+    mesh = make_mesh((2, 2), ("data", "model"))
+
+    def run(arch, remat, steps, src, dst, enc_seq=None):
+        data = np.load(src)
+        tree, batch = {}, {}
+        for key in data.files:
+            if not key.startswith("p/"):
+                batch[key] = jnp.asarray(data[key])
+                continue
             node = tree
             *head, last = key[2:].split("/")
             for k in head:
                 node = node.setdefault(k, {})
             node[last] = jnp.asarray(data[key])
-    mesh = make_mesh((2, 2), ("data", "model"))
-    api = model_api(get_arch("granite-3-2b").smoke)
-    tc = TrainConfig(aggregator="dense", remat="none",
-                     optimizer=OptimizerConfig(kind="momentum", lr=1e-2,
-                                               warmup_steps=0,
-                                               total_steps=100),
-                     sharding=ShardingProfile(zero1=True))
-    state = init_train_state(api, tc, mesh, jax.random.PRNGKey(0))
-    state = dataclasses.replace(state, params=tree)
-    step_fn, specs = build_train_step(api, tc, mesh)(state)
-    batch = {"tokens": jnp.asarray(data["tokens"]),
-             "labels": jnp.asarray(data["labels"])}
-    _, bnamed = batch_specs(batch, mesh, tc)
-    jitted = jax.jit(step_fn, in_shardings=(specs["named"], bnamed),
-                     out_shardings=(specs["named"], None))
-    st, b = jax.device_put(state, specs["named"]), jax.device_put(batch, bnamed)
-    losses, norms = [], []
-    for _ in range(3):
-        st, m = jitted(st, b)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    flat = jax.tree_util.tree_flatten_with_path(st.params)[0]
-    out = {"p/" + "/".join(str(k.key) for k in path): np.asarray(v)
-           for path, v in flat}
-    np.savez(dst, losses=np.array(losses), norms=np.array(norms), **out)
+        cfg = get_arch(arch).smoke
+        if enc_seq is not None:
+            cfg = dataclasses.replace(cfg, enc_seq=enc_seq)
+        api = model_api(cfg)
+        tc = TrainConfig(aggregator="dense", remat=remat,
+                         optimizer=OptimizerConfig(kind="momentum", lr=1e-2,
+                                                   warmup_steps=0,
+                                                   total_steps=100),
+                         sharding=ShardingProfile(zero1=True))
+        state = init_train_state(api, tc, mesh, jax.random.PRNGKey(0))
+        state = dataclasses.replace(state, params=tree)
+        step_fn, specs = build_train_step(api, tc, mesh)(state)
+        _, bnamed = batch_specs(batch, mesh, tc)
+        jitted = jax.jit(step_fn, in_shardings=(specs["named"], bnamed),
+                         out_shardings=(specs["named"], None))
+        st = jax.device_put(state, specs["named"])
+        b = jax.device_put(batch, bnamed)
+        losses, norms = [], []
+        for _ in range(steps):
+            st, m = jitted(st, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        flat = jax.tree_util.tree_flatten_with_path(st.params)[0]
+        out = {"p/" + "/".join(str(k.key) for k in path): np.asarray(v)
+               for path, v in flat}
+        np.savez(dst, losses=np.array(losses), norms=np.array(norms), **out)
+
+    for case in json.loads(sys.argv[1]):
+        run(**case)
 ''')
 
 
-def _reference_dense(tmp, np_params, batch):
-    src, dst = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
-    np.savez(src, **{"p/" + "/".join(p): v
-                     for p, v in flatten_tree(np_params)}, **batch)
+def _reference_dense(tmp, cases):
+    """The reference's dense step on a (data 2, model 2) mesh of 4 fake
+    CPU devices, in one subprocess for every case: ``cases`` maps a name
+    to (arch, remat, steps, enc_seq, np_params, batch) -> name to
+    (losses, grad norms, {path: params})."""
+    jobs = []
+    for name, (arch, remat, steps, enc_seq, np_params, batch) in cases.items():
+        src = os.path.join(tmp, f"{name}_in.npz")
+        dst = os.path.join(tmp, f"{name}_out.npz")
+        np.savez(src, **{"p/" + "/".join(p): v
+                         for p, v in flatten_tree(np_params)}, **batch)
+        jobs.append({"arch": arch, "remat": remat, "steps": steps,
+                     "enc_seq": enc_seq, "src": src, "dst": dst})
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(os.path.dirname(__file__), "..", "src")]
         + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     env["JAX_PLATFORMS"] = "cpu"
-    subprocess.run([sys.executable, "-c", _REFERENCE_DENSE, src, dst],
+    subprocess.run([sys.executable, "-c", _REFERENCE_DENSE, json.dumps(jobs)],
                    env=env, check=True, timeout=300)
-    data = np.load(dst)
-    params = {tuple(k[2:].split("/")): data[k] for k in data.files
-              if k.startswith("p/")}
-    return list(data["losses"]), list(data["norms"]), params
+    out = {}
+    for name, job in zip(cases, jobs):
+        data = np.load(job["dst"])
+        params = {tuple(k[2:].split("/")): data[k] for k in data.files
+                  if k.startswith("p/")}
+        out[name] = (list(data["losses"]), list(data["norms"]), params)
+    return out
 
 
 def _reference_aggregate(ranks):
@@ -345,6 +416,9 @@ def grid(tmp_path_factory):
                        _batch(TINY, 2)),
               "deepseek": (params_to_numpy(model_api(DEEPSEEK.smoke).init(3, "cpu")),
                            _batch(DEEPSEEK.smoke, 3))}
+    for i, (name, cfg) in enumerate(FAMILIES.items()):
+        inputs[name] = (params_to_numpy(model_api(cfg).init(4 + i, "cpu")),
+                        _batch(cfg, 4 + i))
     local_listed, local_leaves = _local_ckpt(*inputs["granite"])
     inputs["ckpt_local"] = [t.numpy() for t in local_leaves]
     inputs["aggregate"] = _shard_grads()
@@ -352,12 +426,21 @@ def grid(tmp_path_factory):
         fut = ex.submit(spawn_ranks, _rank, 4, (inputs,), device="cpu",
                         model_parallel=2, threads=1, timeout=300,
                         init_dir=tmp)
-        ref = ex.submit(_reference_dense, tmp, *inputs["granite"])
+        cases = {"granite": ("granite-3-2b", "none", 3, None)
+                             + inputs["granite"]}
+        for name, cfg in FAMILIES.items():
+            enc_seq = cfg.enc_seq if cfg.family == "encdec" else None
+            cases[name] = (cfg.name, FAMILY_TC.remat, 2, enc_seq) + inputs[name]
+        ref = ex.submit(_reference_dense, tmp, cases)
         agg = [_reference_aggregate([inputs["aggregate"][d * 2 + t]
                                      for d in range(2)]) for t in range(2)]
-        return {"ranks": fut.result(), "ref_dense": ref.result(),
+        families = {name: _local_family(cfg, *inputs[name])
+                    for name, cfg in FAMILIES.items()}
+        ref = ref.result()
+        return {"ranks": fut.result(), "ref_dense": ref.pop("granite"),
+                "ref_families": ref,
                 "ref_aggregate": agg, "inputs": inputs,
-                "local_listed": local_listed}
+                "local_listed": local_listed, "families": families}
 
 
 def test_grid_coordinates_are_model_innermost(grid):
@@ -383,6 +466,28 @@ def test_dense_step_matches_reference_dense_step_on_2x2_mesh(grid):
         np.testing.assert_allclose(got[path], want, rtol=1e-5,
                                    atol=1e-6 * np.abs(want).max(),
                                    err_msg=str(path))
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_family_step_on_2x2_grid_matches_local_step_and_reference(grid, name):
+    views = [r[name] for r in grid["ranks"]]
+    for losses, norms, _ in views[1:]:
+        assert losses == views[0][0] and norms == views[0][1]
+    losses, norms, view = views[0]
+    paths = [p for p, _ in flatten_tree(grid["inputs"][name][0])]
+    n_opt = len(view) - 2 * len(paths)
+    got = dict(zip(paths, view[n_opt:n_opt + len(paths)]))
+    # the reference's own step on the (data 2, model 2) mesh, then the
+    # port's single-process step as a second witness
+    for want_losses, want_norms, want_params in (grid["ref_families"][name],
+                                                 grid["families"][name]):
+        np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+        np.testing.assert_allclose(norms, want_norms, rtol=1e-5)
+        for path in paths:
+            want = want_params[path]
+            np.testing.assert_allclose(got[path], want, rtol=1e-5,
+                                       atol=1e-6 * np.abs(want).max(),
+                                       err_msg=str(path))
 
 
 def test_shard_local_compressed_aggregate_matches_composed_reference(grid):
@@ -455,8 +560,7 @@ def test_checkpoint_round_trips_across_layouts(grid):
 def test_model_axis_refuses_unported_families_and_layouts():
     from repro_torch.models.transformer import check_model_axis
 
-    for name in ("mamba2-1.3b", "jamba-v0.1-52b", "internvl2-2b",
-                 "whisper-tiny"):
+    for name in ("mamba2-1.3b", "jamba-v0.1-52b"):
         arch = get_arch(name)
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             check_model_axis(arch.smoke, 2, arch.profile)
@@ -469,7 +573,8 @@ def test_model_axis_refuses_unported_families_and_layouts():
     kimi = get_arch("kimi-k2-1t-a32b")
     with pytest.raises(NotImplementedError, match="profile"):
         check_model_axis(kimi.smoke, 2, kimi.profile)
-    for name in ("granite-3-2b", "deepseek-moe-16b", "qwen2-7b"):
+    for name in ("granite-3-2b", "deepseek-moe-16b", "qwen2-7b",
+                 "internvl2-2b", "whisper-tiny"):
         check_model_axis(get_arch(name).smoke, 2, get_arch(name).profile)
     odd = dataclasses.replace(GRANITE.smoke, n_heads=6, n_kv_heads=3)
     with pytest.raises(ValueError, match="n_kv_heads 3"):

@@ -18,7 +18,13 @@ parameters and batch, computed while the ranks run:
 - granite's smoke config with ``tie_embeddings=True`` (the head is the
   vocab-sharded ``embed`` transposed);
 - deepseek-moe-16b's smoke config (8 routed experts, 4 a rank; the
-  shared experts column/row-sharded), with ``remat="block"``.
+  shared experts column/row-sharded), with ``remat="block"``;
+- internvl2-2b's smoke config (the vlm family: 8 visual-prefix tokens,
+  replicated, before the text), with ``remat="block"``;
+- whisper-tiny's smoke config (the encdec family: the encoder's
+  self-attention, the cross-attention and both GELU MLPs on their
+  shards, the tied head vocab-parallel) at 100 frames, so the encoder
+  runs two query blocks of 64, with ``remat="block"``.
 
 Tolerances: the loss and its metrics at rtol 1e-5; the gradients at
 rtol 1e-5 with atol 1e-5 of the leaf's largest entry. The same f32 math
@@ -65,7 +71,24 @@ def _cases():
         ("granite_tied", dataclasses.replace(granite, tie_embeddings=True),
          "none"),
         ("deepseek", get_arch("deepseek-moe-16b").smoke, "block"),
+        ("internvl", get_arch("internvl2-2b").smoke, "block"),
+        ("whisper", dataclasses.replace(get_arch("whisper-tiny").smoke,
+                                        enc_seq=100), "block"),
     ]
+
+
+def _inputs(cfg, rng):
+    """The family's batch: tokens and labels, and the vlm's visual prefix
+    or the encdec's frames (f32)."""
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["vis_embed"] = rng.standard_normal(
+            (B, cfg.vis_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _rank(mesh, device, inputs):
@@ -112,9 +135,8 @@ def runs(tmp_path_factory):
     rng = np.random.default_rng(0)
     inputs = {}
     for i, (name, cfg, _) in enumerate(_cases()):
-        batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
-                 "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
-        inputs[name] = (params_to_numpy(model_api(cfg).init(i, "cpu")), batch)
+        inputs[name] = (params_to_numpy(model_api(cfg).init(i, "cpu")),
+                        _inputs(cfg, rng))
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
         fut = ex.submit(spawn_ranks, _rank, 2, (inputs,), device="cpu",
                         model_parallel=2, threads=1, timeout=300,
@@ -134,7 +156,8 @@ def _reference(cfg, np_params, batch):
     from repro_torch.models.params import flatten_tree
 
     jcfg = dataclasses.replace(j_get_arch(cfg.name).smoke, vocab=cfg.vocab,
-                               tie_embeddings=cfg.tie_embeddings)
+                               tie_embeddings=cfg.tie_embeddings,
+                               enc_seq=cfg.enc_seq)
     japi = j_model_api(jcfg)
     jp = jax.tree.map(jnp.asarray, np_params)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -212,3 +235,16 @@ def test_launcher_trains_on_a_grid_and_refuses_a_lone_model_axis(tmp_path,
             launcher.main(["--arch", "granite-3-2b", "--smoke", "--device",
                            "cpu"] + argv)
     assert "--model-parallel" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "whisper-tiny"])
+def test_launcher_trains_vlm_and_encdec_on_a_grid(arch):
+    from repro_torch.launch import train as launcher
+
+    summary = launcher.main([
+        "--arch", arch, "--smoke", "--procs", "4", "--model-parallel", "2",
+        "--steps", "2", "--global-batch", "4", "--seq-len", "16",
+        "--device", "cpu", "--timeout", "300"])
+    assert (summary["workers"], summary["model_parallel"]) == (2, 2)
+    assert summary["final_step"] == 2
+    assert all(np.isfinite(summary["losses"]))

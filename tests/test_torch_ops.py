@@ -9,8 +9,9 @@ card); on a machine with one they run with
 
 This file imports no JAX, so it runs where only PyTorch is installed.
 Kernel vs plain: dyadic inputs bit for bit (every sum exact in any
-order); Gaussian inputs to rtol=1e-5, atol=1e-6, because the plain
-version's ``index_add_`` sums in atomic order on the card; words and
+order); Gaussian inputs to rtol=1e-5, atol=1e-6 (the plain encode
+sums in the kernels' order on every device, so the encodes agree bit
+for bit, as ``tests/test_torch_plain_cuda.py`` holds); words and
 residual masks exactly on every input (they depend on integers only).
 """
 import dataclasses
@@ -783,11 +784,11 @@ def signed_blocks(cfg, nb, density, seed, kind):
 
 
 def _plain_in_order(fn, *args, **kw):
-    """A plain version run on the CPU, where ``index_add_`` adds a sketch
-    row's terms in index order, the (i, j) order the kernels sum in: on
-    any input its outputs equal the kernels' bit for bit. (On the card
-    the plain version sums in atomic order, so on Gaussian inputs it
-    agrees only to a tolerance, which a dense block can exceed.)"""
+    """A plain version run on the CPU, which adds a sketch row's terms in
+    index order, the (i, j) order the kernels sum in: on
+    any input its outputs equal the kernels' bit for bit. (The plain
+    version on the card sums in the same order, as
+    ``tests/test_torch_plain_cuda.py`` holds.)"""
     dev = args[0].device
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
     kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
