@@ -222,12 +222,12 @@ exchange; after phase 24, the granite phases' memory freed, apart from
     on one 4096-block merged lane).
 26. moe_train — deepseek-moe-16b at full width (d_model 2048, 16 heads,
     64 routed experts of d_ff 1408, top-6, 2 shared, vocab 102400),
-    depth 28 -> 2, bf16, W=2 emulated with ``ep_workers=2``, global
+    depth 28 -> 1, bf16, W=2 emulated with ``ep_workers=2``, global
     batch 8 x 1024, aggregator ``compressed`` (ratio 0.1, top-k 4%),
     AdamW with ZeRO-1, under ``ep_exchange`` none, dense and compressed,
     one warm-up and three timed steps each. Launches zeroed just before
-    each run: rows 1 / 2 run 2 / 1 a step under none and dense, 2 + 8 /
-    1 + 8 under compressed (a producer a source and a consumer a
+    each run: rows 1 / 2 run 2 / 1 a step under none and dense, 2 + 4 /
+    1 + 4 under compressed (a producer a source and a consumer a
     receiving rank a MoE layer a worker). Losses of dense and compressed
     within rtol 1e-2 of none's; compressed's parameter sha256 equal to
     dense's after every step; peak memory, step ms.
@@ -287,7 +287,7 @@ runs the ``block`` remat default):
     deepseek-moe-16b as ``moe_train/compressed`` under ``none``: after
     every step the parameter sha256 and the losses equal the ``block``
     run's (phase 4, phase 26), and the launches the same counts (the
-    MoE exchange's 2 + 8 producers and 1 + 8 consumers a step: the
+    MoE exchange's 2 + 4 producers and 1 + 4 consumers a step: the
     recompute leaves the exchange out). Peak memory and step ms of each
     policy beside ``block``'s.
 32. ckpt_train — phase 4's train through ``run_training`` with a
@@ -409,19 +409,29 @@ The model axis (after phase 42, its memory freed):
     ``none``, ``dense`` and ``compressed`` (the exchange over the model
     ranks), whisper-tiny whole (3 of 6 heads a rank; rows of 448 tokens
     and 1500 frames) and internvl2-2b at full width, depth 4 (its 256
-    visual tokens replicated) under ``compressed``, two steps an arm
+    visual tokens replicated) and mamba2-1.3b at full width, depth 12
+    (half its 64 Mamba heads a rank; ``wB``, ``wC``, the conv and the
+    gated norm's scale replicated, the norm's mean over the whole
+    ``d_inner``) under ``compressed``, two steps an arm
     (``DIST_MODEL_STEPS``), one arm after another with the caches
-    emptied between them. Holds on every rank: one producer and one
+    emptied between them; then qwen2.5-3b at full width, depth 2, on a
+    grid of 1 data index x 4 model ranks of the same processes (16
+    heads, 2 KV heads: half a KV head a rank, the K/V columns gathered).
+    Holds on every rank: one producer and one
     consumer a step (the compressed arms), none on dense; the step-0 shard-local aggregate and residuals equal
     to the plain aggregator's on the same group and inputs bit for bit,
     and so on dyadic gradients of the same leaves;
     the replicated leaves' step-0 gradients equal across the model ranks
-    of a data index; the compressed exchange equal to the dense one bit
+    of a data index (granite's and mamba's compressed arms); the
+    compressed exchange equal to the dense one bit
     for bit (losses, parameter shards) and within rtol 1e-2 of ``none``;
-    granite's dense arm, whisper's and internvl's losses within
+    granite's dense arm, whisper's, internvl's and mamba's losses within
     ``DIST_MODEL_LOSS_RTOL`` of their emulated W=2 trains' (the first
-    two of phases 4, 41 and 38, which run at the initial parameters: the
-    learning rate is 0 at step 0). Prints, beside the card's name and
+    two of phases 4, 41, 38 and 37, which run at the initial parameters:
+    the learning rate is 0 at step 0); the wide arm's losses equal on
+    every rank and its step-0 loss within ``DIST_MODEL_LOSS_RTOL`` of the
+    unsharded loss rank 0 computes from the gathered parameters on the
+    same rows. Prints, beside the card's name and
     power limit, step ms, peak memory a rank and the card's (polled over
     the phase and over each arm), the launches a rank, and the last
     step's model-axis collectives replayed alone (ms and bytes a rank).
@@ -3011,7 +3021,10 @@ def phase_dist_auto(n_buckets, emulated_digests, outs, wall):
 # The MoE slice: the expert-parallel all-to-all exchange
 # ----------------------------------------------------------------------
 
-MOE_ARCH, MOE_LAYERS, EP_WORKERS = "deepseek-moe-16b", 2, 2
+# deepseek at depth 1 (cut from 2 to keep the script inside its budget
+# once dist_model took its mamba2 and qwen2.5-3b arms): the MoE layer's
+# path is the same at any depth
+MOE_ARCH, MOE_LAYERS, EP_WORKERS = "deepseek-moe-16b", 1, 2
 MOE_SETTINGS = ("none", "dense", "compressed")
 
 
@@ -3137,7 +3150,7 @@ def moe_want(name, steps=STEPS):
 
 
 def phase_moe_train(dev):
-    """deepseek-moe-16b at full width (depth 28 -> 2, bf16), W=2 emulated,
+    """deepseek-moe-16b at full width (depth 28 -> 1, bf16), W=2 emulated,
     ``ep_workers=2``, global batch 8 x 1024, aggregator ``compressed``
     (ratio 0.1, top-k 4%), AdamW with ZeRO-1, one warm-up and three
     timed steps, under each ``ep_exchange``. Launch counters zeroed just
@@ -3834,7 +3847,7 @@ def phase_remat(dev, train, moe_line):
     ``moe_train/compressed`` (``block``) under ``none``: after every step
     the parameter sha256 must equal the ``block`` run's, and the launches
     (the DP aggregator's rows 1 and 2, and on the MoE path the exchange's
-    2 + 8 producers and 1 + 8 consumers a step) the same counts, which
+    2 + 4 producers and 1 + 4 consumers a step) the same counts, which
     ``phase_train`` holds. Per policy the peak memory and step ms beside
     ``block``'s."""
     import torch
@@ -5025,9 +5038,11 @@ DIST_MODEL_STEPS = 2      # steps of each dist_model arm: a warm-up, a timed one
 # each arch's depth and tokens a row on the grid: granite, internvl2-2b as
 # phases 4 and 38 (depth 4; internvl's rows also take their 256 visual
 # tokens), deepseek at depth 1, whisper-tiny whole as phase 41 (448
-# decoder tokens and 1500 frames a row)
+# decoder tokens and 1500 frames a row), mamba2-1.3b as phase 37 (depth
+# 12), qwen2.5-3b at depth 2 on the wide grid
 DIST_MODEL_LAYERS = {"granite-3-2b": LAYERS, "deepseek-moe-16b": 1,
-                     "whisper-tiny": 4, "internvl2-2b": 4}
+                     "whisper-tiny": 4, "internvl2-2b": 4,
+                     "mamba2-1.3b": SSM_TRAIN_LAYERS, "qwen2.5-3b": 2}
 DIST_MODEL_SEQ = {"whisper-tiny": 448}
 # (arch, data-parallel aggregator, ep_exchange) of each arm, in order
 DIST_MODEL_ARMS = (("granite-3-2b", "compressed", "none"),
@@ -5036,18 +5051,28 @@ DIST_MODEL_ARMS = (("granite-3-2b", "compressed", "none"),
                    ("deepseek-moe-16b", "compressed", "dense"),
                    ("deepseek-moe-16b", "compressed", "compressed"),
                    ("whisper-tiny", "compressed", "none"),
-                   ("internvl2-2b", "compressed", "none"))
+                   ("internvl2-2b", "compressed", "none"),
+                   ("mamba2-1.3b", "compressed", "none"))
 # the arms held to an emulated W=2 train of the same arch, seed and rows
 # (their first two losses run at the initial parameters): granite's dense
-# arm to phase 4, the families' compressed arms to phases 38 and 41
+# arm to phase 4, the families' compressed arms to phases 37, 38 and 41
 DIST_MODEL_EMULATED = {"granite-3-2b/dense/none": "train",
                        "internvl2-2b/compressed/none": "vlm_train",
-                       "whisper-tiny/compressed/none": "encdec_train"}
+                       "whisper-tiny/compressed/none": "encdec_train",
+                       "mamba2-1.3b/compressed/none": "ssm_train"}
+# the arms whose replicated leaves' step-0 gradients are held equal across
+# the model ranks (granite's also against the plain aggregator)
+DIST_MODEL_HOLD = ("granite-3-2b/compressed/none", "mamba2-1.3b/compressed/none")
 # the dense grid's losses against the emulated W=2 train's: the card's
 # readings 2.5e-6 and 1.4e-6 (PERF.md, the model axis), a bf16 rehearsal
 # on the CPU at the smoke width 1.0e-4; a reduction missed or doubled
 # moves the loss by far more
 DIST_MODEL_LOSS_RTOL = 1e-3
+# the wide arm, after the others on the same ranks: qwen2.5-3b (16 heads,
+# 2 KV heads) on a grid of 1 data index x 4 model ranks, so each rank
+# holds half a KV head; its step-0 loss held to the unsharded loss that
+# rank 0 computes from the gathered parameters on the same rows
+DIST_MODEL_WIDE = ("qwen2.5-3b", 4)
 
 
 class ModelAxisLog(WireLog):
@@ -5156,26 +5181,112 @@ class AggregateHold:
         return real, dyad
 
 
+def _dist_model_arm(arch_name, api, tc, data, log, dev, rank, hold):
+    """One ``dist_model`` arm on this rank: a fresh train from
+    ``tc.seed`` of ``DIST_MODEL_STEPS`` steps over ``data`` and the
+    model-axis group ``log`` (a :class:`ModelAxisLog`), the caches
+    emptied first; its losses, step ms, peak memory, the card's used
+    memory (rank 0 polls it), the launch counters (zeroed just before
+    the run, read just after), the sha256 of the parameter shards, the
+    last step's model-axis collectives replayed alone. Returns (the
+    arm's record, the trained state's leaf paths and specs)."""
+    import threading
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import leaf_spec
+    from repro_torch.train.loop import run_training
+
+    def after_step(_line, log=log):
+        log.end_step()
+
+    t_arm = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stop, card = threading.Event(), [0]
+    poller = threading.Thread(target=_card_peak, args=(stop, card),
+                              daemon=True)
+    if rank == 0:
+        poller.start()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    try:
+        with hold:
+            res = run_training(api, tc, global_batch=BATCH,
+                               seq_len=DIST_MODEL_SEQ.get(arch_name, SEQ),
+                               steps=DIST_MODEL_STEPS, device=dev,
+                               log_every=1, log_fn=after_step,
+                               group=data, model=log)
+    finally:
+        stop.set()
+        if poller.is_alive():
+            poller.join()
+    launches = dict(ops.LAUNCHES)
+    arm = {"losses": res.losses, "launches": launches,
+           "grad_norm": [m["grad_norm"] for m in res.metrics],
+           "step_ms": [t * 1e3 for t in res.step_seconds[1:]],
+           "warmup_ms": res.step_seconds[0] * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "card_peak_used_bytes": card[0] if rank == 0 else None,
+           "param_sha256": param_digest(res.state.params),
+           "local_params": sum(p.numel() for p in res.state.params.leaves())}
+    paths = res.state.params.paths
+    specs = [leaf_spec(p, t.ndim, tc.sharding) for p, t in
+             zip(paths, res.state.params.leaves())]
+    del res
+    torch.cuda.empty_cache()
+    arm["train_wall_s"] = time.perf_counter() - t_arm
+    return arm, paths, specs
+
+
+def _unsharded_loss(api, tc, dev, data, model, rank):
+    """The step-0 loss without the model axis: the initial parameters
+    (``tc.seed``) cut into this rank's shards as the train cuts them and
+    gathered back whole (every rank), then on rank 0 the loss of each
+    row of batch 0 on them, averaged (the rows are of one length, so
+    this is the batch's loss); None on the other ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import batch_fn
+    from repro_torch.models.params import unflatten_tree
+    from repro_torch.parallel.sharding import gather_leaf
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.step import leaf_specs, shard_params
+
+    shards = shard_params(api.init(tc.seed, dev), tc, model, data)
+    specs = leaf_specs(shards, tc, model, data)
+    whole = unflatten_tree([(path, gather_leaf(p, s, model))
+                            for path, p, s in zip(shards.paths,
+                                                  shards.leaves(), specs)])
+    del shards
+    loss = None
+    if rank == 0:
+        batch = device_batch(batch_fn(api.cfg, BATCH, SEQ, seed=tc.seed)(0),
+                             dev)
+        with torch.no_grad():
+            rows = [api.loss(whole, {k: v[i:i + 1]
+                                     for k, v in batch.items()})[0]
+                    for i in range(BATCH)]
+        loss = float(torch.stack(rows).mean())
+    del whole
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return loss
+
+
 def dist_model_rank(mesh, dev):
     """One rank of ``dist_model`` on its grid (``mesh``: a ``RankMesh``),
-    every arm of :data:`DIST_MODEL_ARMS` in turn, each a fresh train
-    from ``tc.seed`` of ``DIST_MODEL_STEPS`` steps on the global batch's
-    rows of this rank's data index, the caches emptied between arms. Per
-    arm: losses, step ms, peak memory, the card's used memory (rank 0
-    polls it), the launch counters (zeroed just before the run, read
-    just after), the sha256 of this rank's parameter shards after every
-    step, the last step's model-axis collectives replayed alone; on
-    granite's compressed arm the step-0 aggregate against the plain
-    aggregator and the sha256 of the replicated leaves' step-0
-    gradients."""
-    import threading
+    every arm of :data:`DIST_MODEL_ARMS` in turn (:func:`_dist_model_arm`)
+    on the global batch's rows of this rank's data index; on the arms of
+    :data:`DIST_MODEL_HOLD` the sha256 of the replicated leaves' step-0
+    gradients, and on granite's compressed arm the step-0 aggregate
+    against the plain aggregator. Then the wide arm
+    (:data:`DIST_MODEL_WIDE`) on a grid of the same ranks, all on the
+    model axis, with the unsharded step-0 loss (:func:`_unsharded_loss`)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.registry import model_api
-    from repro_torch.parallel.sharding import leaf_spec
-    from repro_torch.train.loop import run_training
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5183,51 +5294,17 @@ def dist_model_rank(mesh, dev):
            "backend": mesh.data.backend, "staging": mesh.data.staging,
            "arms": {}}
     for arch_name, aggregator, exchange in DIST_MODEL_ARMS:
+        key = f"{arch_name}/{aggregator}/{exchange}"
         arch = get_arch(arch_name)
         api = model_api(dataclasses.replace(
             arch.model, n_layers=DIST_MODEL_LAYERS[arch_name]))
         tc = dataclasses.replace(arch.train, workers=WORKERS, accum_steps=1,
                                  aggregator=aggregator, ep_exchange=exchange)
         log = ModelAxisLog(mesh.model)
-        hold = AggregateHold() if (arch_name, aggregator) == \
-            ("granite-3-2b", "compressed") else contextlib.nullcontext()
-        def after_step(_line, log=log):
-            log.end_step()
-
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        stop, card = threading.Event(), [0]
-        poller = threading.Thread(target=_card_peak, args=(stop, card),
-                                  daemon=True)
-        if mesh.rank == 0:
-            poller.start()
-        for k in ops.LAUNCHES:
-            ops.LAUNCHES[k] = 0
-        try:
-            with hold:
-                res = run_training(api, tc, global_batch=BATCH,
-                                   seq_len=DIST_MODEL_SEQ.get(arch_name, SEQ),
-                                   steps=DIST_MODEL_STEPS, device=dev,
-                                   log_every=1, log_fn=after_step,
-                                   group=mesh.data, model=log)
-        finally:
-            stop.set()
-            if poller.is_alive():
-                poller.join()
-        launches = dict(ops.LAUNCHES)
-        arm = {"losses": res.losses, "launches": launches,
-               "grad_norm": [m["grad_norm"] for m in res.metrics],
-               "step_ms": [t * 1e3 for t in res.step_seconds[1:]],
-               "warmup_ms": res.step_seconds[0] * 1e3,
-               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-               "card_peak_used_bytes": card[0] if mesh.rank == 0 else None,
-               "param_sha256": param_digest(res.state.params),
-               "local_params": sum(p.numel() for p in res.state.params.leaves())}
-        paths = res.state.params.paths
-        specs = [leaf_spec(p, t.ndim, tc.sharding) for p, t in
-                 zip(paths, res.state.params.leaves())]
-        del res
-        torch.cuda.empty_cache()
+        hold = AggregateHold() if key in DIST_MODEL_HOLD \
+            else contextlib.nullcontext()
+        arm, paths, specs = _dist_model_arm(arch_name, api, tc, mesh.data,
+                                            log, dev, mesh.rank, hold)
         if isinstance(hold, AggregateHold):
             grads = hold.inputs[0][0]
             arm["replicated_grad_sha256"] = {
@@ -5235,19 +5312,40 @@ def dist_model_rank(mesh, dev):
                                             .cpu().numpy()).hexdigest()
                 for p, g, sp in zip(paths, grads, specs)
                 if all(a is None for a in sp)}
-            # the plain peel's temporaries are large: one data group at a
-            # time, the others waiting with their memory freed
-            for t in range(MODEL_PARALLEL):
-                if mesh.coords["model"] == t:
-                    real, dyad = hold.plain_check(1000 + mesh.rank)
-                    torch.cuda.empty_cache()
-                dist.barrier()
-            arm.update(plain_step0=real, plain_dyadic=dyad)
+            if arch_name == "granite-3-2b":
+                # the plain peel's temporaries are large: one data group
+                # at a time, the others waiting with their memory freed
+                for t in range(MODEL_PARALLEL):
+                    if mesh.coords["model"] == t:
+                        real, dyad = hold.plain_check(1000 + mesh.rank)
+                        torch.cuda.empty_cache()
+                    dist.barrier()
+                arm.update(plain_step0=real, plain_dyadic=dyad)
             del hold.inputs, hold.outputs, grads
             torch.cuda.empty_cache()
         arm["model_axis"] = replay_collectives(log, log.step_calls, dev,
                                                staging=True)
-        out["arms"][f"{arch_name}/{aggregator}/{exchange}"] = arm
+        out["arms"][key] = arm
+    # the wide arm: every rank on the model axis of one data index
+    arch_name, mp = DIST_MODEL_WIDE
+    wide = make_host_mesh(mp)
+    arch = get_arch(arch_name)
+    api = model_api(dataclasses.replace(
+        arch.model, n_layers=DIST_MODEL_LAYERS[arch_name]))
+    tc = dataclasses.replace(arch.train, workers=wide.shape["data"],
+                             accum_steps=1)
+    out["wide_grid"] = wide.shape
+    t0 = time.perf_counter()
+    unsharded = _unsharded_loss(api, tc, dev, wide.data, wide.model,
+                                mesh.rank)
+    unsharded_s = time.perf_counter() - t0
+    log = ModelAxisLog(wide.model)
+    arm, _, _ = _dist_model_arm(arch_name, api, tc, wide.data, log, dev,
+                                mesh.rank, contextlib.nullcontext())
+    arm.update(unsharded_loss=unsharded, unsharded_s=unsharded_s)
+    arm["model_axis"] = replay_collectives(log, log.step_calls, dev,
+                                           staging=True)
+    out["arms"][f"{arch_name}/{tc.aggregator}/none@{wide.shape['data']}x{mp}"] = arm
     return out
 
 
@@ -5266,25 +5364,32 @@ def phase_dist_model(dev, emulated):
     ``dist_train``): each arm of :data:`DIST_MODEL_ARMS` trains
     ``DIST_MODEL_STEPS`` steps at full width (granite-3-2b and
     internvl2-2b at depth 4, deepseek-moe-16b at depth 1, whisper-tiny
-    whole) on a global batch of 8 rows, each rank on its shards (the
-    sharding profile's tensor, vocab and expert splits) and its data
-    index's rows. Fails unless, on every rank:
+    whole, mamba2-1.3b at depth 12 on its Mamba heads) on a global batch
+    of 8 rows, each rank on its shards (the sharding profile's tensor,
+    vocab, expert and Mamba-head splits) and its data index's rows; then
+    qwen2.5-3b at depth 2 on a grid of 1 x 4 of the same ranks
+    (:data:`DIST_MODEL_WIDE`: 16 heads, 2 KV heads, so each rank holds
+    half a KV head). Fails unless, on every rank:
     granite's compressed arm launched one producer and one consumer a
     step and its dense arm none; its step-0 aggregate and residuals equal
     the plain aggregator's (``use_pallas="never"``, the same group and
     inputs) bit for bit, and so do they on dyadic gradients of the same
     shard-local leaves (``AggregateHold.plain_check``); the replicated
     leaves' step-0 gradients equal
-    bit for bit across the model ranks of a data index; every rank
+    bit for bit across the model ranks of a data index (granite's and
+    mamba2-1.3b's compressed arms, :data:`DIST_MODEL_HOLD`); every rank
     reports the same losses; the arms of :data:`DIST_MODEL_EMULATED`
-    (granite's dense arm, the whisper-tiny and internvl2-2b arms) lie
+    (granite's dense arm, the whisper-tiny, internvl2-2b and mamba2-1.3b
+    arms) lie
     within ``DIST_MODEL_LOSS_RTOL`` of the emulated W=2 train of their
     arch (one process, same seed and rows: ``emulated`` by phase name,
-    the first two losses of phases 4, 41 and 38; the warm-up's learning
+    the first two losses of phases 4, 41, 38 and 37; the warm-up's learning
     rate is 0 at step 0, so both steps run at the initial parameters
     whatever the aggregator, and a dense emulated run gives phase 4's
     losses bit for bit), and the families' arms launch one producer and
-    one consumer a step; deepseek's ``compressed`` exchange equals its
+    one consumer a step; the wide arm's step-0 loss lies within
+    ``DIST_MODEL_LOSS_RTOL`` of the unsharded loss on the same rows;
+    deepseek's ``compressed`` exchange equals its
     ``dense`` exchange bit for bit (losses and the parameter shards'
     sha256) and lies within rtol 1e-2 of ``none``'s losses. Prints,
     beside the card's name and power limit: step ms, peak memory a rank
@@ -5321,6 +5426,7 @@ def phase_dist_model(dev, emulated):
             "card_peak_used_bytes": per[0]["card_peak_used_bytes"],
             "launches_by_rank": [a["launches"] for a in per],
             "local_params_by_rank": [a["local_params"] for a in per],
+            "train_wall_s_by_rank": [a["train_wall_s"] for a in per],
             "param_sha256_by_rank": [a["param_sha256"] for a in per],
             "model_axis_calls": per[0]["model_axis"]["calls"],
             "model_axis_bytes_per_rank_step":
@@ -5345,15 +5451,23 @@ def phase_dist_model(dev, emulated):
         rel[key] = [abs(a - b) / abs(b) for a, b in
                     zip(arms[key]["losses"], want)]
         arms[key]["loss_rel_diff_to_emulated"] = rel[key]
+    wide = [k for k in arms if "@" in k]
+    for key in wide:
+        want = outs[0]["arms"][key]["unsharded_loss"]
+        arms[key]["unsharded_loss"] = want
+        arms[key]["unsharded_s"] = outs[0]["arms"][key]["unsharded_s"]
+        rel[key] = [abs(arms[key]["losses"][0] - want) / abs(want)]
+        arms[key]["loss_rel_diff_to_unsharded"] = rel[key]
     moe_rel = [abs(a - b) / abs(b) for a, b in
                zip(arms[moe["compressed"]]["losses"], arms[moe["none"]]["losses"])]
     by_rank = {o["rank"]: o for o in outs}
-    rep_equal = all(
-        by_rank[r]["arms"][comp]["replicated_grad_sha256"]
-        == by_rank[r - r % MODEL_PARALLEL]["arms"][comp]["replicated_grad_sha256"]
-        for r in by_rank)
+    rep_equal = {key: all(
+        by_rank[r]["arms"][key]["replicated_grad_sha256"]
+        == by_rank[r - r % MODEL_PARALLEL]["arms"][key]["replicated_grad_sha256"]
+        for r in by_rank) for key in DIST_MODEL_HOLD}
     line = {"phase": "dist_model", "card": smi,
             "grid": {"data": WORKERS, "model": MODEL_PARALLEL},
+            "wide_grid": outs[0]["wide_grid"],
             "ranks": WORKERS * MODEL_PARALLEL, "global_batch": BATCH,
             "seq_len": {a: DIST_MODEL_SEQ.get(a, SEQ) for a in DIST_MODEL_LAYERS},
             "steps": DIST_MODEL_STEPS, "warmup_steps": 1,
@@ -5381,7 +5495,8 @@ def phase_dist_model(dev, emulated):
                                  f"differs from the plain aggregator's: "
                                  f"{real} {dyad}")
         for key in ("whisper-tiny/compressed/none",
-                    "internvl2-2b/compressed/none"):
+                    "internvl2-2b/compressed/none",
+                    "mamba2-1.3b/compressed/none"):
             if (a[key]["launches"]["encode_pack_quantize"],
                     a[key]["launches"]["dequant_peel_unpack"]) != (steps, steps):
                 raise AssertionError(f"dist_model {key}: rank {o['rank']} "
@@ -5400,13 +5515,14 @@ def phase_dist_model(dev, emulated):
                 not all(map(math.isfinite, arm["losses"])):
             raise AssertionError(f"dist_model {key}: ranks report different "
                                  "or non-finite losses")
-    if not rep_equal:
-        raise AssertionError("dist_model: a replicated leaf's gradient "
-                             "differs across the model ranks")
+    if not all(rep_equal.values()):
+        raise AssertionError(f"dist_model: a replicated leaf's gradient "
+                             f"differs across the model ranks: {rep_equal}")
     if max(max(r) for r in rel.values()) > DIST_MODEL_LOSS_RTOL \
             or max(moe_rel) > 1e-2:
         raise AssertionError(f"dist_model: losses off: against the emulated "
-                             f"trains {rel}, moe {moe_rel}")
+                             f"trains and the unsharded loss {rel}, moe "
+                             f"{moe_rel}")
     return {key: {k: sum(o["arms"][key]["launches"][k] for o in outs)
                   for k in outs[0]["arms"][key]["launches"]}
             for key in outs[0]["arms"]}
@@ -5544,7 +5660,7 @@ def main() -> int:
         "serve_consistency", phase_serve_consistency, dev)
     torch.cuda.empty_cache()
     launches_family, family_losses = {}, {"train": train["losses"]}
-    launches_family["ssm_train"], _ = timed(
+    launches_family["ssm_train"], family_losses["ssm_train"] = timed(
         "ssm_train", phase_family_train, dev, check, "ssm_train", SSM_ARCH,
         SSM_TRAIN_LAYERS)
     launches_family["vlm_train"], family_losses["vlm_train"] = timed(

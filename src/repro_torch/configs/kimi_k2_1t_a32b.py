@@ -9,8 +9,8 @@ aggregator, momentum with a bf16 state (AdamW's f32 moments would be
 8 TB at this size), top-k without error feedback (its f32 residual would
 be 4 TB). Its sharding profile is the reference's: experts over the
 data axis and their d_ff over the model axis, gradient DP across pods
-only, the batch on the pod and data axes. The port's model axis does
-not run this layout yet (it raises under model_parallel > 1).
+only, the batch on the pod and data axes. On a grid of ranks the port runs
+it as the reference's pure auto-sharded step (``train/step.py``).
 """
 import dataclasses
 

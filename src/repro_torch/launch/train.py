@@ -47,12 +47,16 @@ cards. The summary printed is rank 0's; a rank that fails, or a run
 past ``--timeout`` seconds, ends the launch with an error.
 
 ``--procs P --model-parallel N`` runs a grid of ``W = P/N``
-data-parallel workers times N model ranks (``launch/mesh.py``): the
-dense, attention and vocab dims and the routed experts split over the
-model axis as the arch's sharding profile says, each model rank
-aggregating its own shard-local gradients over its W data-parallel
-peers; a MoE's ``--ep-exchange`` then runs over the model ranks. One
-process cannot hold a model axis: ``--model-parallel`` above 1 needs
+data-parallel workers times N model ranks (``launch/mesh.py``), for
+every arch: the dense, attention, Mamba-head and vocab dims and the
+routed experts split over the model axis as the arch's sharding profile
+says, each model rank aggregating its own shard-local gradients over its
+W data-parallel peers; a MoE's ``--ep-exchange`` then runs over the
+model ranks. kimi-k2's profile (no DP axes) runs the reference's pure
+auto-sharded step instead: the routed experts split over the W data
+ranks, their ``d_ff`` over the model ranks, the gradient the whole
+global batch's, dense whatever ``--aggregator`` says. One process
+cannot hold a model axis: ``--model-parallel`` above 1 needs
 ``--procs``.
 """
 

@@ -21,7 +21,11 @@ training layers run on their shards of the model axis, Megatron-style:
 whose partial outputs are summed over the axis (``reduce_from_model``),
 their inputs entering through ``copy_to_model``; the MoE layer's routed
 experts are split into contiguous groups of ``E/MP`` (see
-:func:`moe_ffn`). Outside a region nothing changes.
+:func:`moe_ffn`). Where MP does not divide the KV heads the ``KV·hd``
+columns are split evenly all the same, and gathered whole before RoPE
+(:func:`attention_train`). Under kimi-k2's profile the routed experts
+are split over the data ranks instead, their ``d_ff`` over the model
+ranks (:func:`_moe_data_axis`). Outside a region nothing changes.
 """
 
 from __future__ import annotations
@@ -132,15 +136,28 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _kv_split_uneven(cfg: ModelConfig) -> bool:
+    """In a model region whose MP does not divide the KV heads: each rank
+    holds an even column slice of ``wk`` / ``wv`` (``KV·hd/MP``), which
+    may end inside a head."""
+    group = hints.model_group()
+    return group is not None and cfg.n_kv_heads % group.workers != 0
+
+
 def _project_qkv(x, p, cfg: ModelConfig, kv_input=None):
     """Returns q (B,S,H,hd), k/v (B,Skv,KV,hd): k and v from ``kv_input``
     (B,Skv,D) where given (cross-attention), else from ``x``. On column
-    shards of the projections, the heads are this rank's."""
+    shards of the projections, the heads are this rank's; where MP does
+    not divide the KV heads (:func:`_kv_split_uneven`), k and v are
+    every rank's column slices gathered whole (``hints.
+    gather_from_model``), all KV heads."""
     B, S, _ = x.shape
     kv_x = x if kv_input is None else kv_input
     q, k, v = x @ p["wq"], kv_x @ p["wk"], kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if _kv_split_uneven(cfg):
+        k, v = hints.gather_from_model(k), hints.gather_from_model(v)
     Skv = kv_x.shape[1]
     return (q.reshape(B, S, -1, cfg.hd),
             k.reshape(B, Skv, -1, cfg.hd),
@@ -317,9 +334,14 @@ def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
     RoPE goes on q and k whenever ``kv_input`` is None, causal or not
     (the reference's rule: the encdec encoder's non-causal
     self-attention takes it too), and never on cross-attention. In a
-    model region the heads are this rank's shard (query head h of the
-    shard reads its KV head ``h // (H/KV)``, which needs ``KV % MP ==
-    0``) and the output is summed over the model axis."""
+    model region the heads are this rank's shard and the output is summed
+    over the model axis. Where MP divides the KV heads, the shard's query
+    head h reads its own KV head ``h // (H/KV)``. Where it does not, the
+    reference's even split of the ``KV·hd`` columns may end inside a
+    head: k and v are gathered whole (:func:`_project_qkv`), RoPE goes on
+    the whole k, and then each of this rank's query heads (global head
+    ``g``) takes KV head ``g // (H/KV)`` before ``flash_attention``; the
+    prefill cache is the whole (k, v)."""
     B, S, _ = x.shape
     x = hints.copy_to_model(x)
     if kv_input is not None:
@@ -330,7 +352,13 @@ def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
     if kv_input is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions[:, :k.shape[1]], cfg.rope_theta)
-    o = flash_attention(q, k, v, causal, cfg.q_block).reshape(B, S, -1)
+    kq, vq = k, v
+    if _kv_split_uneven(cfg):
+        H_loc = q.shape[2]
+        heads = hints.model_index() * H_loc + torch.arange(H_loc, device=x.device)
+        kv_of = heads // (cfg.n_heads // cfg.n_kv_heads)
+        kq, vq = k.index_select(2, kv_of), v.index_select(2, kv_of)
+    o = flash_attention(q, kq, vq, causal, cfg.q_block).reshape(B, S, -1)
     return hints.reduce_from_model(o @ p["wo"]), (k, v)
 
 
@@ -567,10 +595,15 @@ def moe_ffn(x: torch.Tensor, p, m: MoEConfig,
     several groups.
 
     In a model region (:func:`_moe_model_axis`) the routed experts are
-    sharded instead: rank t holds experts ``[t·E/MP, (t+1)·E/MP)``.
+    sharded instead: rank t holds experts ``[t·E/MP, (t+1)·E/MP)``. With
+    an experts' data group bound (kimi-k2's profile,
+    :func:`_moe_data_axis`) data rank d holds experts ``[d·E/W,
+    (d+1)·E/W)``, and on a model axis their ``d_ff`` split over it.
     """
     T, D = x.shape
     E = m.num_experts
+    if hints.expert_group() is not None:
+        return _moe_data_axis(x, p, m, capacity_factor)
     rt = moe_route(x, p, m, capacity_factor)
     if hints.model_group() is not None:
         return _moe_model_axis(x, p, m, rt, ep_exchange)
@@ -591,11 +624,12 @@ def moe_ffn(x: torch.Tensor, p, m: MoEConfig,
 
 def _moe_tail(out, x, p, m: MoEConfig, rt: MoERouting):
     """The combine cast to ``x``'s dtype, plus the shared experts, and
-    the Switch-style load-balance aux loss."""
+    the Switch-style load-balance aux loss (over the routed tokens,
+    ``rt.tok_slots``' rows)."""
     out = out.to(x.dtype)
     if m.shared_experts:
         out = out + mlp(x, p["shared"])
-    frac = rt.counts.to(torch.float32) / max(x.shape[0] * m.top_k, 1)
+    frac = rt.counts.to(torch.float32) / max(rt.tok_slots.shape[0] * m.top_k, 1)
     aux = m.num_experts * (frac * rt.probs.mean(dim=0)).sum()
     return out, aux
 
@@ -636,4 +670,43 @@ def _moe_model_axis(x, p, m: MoEConfig, rt: MoERouting, ep_exchange):
             raise ValueError("on the model axis the exchange runs over the "
                              "model group")
         out = hints.exchange_sum(partial, ep_exchange)
+    return _moe_tail(out, x, p, m, rt)
+
+
+def _moe_data_axis(x, p, m: MoEConfig, capacity_factor):
+    """:func:`moe_ffn` under kimi-k2's profile: the routed experts split
+    over the data ranks (``hints.expert_group()``, W of them) in
+    contiguous groups of ``E_loc = E/W``, each expert's ``d_ff`` over
+    the model ranks where a model axis is bound.
+
+    The reference routes the whole (micro)batch: the capacity ``C =
+    ceil(T·K·cf/E)`` is the global ``T``'s and the stable sort orders
+    the slots over the global token order, so routing a data rank's own
+    tokens at a local capacity would drop other tokens. So the layer's
+    tokens are gathered over the data ranks (``hints.gather_rows``, in
+    rank order: the global order), every rank routes them alike (the aux
+    loss is the global one), runs its own experts' slots (``x`` through
+    ``copy_to_model`` for the ``d_ff`` shards), sums the partial
+    ``w_down`` products over the model axis, combines its slots in f32
+    (every other slot to the trash row, as :func:`moe_partials`) and
+    reduce-scatters the partial combine back to each rank's rows
+    (``hints.scatter_rows``). The routing weights need no
+    ``copy_to_model``: the expert outputs they scale are whole on every
+    model rank. Backward, each data rank's experts see every rank's
+    tokens' gradients: their gradient is that of the sum of the W ranks'
+    losses (``train/step.py`` scales it by ``1/W``)."""
+    X = hints.gather_rows(x)
+    D = x.shape[1]
+    rt = moe_route(X, p, m, capacity_factor)
+    E_loc, C = p["we_gate"].shape[0], rt.capacity
+    lo = hints.expert_group().first_worker * E_loc * C
+    hi = lo + E_loc * C
+    slots = rt.tok_slots
+    mine = torch.where((slots >= lo) & (slots < hi), slots - lo,
+                       E_loc * C).sort(dim=1).values
+    xg = _Dispatch.apply(hints.copy_to_model(X), rt.gather_idx[lo:hi], mine)
+    y = hints.reduce_from_model(
+        moe_experts(xg.reshape(E_loc, C, D), p).to(torch.float32))
+    contrib = torch.cat([y * rt.slot_w[lo:hi, None], y.new_zeros(1, D)])
+    out = hints.scatter_rows(_combine(contrib, mine))
     return _moe_tail(out, x, p, m, rt)

@@ -18,6 +18,15 @@ Dtypes follow the reference: the projections, the gate ``z`` and the
 causal conv run in the activation dtype (the conv's f32 weights cast to
 it); ``B``, ``C``, ``dt``, the head-split ``x`` and the whole scan,
 with its ``(B, H, P, N)`` state, run in f32.
+
+Inside a model region (``repro_torch.parallel.hints.model_region``) the
+training forward runs on this rank's heads, the reference's layout
+(``parallel/sharding.py``): ``wx``, ``wz``, ``wdt`` are column shards
+(``H/MP`` heads of ``head_dim``), ``A_log``, ``D_skip``, ``dt_bias``
+this rank's heads' entries, ``wo`` a row shard summed over the axis;
+``wB``, ``wC``, ``conv_w``, ``conv_b`` and the gated norm's scale are
+replicated (see :func:`mamba_forward`). Decode and prefill with a state
+run unsharded only.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import hints
 from .config import ModelConfig
 from .layers import dense_init, init_rmsnorm, rmsnorm
 
@@ -138,11 +148,12 @@ def _project(x: torch.Tensor, p, cfg: ModelConfig, conv_state=None):
     """The mixer's input side, shared by forward and decode: the
     projections, ``dt`` (f32 softplus), the causal conv over
     ``[x, B, C]``. Returns (xh (B,S,H,P) f32, z, Bm, Cm f32, dt f32,
-    conv_state)."""
+    conv_state). On a head shard (:func:`_head_shard`'s ``p``) ``x``'s
+    channels and the heads are this rank's."""
     s = cfg.ssm
     B, S, D = x.shape
-    di = s.d_inner(D)
     xz = x @ p["wx"]                                  # (B,S,di)
+    di = xz.shape[-1]
     z = x @ p["wz"]
     Bm = x @ p["wB"]
     Cm = x @ p["wC"]
@@ -154,7 +165,7 @@ def _project(x: torch.Tensor, p, cfg: ModelConfig, conv_state=None):
     xz = conv_out[..., :di]
     Bm = conv_out[..., di:di + s.d_state].to(torch.float32)
     Cm = conv_out[..., di + s.d_state:].to(torch.float32)
-    xh = xz.reshape(B, S, s.n_heads(D), s.head_dim).to(torch.float32)
+    xh = xz.reshape(B, S, -1, s.head_dim).to(torch.float32)
     return xh, z, Bm, Cm, dt, conv_state
 
 
@@ -164,14 +175,56 @@ def _gate_out(y: torch.Tensor, z: torch.Tensor, x: torch.Tensor, p,
     ``d_inner`` in ``x``'s dtype, then the out projection."""
     B, S, _ = x.shape
     y = y.reshape(B, S, -1).to(x.dtype)
-    return rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps) @ p["wo"]
+    if hints.model_group() is None:
+        return rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps) @ p["wo"]
+    # the norm's mean runs over the whole d_inner: each row's sum of
+    # squares summed over the shards, its gradient summed back
+    yf = (y * F.silu(z)).to(torch.float32)
+    ss = hints.sum_over_model(yf.square().sum(dim=-1, keepdim=True))
+    var = ss / cfg.ssm.d_inner(cfg.d_model)
+    y = (yf * torch.rsqrt(var + cfg.norm_eps) * p["norm"]["scale"]).to(x.dtype)
+    return hints.reduce_from_model(y @ p["wo"])
+
+
+def _head_shard(p, cfg: ModelConfig):
+    """``p`` (this rank's shards) as :func:`_project` and :func:`_gate_out`
+    take it on a head shard: the replicated leaves through
+    ``copy_to_model`` (each rank's gradient of them is partial: its own
+    heads' share, summed over the axis in one all-reduce a dtype), and
+    ``conv_w`` / ``conv_b`` / the norm's scale cut to this rank's ``x``
+    channels ``[t·di/MP, (t+1)·di/MP)`` (the conv) plus the ``2N``
+    columns of ``B`` and ``C`` at ``di``."""
+    di = cfg.ssm.d_inner(cfg.d_model)
+    n = p["wx"].shape[-1]
+    lo = hints.model_index() * n
+    wB, wC, cw, cb, scale = hints.copy_to_model(
+        p["wB"], p["wC"], p["conv_w"], p["conv_b"], p["norm"]["scale"])
+    return {**p, "wB": wB, "wC": wC,
+            "conv_w": torch.cat([cw[..., lo:lo + n], cw[..., di:]], dim=-1),
+            "conv_b": torch.cat([cb[..., lo:lo + n], cb[..., di:]], dim=-1),
+            "norm": {"scale": scale[..., lo:lo + n]}}
 
 
 def mamba_forward(x: torch.Tensor, p, cfg: ModelConfig,
                   return_state: bool = False):
     """Train/prefill forward. x: (B, S, D) -> (B, S, D), and with
     ``return_state`` the decode state ``{"ssm": (B,H,P,N) f32, "conv":
-    (B, d_conv-1, C) f32}`` after the last step."""
+    (B, d_conv-1, C) f32}`` after the last step.
+
+    In a model region, on this rank's heads: ``x`` enters through
+    ``copy_to_model``, the replicated leaves as :func:`_head_shard` says;
+    ``B`` and ``C`` (one group for all heads) are whole on every rank;
+    the SSD scan runs on the local heads with no collective (the heads
+    are independent); the gated RMSNorm takes its mean over the whole
+    ``d_inner`` (``hints.sum_over_model``: a per-shard mean would be a
+    group norm, another function); ``wo``'s partial product is summed by
+    ``reduce_from_model``."""
+    if hints.model_group() is not None:
+        if return_state:
+            raise NotImplementedError("a Mamba decode state on the model "
+                                      "axis (serving runs unsharded)")
+        x = hints.copy_to_model(x)
+        p = _head_shard(p, cfg)
     xh, z, Bm, Cm, dt, conv_state = _project(x, p, cfg)
     A = -torch.exp(p["A_log"])                        # (H,) negative
     y, ssm_state = _ssd_chunk_scan(xh * dt[..., None], dt * A, Bm, Cm,

@@ -43,10 +43,12 @@ shards (``parallel.sharding.param_pspecs``): the layers run
 tensor-parallel (``layers``), the embedding is a lookup of this rank's
 vocab rows summed over the axis, and the head gives this rank's logit
 columns, whose ``logsumexp`` and label logit are taken over the vocab
-shards (``hints.vocab_parallel_lse``). The dense, moe and vlm families
-run there (:func:`check_model_axis`; the vlm's visual prefix is an
-input, the same on every model rank), and encdec through
-``models/encdec.py``. ``remat``
+shards (``hints.vocab_parallel_lse``). Every family runs there
+(:func:`check_model_axis`): the vlm's visual prefix is an input, the
+same on every model rank; a Mamba layer runs on its head shard
+(``models/ssm.py``), in the ssm family and at the hybrid superblock's
+Mamba positions; encdec through ``models/encdec.py``. Training only:
+prefill and decode run unsharded. ``remat``
 takes the reference's policies (:data:`REMAT_POLICIES`, see
 :func:`lm_hidden`); any other value raises.
 """
@@ -83,37 +85,49 @@ def _require_ported(cfg: ModelConfig):
             "only, the reference's six")
 
 
-MODEL_AXIS_FAMILIES = ("dense", "moe", "vlm", "encdec")
+# the sharding layouts the model axis runs, (tp_axis, vocab_axis,
+# ep_axes, ep_ff_axis, manual DP axes or not): the default profile's
+# (tensor, vocab and expert dims on ``model``), and kimi-k2's (experts
+# over ``data``, their d_ff over ``model``, no manual DP axes: the
+# step's gradient is the whole batch's, ``train/step.py``)
+MODEL_AXIS_LAYOUTS = {("model", "model", ("model",), None, True): "default",
+                      ("model", "model", ("data",), "model", False): "kimi"}
 
 
 def check_model_axis(cfg: ModelConfig, mp: int, prof=None) -> None:
     """Raise unless ``cfg`` can run on ``mp`` model ranks (under the
-    sharding profile ``prof``, where given): the dense, moe, vlm and
-    encdec families only (``NotImplementedError`` for ssm and hybrid,
-    ROADMAP queue 1 item 1), the default profile's layout (tensor, vocab
-    and expert dims on the ``model`` axis), and every split dim divisible
-    by ``mp`` (``ValueError``)."""
+    sharding profile ``prof``, where given): a profile of
+    :data:`MODEL_AXIS_LAYOUTS` (``NotImplementedError`` for any other),
+    and every split dim divisible by ``mp`` (``ValueError``): the query
+    heads (the reference's uneven head split stays out), the KV columns
+    ``n_kv_heads·hd`` (a split may fall inside a KV head:
+    ``layers.attention_train`` gathers them), the Mamba heads, the
+    padded vocab, the dense FFN's ``d_ff``, and the routed experts (the
+    default layout) or their ``d_ff`` (kimi's)."""
     if mp <= 1:
         return
-    if cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} under model_parallel={mp}: the model "
-            f"axis runs {list(MODEL_AXIS_FAMILIES)} only so far (ROADMAP "
-            "queue 1 item 1: the Mamba mixer on its head shard, for the "
-            "ssm and hybrid families)")
-    if prof is not None and (prof.tp_axis, prof.vocab_axis,
-                             tuple(prof.ep_axes), prof.ep_ff_axis) != \
-            ("model", "model", ("model",), None):
+    _require_ported(cfg)
+    layout = "default" if prof is None else MODEL_AXIS_LAYOUTS.get(
+        (prof.tp_axis, prof.vocab_axis, tuple(prof.ep_axes),
+         prof.ep_ff_axis, bool(prof.dp_axes)))
+    if layout is None:
         raise NotImplementedError(
             f"sharding profile {prof} under model_parallel={mp}: the model "
-            "axis runs the default profile's layout only (ROADMAP queue 1 "
-            "item 1: kimi-k2's profile)")
-    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-            "padded_vocab": cfg.padded_vocab}
+            f"axis runs the layouts {sorted(MODEL_AXIS_LAYOUTS.values())} "
+            "only (the default profile's and kimi-k2's)")
+    dims = {"padded_vocab": cfg.padded_vocab}
+    if cfg.family != "ssm":
+        dims.update({"n_heads": cfg.n_heads,
+                     "n_kv_heads * hd": cfg.n_kv_heads * cfg.hd})
+    if cfg.family in ("ssm", "hybrid"):
+        dims["ssm n_heads"] = cfg.ssm.n_heads(cfg.d_model)
     if cfg.moe is not None:
-        dims["num_experts"] = cfg.moe.num_experts
+        if layout == "default":
+            dims["num_experts"] = cfg.moe.num_experts
+        else:
+            dims["expert_d_ff"] = cfg.moe.expert_d_ff
         dims["shared d_ff"] = cfg.moe.shared_experts * cfg.moe.expert_d_ff
-    else:
+    if cfg.family != "ssm" and (cfg.moe is None or cfg.family == "hybrid"):
         dims["d_ff"] = cfg.d_ff
     for name, n in dims.items():
         if n % mp:

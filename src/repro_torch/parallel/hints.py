@@ -19,9 +19,25 @@ call Megatron's two conjugate functions:
 
 and the vocab-parallel ends: :func:`vocab_embed`, a lookup of the rows
 this rank holds, and :func:`vocab_parallel_lse`, the ``logsumexp`` and
-label logit over the vocab shards. Outside a region (or in a region of
-one rank) every one of them is the identity or the unsharded form, so
-every single-rank path computes what it computed before.
+label logit over the vocab shards. Three more carry the layouts whose
+shards are not a plain column or row split:
+
+- :func:`sum_over_model`: all-reduce forward *and* backward, for a
+  reduction whose total every shard's output depends on (the Mamba
+  mixer's gated RMSNorm over the whole ``d_inner``);
+- :func:`gather_from_model`: the model ranks' column slices of the last
+  dim concatenated, its backward the reduce-scatter of the whole
+  gradient (the K/V projections where MP does not divide the KV heads);
+- :func:`copy_to_model` on several tensors at once (replicated leaves
+  used shard-locally), their gradients summed in one all-reduce a dtype.
+
+``model_region(group, experts=data)`` also binds the data-parallel group
+that the routed experts are split over (kimi-k2's profile, experts on the
+``data`` axis): :func:`expert_group`, and the token all-gather
+:func:`gather_rows` / reduce-scatter :func:`scatter_rows` around the
+layer. Outside a region (or in a region of one rank) every one of them
+is the identity or the unsharded form, so every single-rank path
+computes what it computed before.
 
 The binding is a module global, not a thread-local: a checkpointed
 block's recompute runs on autograd's device thread for CUDA tensors, and
@@ -38,24 +54,36 @@ from typing import Optional, Tuple
 import torch
 
 _GROUP = None
+_EXPERTS = None
+
+
+def _bound(group):
+    return group if group is not None and group.workers > 1 else None
 
 
 @contextlib.contextmanager
-def model_region(group):
+def model_region(group, experts=None):
     """Bind ``group`` (the model-axis process group, or None) as the
-    model axis for the layers; a group of one binds nothing."""
-    global _GROUP
-    prev = _GROUP
-    _GROUP = group if group is not None and group.workers > 1 else None
+    model axis for the layers, and ``experts`` (a data-parallel group,
+    or None) as the axis the routed experts are split over; a group of
+    one binds nothing."""
+    global _GROUP, _EXPERTS
+    prev = _GROUP, _EXPERTS
+    _GROUP, _EXPERTS = _bound(group), _bound(experts)
     try:
         yield
     finally:
-        _GROUP = prev
+        _GROUP, _EXPERTS = prev
 
 
 def model_group():
     """The bound model-axis group, or None outside a region."""
     return _GROUP
+
+
+def expert_group():
+    """The bound data-parallel group of the routed experts, or None."""
+    return _EXPERTS
 
 
 def model_index() -> int:
@@ -71,14 +99,24 @@ def constrain(x: torch.Tensor, logical_spec) -> torch.Tensor:
 
 
 class _CopyToModel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
+    """Identity on each tensor; backward, the gradients summed over the
+    group, those of one dtype flattened into one all-reduce."""
 
     @staticmethod
-    def backward(ctx, g):
-        return ctx.group.sum([g.contiguous()]), None
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out = list(gs)
+        for dtype in dict.fromkeys(g.dtype for g in gs):
+            idx = [i for i, g in enumerate(gs) if g.dtype == dtype]
+            flat = torch.cat([gs[i].reshape(-1) for i in idx])
+            total = ctx.group.sum([flat])
+            for i, part in zip(idx, total.split([gs[i].numel() for i in idx])):
+                out[i] = part.view_as(gs[i])
+        return (None, *out)
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -91,14 +129,86 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-def copy_to_model(x: torch.Tensor) -> torch.Tensor:
-    """Identity; its gradient is summed over the model axis."""
-    return x if _GROUP is None else _CopyToModel.apply(x, _GROUP)
+def copy_to_model(*xs: torch.Tensor):
+    """Identity; the gradient is summed over the model axis. One tensor
+    in, one out; several in, a tuple out (their gradients summed in one
+    all-reduce a dtype)."""
+    if _GROUP is not None:
+        xs = _CopyToModel.apply(_GROUP, *xs)
+    return xs[0] if len(xs) == 1 else tuple(xs)
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the model axis; its gradient passes as is."""
     return x if _GROUP is None else _ReduceFromModel.apply(x, _GROUP)
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.sum([x.contiguous()])
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.sum([g.contiguous()]), None
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the model axis, its gradient summed too: for
+    a total that every rank's shard goes on to use (each rank's share of
+    the loss depends on it, so the true gradient of each rank's term is
+    the sum of all ranks' gradients of the total)."""
+    return x if _GROUP is None else _SumBoth.apply(x, _GROUP)
+
+
+class _Gather(torch.autograd.Function):
+    """The group's slices of dim ``dim`` concatenated in rank order;
+    backward, the whole gradient reduce-scattered back to the slices (the
+    sum over the ranks, then this rank's slice: the ring reduce-scatter,
+    ``ProcessGroupWorkers.sum_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.gather([x.movedim(dim, 0).contiguous()]).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        part = ctx.group.sum_scatter([g.movedim(ctx.dim, 0).contiguous()])[0]
+        return part.movedim(0, ctx.dim), None, None
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s last dim whole: every model rank's column slice of it, in
+    rank order; the gradient of each slice is the sum over the ranks of
+    their gradients of it."""
+    return x if _GROUP is None else _Gather.apply(x, _GROUP, -1)
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.sum_scatter([x.contiguous()])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.gather([g.contiguous()]), None
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every data rank's rows of ``x`` (dim 0) over the experts' group,
+    in rank order; backward, each rank's rows get the sum of every
+    rank's gradient of them."""
+    return x if _EXPERTS is None else _Gather.apply(x, _EXPERTS, 0)
+
+
+def scatter_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of ``x`` (dim 0, the group's rows in rank order)
+    summed over the experts' group (the ring reduce-scatter); backward,
+    the all-gather of the rows' gradients."""
+    return x if _EXPERTS is None else _ScatterRows.apply(x, _EXPERTS)
 
 
 class _WireSum(torch.autograd.Function):

@@ -9,7 +9,9 @@ in-network tier's ``tor_spine`` tree maps onto; empty means one level of
 all W). ``sharding`` is the reference's ``ShardingProfile``: on a grid
 of W x MP ranks (``launch/mesh.py``) it says which dims of each leaf the
 model axis splits (``parallel/sharding.param_pspecs``); the step reads
-it only where MP > 1. The update's ZeRO-1 switch is ``zero1`` below;
+it where MP > 1, and on W > 1 ranks under a profile with no DP axes
+(kimi-k2's: the experts over the data ranks, ``train/step.py``). The
+update's ZeRO-1 switch is ``zero1`` below;
 the profile's own ``zero1`` field is kept as the reference's.
 
 ``remat`` is the reference's memory policy, ``"block"`` by default as

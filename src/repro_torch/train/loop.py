@@ -89,14 +89,14 @@ def _restore(state: TrainState, ckpt_dir: str, step: int, tc: TrainConfig,
 
 
 def _reset(state: TrainState, api: ModelAPI, tc: TrainConfig,
-           initial: Optional[List[torch.Tensor]], model=None):
+           initial: Optional[List[torch.Tensor]], model=None, group=None):
     """Back to the run's initial state in place: its initial parameters
     (``initial``, or the init from ``tc.seed``), zero moments and
     residuals, step 0, as ``init_train_state`` made them."""
     leaves = state.params.leaves()
     if initial is None:
         initial = shard_params(api.init(tc.seed, leaves[0].device), tc,
-                               model).leaves()
+                               model, group).leaves()
     with torch.no_grad():
         for p, x in zip(leaves, initial):
             p.copy_(x)
@@ -196,7 +196,7 @@ def run_training(api: ModelAPI, tc: TrainConfig, *, global_batch: int,
                 batches.close()
                 last = _agreed_latest(ckpt_dir, group, writer, device, model)
                 if last is None:
-                    _reset(state, api, tc, initial, model)
+                    _reset(state, api, tc, initial, model, group)
                 else:
                     events.append(_restore(state, ckpt_dir, last, tc, group,
                                            model))

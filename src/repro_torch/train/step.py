@@ -60,6 +60,22 @@ counts a replicated leaf once. The EP ranks are the model ranks: with
 model group (``ep_workers`` 1 or MP). On ranks with one model rank,
 ``ep_workers > 1`` raises: the experts are not sharded there.
 
+Under kimi-k2's profile (``tc.sharding.dp_axes == ()``, the routed
+experts on the ``data`` axis) on W > 1 ranks the step is the
+reference's pure auto-sharded one: its gradient is the whole global
+batch's (each microbatch's rows split over the data ranks, microbatch
+by microbatch), the aggregator is ``dense`` whatever ``tc.aggregator``
+says, with no ZeRO-1 and no exchange. Each data rank holds its group of
+``E/W`` experts (:func:`experts_group`; their ``d_ff`` over the model
+axis), and the MoE layers gather the tokens over the data ranks and
+route them as one batch (``layers._moe_data_axis``). The data ranks'
+losses are per-rank means, so the non-expert gradients are averaged
+over the data group, and an expert leaf's local gradient, which already
+sums every rank's tokens, is divided by W instead of aggregated. The
+grad norm sums an expert leaf's squares over both axes, and
+:func:`state_view` gathers the expert shards over the data axis too.
+On ``LocalWorkers`` the profile's data split does not apply.
+
 :func:`state_view` gives the state without its layout (whole moments,
 every worker's residual row), as a checkpoint holds it, and
 :func:`load_state_view` puts such a state back into any layout.
@@ -73,7 +89,8 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.core import aggregators as agg_lib
-from repro_torch.core.collectives import AggregationState, LocalWorkers
+from repro_torch.core.collectives import (AggregationState, LocalWorkers,
+                                          dense_all_reduce)
 from repro_torch.core.streams import zero_slice_dim
 from repro_torch.models.params import ParamTree, unflatten_tree
 from repro_torch.models.registry import ModelAPI
@@ -96,42 +113,80 @@ def _mp(model) -> int:
     return 1 if model is None else model.workers
 
 
-def leaf_specs(params: ParamTree, tc: TrainConfig, model=None) -> List[tuple]:
-    """Each leaf's model-axis spec: ``tc.sharding``'s where the grid has
-    MP > 1 model ranks, else ``()`` (nothing sharded)."""
-    if _mp(model) == 1:
+def pure_auto(tc: TrainConfig, group) -> bool:
+    """Whether the step is the reference's pure auto-sharded one: a
+    profile with no manual DP axes (kimi-k2's) on ranks
+    (``ProcessGroupWorkers``)."""
+    return not tc.sharding.dp_axes and group is not None \
+        and not isinstance(group, LocalWorkers)
+
+
+def experts_group(tc: TrainConfig, group):
+    """The data-parallel group the routed experts are split over: the
+    rank's ``group`` of W > 1 ranks under a pure auto-sharded profile
+    with the experts on ``data``, else None."""
+    if pure_auto(tc, group) and group.workers > 1 \
+            and "data" in tc.sharding.ep_axes:
+        return group
+    return None
+
+
+def _on_data(spec) -> bool:
+    return any("data" in shd._axes(a) for a in spec)
+
+
+def leaf_specs(params: ParamTree, tc: TrainConfig, model=None,
+               group=None) -> List[tuple]:
+    """Each leaf's spec: ``tc.sharding``'s where the grid has MP > 1
+    model ranks or the experts are split over ``group``'s data ranks
+    (:func:`experts_group`), else ``()`` (nothing sharded)."""
+    if _mp(model) == 1 and experts_group(tc, group) is None:
         return [()] * len(params.paths)
     return [shd.leaf_spec(p, t.ndim, tc.sharding)
             for p, t in zip(params.paths, params.leaves())]
 
 
 def zero1_dims(leaves: Sequence[torch.Tensor], tc: TrainConfig,
-               specs: Optional[Sequence[tuple]] = None
+               specs: Optional[Sequence[tuple]] = None, pure: bool = False
                ) -> List[Optional[int]]:
     """Each leaf's ZeRO-1 slice dim (None: updated replicated); all None
-    unless ``tc.zero1`` and W > 1. ``specs`` (:func:`leaf_specs`): the
-    dims a spec shards are never sliced."""
-    if not (tc.zero1 and tc.workers > 1):
+    unless ``tc.zero1`` and W > 1, and under a pure auto-sharded step
+    (``pure``: no DP axis to slice over, as in the reference). ``specs``
+    (:func:`leaf_specs`): the dims a spec shards are never sliced."""
+    if pure or not (tc.zero1 and tc.workers > 1):
         return [None] * len(leaves)
     specs = specs or [()] * len(leaves)
     return [zero_slice_dim(tuple(p.shape), s, tc.workers)
             for p, s in zip(leaves, specs)]
 
 
-def _model_shard(x: torch.Tensor, spec, model) -> torch.Tensor:
-    """This model rank's block of the whole leaf ``x`` (a view)."""
-    return shd.shard_leaf(x, spec, {"model": model.workers},
-                          {"model": model.first_worker})
+def _model_shard(x: torch.Tensor, spec, model, data=None) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` (a view): its model
+    index's, and its data index's on a dim split over ``data``."""
+    mesh, coords = {"model": 1, "data": 1}, {"model": 0, "data": 0}
+    for axis, g in (("model", model), ("data", data)):
+        if g is not None:
+            mesh[axis], coords[axis] = g.workers, g.first_worker
+    return shd.shard_leaf(x, spec, mesh, coords)
 
 
-def shard_params(params: ParamTree, tc: TrainConfig, model=None) -> ParamTree:
+def _gather(x: torch.Tensor, spec, model, data=None) -> torch.Tensor:
+    """The inverse of :func:`_model_shard`: ``x`` whole, gathered over
+    the model axis, then over ``data`` (every rank of both calls it)."""
+    return shd.gather_leaf(shd.gather_leaf(x, spec, model), spec, data,
+                           axis="data")
+
+
+def shard_params(params: ParamTree, tc: TrainConfig, model=None,
+                 group=None) -> ParamTree:
     """``params`` (whole) as this rank's shards, copies; ``params``
-    itself on a grid of one model rank."""
-    if _mp(model) == 1:
+    itself where nothing is split (:func:`leaf_specs`)."""
+    data = experts_group(tc, group)
+    if _mp(model) == 1 and data is None:
         return params
-    specs = leaf_specs(params, tc, model)
+    specs = leaf_specs(params, tc, model, group)
     return ParamTree(unflatten_tree([
-        (path, _model_shard(p.detach(), s, model).clone())
+        (path, _model_shard(p.detach(), s, model, data).clone())
         for path, p, s in zip(params.paths, params.leaves(), specs)]))
 
 
@@ -148,12 +203,14 @@ def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
     sliced leaf's moments."""
     check_model_axis(api.cfg, _mp(model), tc.sharding)
     params = api.init(tc.seed, device) if params is None else params
-    params = shard_params(params, tc, model)
+    params = shard_params(params, tc, model, group)
     leaves = params.leaves()
     local = tc.workers if group is None else group.local_workers
+    pure = pure_auto(tc, group)
     shapes = []
     for p, d in zip(leaves, zero1_dims(leaves, tc,
-                                       leaf_specs(params, tc, model))):
+                                       leaf_specs(params, tc, model, group),
+                                       pure)):
         shape = list(p.shape)
         if d is not None and local < tc.workers:
             shape[d] //= tc.workers
@@ -161,7 +218,7 @@ def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
     opt = opt_lib.init_opt_state(leaves, tc.optimizer, shapes)
     ccfg = tc.compression
     if tc.aggregator != "dense" and ccfg.topk_ratio is not None \
-            and ccfg.error_feedback:
+            and ccfg.error_feedback and not pure:
         residual = [torch.zeros((local,) + tuple(p.shape),
                                 dtype=torch.float32, device=p.device)
                     for p in leaves]
@@ -182,13 +239,15 @@ def state_view(state: TrainState, tc: TrainConfig, group=None,
     ZeRO-1 moment slices and its local workers' residual rows are
     gathered over ``group`` (``group.gather``, as ``apply_update``
     gathers its deltas), and on a grid the model shards over ``model``
-    (``sharding.gather_leaf``): every rank of the grid must call this
-    together. On ``LocalWorkers`` (``group`` None) the leaves are the
-    live tensors themselves."""
+    (``sharding.gather_leaf``), the experts' shards over ``group`` under
+    kimi-k2's profile: every rank of the grid must call this together.
+    On ``LocalWorkers`` (``group`` None) the leaves are the live tensors
+    themselves."""
     params = state.params
     leaves = params.leaves()
     whole = group is None or group.local_workers == group.workers
-    specs = leaf_specs(params, tc, model)
+    specs = leaf_specs(params, tc, model, group)
+    data = experts_group(tc, group)
 
     def tree(ts):
         return unflatten_tree(list(zip(params.paths, ts)))
@@ -196,21 +255,21 @@ def state_view(state: TrainState, tc: TrainConfig, group=None,
     def moment(m, p, d, s):
         if not (whole or d is None or m.shape == p.shape):
             m = group.gather([m.movedim(d, 0).contiguous()]).movedim(0, d)
-        return shd.gather_leaf(m, s, model)
+        return _gather(m, s, model, data)
 
     def rows(r, s):
         if r.numel() == 0:
             return r
         if not whole:
             r = group.gather([r])
-        return shd.gather_leaf(r, (None,) + tuple(s), model)
+        return _gather(r, (None,) + tuple(s), model, data)
 
-    dims = zero1_dims(leaves, tc, specs)
+    dims = zero1_dims(leaves, tc, specs, pure_auto(tc, group))
     opt = {k: tree([moment(m, p, d, sp) for m, p, d, sp
                     in zip(ms, leaves, dims, specs)])
            for k, ms in state.opt.items()}
     return TrainState(
-        params=tree([shd.gather_leaf(p.detach(), sp, model)
+        params=tree([_gather(p.detach(), sp, model, data)
                      for p, sp in zip(leaves, specs)]),
         opt=opt, residual=tree([rows(r, sp) for r, sp
                                 in zip(state.residual, specs)]),
@@ -229,7 +288,8 @@ def load_state_view(state: TrainState, leaves: Sequence[torch.Tensor],
                     tc: TrainConfig, group=None, model=None) -> None:
     """The inverse of :func:`state_view`: ``leaves`` (whole, on any
     device, in :func:`view_paths` order) narrowed to this rank's model
-    shard (with ``model``), this group's ZeRO-1 slice of each moment and
+    shard (with ``model``; and its data index's expert shard under
+    kimi-k2's profile), this group's ZeRO-1 slice of each moment and
     its local workers' residual rows, and copied into the live tensors in
     place (``build_train_step`` keeps references to them); ``state.step``
     set. A leaf of another shape or dtype raises."""
@@ -239,11 +299,12 @@ def load_state_view(state: TrainState, leaves: Sequence[torch.Tensor],
     if len(leaves) != want:
         raise ValueError(f"{len(leaves)} leaves for a state of {want}")
     first = 0 if group is None else group.first_worker
-    specs = leaf_specs(state.params, tc, model)
-    if _mp(model) > 1:
+    specs = leaf_specs(state.params, tc, model, group)
+    data = experts_group(tc, group)
+    if _mp(model) > 1 or data is not None:
         lead = [(None,) + tuple(sp) for sp in specs]
         per = list(specs) * (1 + len(moms)) + lead + [()]
-        leaves = [_model_shard(x, sp, model)        # not the (0,) stubs
+        leaves = [_model_shard(x, sp, model, data)   # not the (0,) stubs
                   if x.dim() == len(sp) else x
                   for x, sp in zip(leaves, per)]
     src = iter(leaves)
@@ -258,8 +319,9 @@ def load_state_view(state: TrainState, leaves: Sequence[torch.Tensor],
         for p in params:
             put(p, next(src), "param")
         for k in moms:
-            for i, (m, p, d) in enumerate(zip(state.opt[k], params,
-                                              zero1_dims(params, tc, specs))):
+            for i, (m, p, d) in enumerate(zip(
+                    state.opt[k], params,
+                    zero1_dims(params, tc, specs, pure_auto(tc, group)))):
                 x = next(src)
                 if d is not None and m.shape != p.shape:
                     blk = m.shape[d]
@@ -273,21 +335,26 @@ def load_state_view(state: TrainState, leaves: Sequence[torch.Tensor],
         state.step = int(next(src))
 
 
-def model_axis_sq_norm(grads: Sequence[torch.Tensor], specs, model
-                       ) -> torch.Tensor:
+def model_axis_sq_norm(grads: Sequence[torch.Tensor], specs, model,
+                       data=None) -> torch.Tensor:
     """The squared norm of the whole gradient from this rank's shards:
     the sharded leaves' squares summed over the model axis (one
     all-reduce), a replicated leaf's (the norms, the router) counted
-    once."""
+    once; with ``data`` (kimi-k2's experts), an expert leaf's squares
+    summed over the data ranks first (one more all-reduce)."""
     zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    sharded, replicated = zero, zero
+    sharded, replicated, experts = zero, zero, zero
     for g, sp in zip(grads, specs):
         sq = g.to(torch.float32).square().sum()
-        if any(a is not None for a in sp):
+        if data is not None and _on_data(sp):
+            experts = experts + sq
+        elif any(a is not None for a in sp):
             sharded = sharded + sq
         else:
             replicated = replicated + sq
-    return model.sum([sharded]) + replicated
+    if data is not None:
+        sharded = sharded + data.sum([experts])
+    return (sharded if model is None else model.sum([sharded])) + replicated
 
 
 def sync_replicated(grads: List[torch.Tensor], specs, model
@@ -303,9 +370,27 @@ def sync_replicated(grads: List[torch.Tensor], specs, model
             for g, sp in zip(grads, specs)]
 
 
+def expert_mean(grads: Sequence[torch.Tensor], specs, group
+                ) -> List[torch.Tensor]:
+    """A pure auto-sharded step's aggregate of this rank's gradients
+    (kimi-k2's profile on ``group``'s W data ranks): every leaf not split
+    over ``data`` averaged over the group (``dense_all_reduce``), and an
+    expert leaf's own gradient divided by W. Each rank's loss is its
+    rows' mean, and an expert's gradient already sums every rank's
+    tokens' (the layer's reduce-scatter runs backward as an all-gather),
+    so both come out as the gradient of the global batch's mean."""
+    W = group.workers
+    on = [_on_data(sp) for sp in specs]
+    rest = iter(dense_all_reduce([[g for g, o in zip(grads, on) if not o]],
+                                 group))
+    return [(g.to(torch.float32) / W).to(g.dtype) if o else next(rest)
+            for g, o in zip(grads, on)]
+
+
 def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
                  group, ocfg: opt_lib.OptimizerConfig,
-                 skip: bool = False, specs=None, model=None) -> torch.Tensor:
+                 skip: bool = False, specs=None, model=None,
+                 data=None) -> torch.Tensor:
     """The optimizer update of one step, in place; returns the grad norm.
 
     ``grads`` is the aggregate (every local worker's), or with ``skip``
@@ -314,18 +399,19 @@ def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
     leaf replicated; otherwise each local worker updates its slice with
     its slice of the moments (a rank's moments are that slice; a
     ``LocalWorkers``' are whole) and the leaf gains the gathered deltas.
-    With ``model`` (MP > 1) the leaves are shards as ``specs`` say, and
-    the norm is the whole gradient's (:func:`model_axis_sq_norm`).
+    With ``model`` (MP > 1) or ``data`` (the experts' data group) the
+    leaves are shards as ``specs`` say, and the norm is the whole
+    gradient's (:func:`model_axis_sq_norm`).
     """
     W = group.workers
     leaves = state.params.leaves()
     lr = opt_lib.lr_schedule(state.step, ocfg, leaves[0].device)
-    if _mp(model) > 1:
+    if _mp(model) > 1 or data is not None:
         if skip:
             gnorm = torch.sqrt(group.sum([model_axis_sq_norm(g, specs, model)
                                           for g in grads]))
         else:
-            gnorm = torch.sqrt(model_axis_sq_norm(grads, specs, model))
+            gnorm = torch.sqrt(model_axis_sq_norm(grads, specs, model, data))
             grads = [grads]
     elif skip:
         # each worker's aggregate is exact on its own coordinates and
@@ -394,6 +480,7 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
     ocfg = tc.optimizer
     built = {}
     ep_exchange = None
+    pure, data = pure_auto(tc, group), experts_group(tc, group)
     if not isinstance(group, LocalWorkers) and tc.ep_workers not in (1, mp):
         raise NotImplementedError(
             f"ep_workers={tc.ep_workers} on ranks with {mp} model rank(s): "
@@ -402,7 +489,9 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
             "ranks with LocalWorkers instead")
     ex_cfg = dataclasses.replace(tc.compression, ratio=2.5,
                                  topk_ratio=None, error_feedback=False)
-    if tc.ep_exchange != "none" and api.cfg.moe is not None:
+    # a pure auto-sharded step has no exchange (the reference builds one
+    # only where the EP axes are manual in the step's region)
+    if tc.ep_exchange != "none" and api.cfg.moe is not None and not pure:
         if mp > 1:
             ep_exchange = agg_lib.make_exchange(tc.ep_exchange, ex_cfg, model)
         elif tc.ep_workers > 1:
@@ -415,10 +504,11 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
         built once)."""
         leaves = params.leaves()
         if not built:
-            specs = leaf_specs(params, tc, model)
-            dims = zero1_dims(leaves, tc, specs)
+            specs = leaf_specs(params, tc, model, group)
+            dims = zero1_dims(leaves, tc, specs, pure)
             agg = agg_lib.make_aggregator(
-                tc.aggregator if W > 1 else "dense", tc.compression, group)
+                tc.aggregator if W > 1 and not pure else "dense",
+                tc.compression, group)
             if wire_plan is not None and \
                     not isinstance(agg, agg_lib.DenseAggregator):
                 agg = dataclasses.replace(agg, wire_plan=wire_plan)
@@ -437,7 +527,7 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
         def loss_grads(b):
             # the backward too: a checkpointed block's recompute runs
             # the model axis's collectives again
-            with model_region(model):
+            with model_region(model, experts=data):
                 loss, metrics = api.loss(params.tree(), b, remat=tc.remat,
                                          ep_exchange=ep_exchange)
                 grads = torch.autograd.grad(loss, leaves)
@@ -462,29 +552,47 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
         return loss_sum * inv, metrics, [g * inv for g in acc]
 
 
+    def rows(batch, w, B):
+        """Worker w's rows of the global batch: ``[w·B/W, (w+1)·B/W)``;
+        under a pure auto-sharded step with microbatches, its share of
+        each microbatch (the reference's microbatch a is the global rows
+        ``[a·B/A, (a+1)·B/A)``, split over the data ranks), in
+        microbatch order."""
+        A = tc.accum_steps
+        if not pure or A <= 1:
+            per = B // W
+            return {k: v[w * per:(w + 1) * per] for k, v in batch.items()}
+        if B % (A * W):
+            raise ValueError(f"global batch {B} does not split into {A} "
+                             f"microbatches over {W} workers")
+        idx = torch.arange(B).reshape(A, W, B // (A * W))[:, w].reshape(-1)
+        return {k: v[idx.to(v.device)] for k, v in batch.items()}
+
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
         B = batch["tokens"].shape[0]
         if B % W:
             raise ValueError(f"global batch {B} does not split over {W} workers")
-        per = B // W
         losses, metrics_w, grads_w = [], [], []
         for w in range(group.first_worker,
                        group.first_worker + group.local_workers):
-            loss, metrics, grads = local_grads(
-                state.params, {k: v[w * per:(w + 1) * per] for k, v in batch.items()})
+            loss, metrics, grads = local_grads(state.params, rows(batch, w, B))
             losses.append(loss)
             metrics_w.append(metrics)
             grads_w.append(grads)
         aggregator, dims, skip, specs = aggregator_for(state.params)
         with torch.no_grad():
-            grads, agg_state = aggregator(
-                grads_w, AggregationState(residual=state.residual))
+            if data is not None:
+                grads = expert_mean(grads_w[0], specs, group)
+                agg_state = AggregationState(residual=state.residual)
+            else:
+                grads, agg_state = aggregator(
+                    grads_w, AggregationState(residual=state.residual))
             del grads_w
             if mp > 1 and not isinstance(aggregator, agg_lib.DenseAggregator):
                 grads = ([sync_replicated(g, specs, model) for g in grads]
                          if skip else sync_replicated(grads, specs, model))
             gnorm = apply_update(state, grads, dims, group, ocfg, skip,
-                                 specs=specs, model=model)
+                                 specs=specs, model=model, data=data)
         stats = agg_state.stats
         names = list(metrics_w[0])    # one reduction for the loss and metrics
         mean = group.sum([torch.stack([l, *(m[k] for k in names)])

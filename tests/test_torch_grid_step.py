@@ -48,15 +48,39 @@ references:
   port's own step on ``LocalWorkers(2)`` in the parent: losses and grad
   norms at rtol 1e-5, parameters at rtol 1e-5 with atol 1e-6 of the
   leaf's largest entry, as the dense step above.
+- **kimi-k2's profile** (smoke config; experts over the data ranks,
+  4 a rank, their ``d_ff`` over the model ranks, no manual DP axes):
+  the loss, metrics and the gathered gradients of the global batch of
+  8 rows (each data rank's 4 rows through the layers' token all-gather
+  and reduce-scatter, then ``train.step.expert_mean``) and the grad norm
+  from the shards, held to the reference's unsharded
+  ``jax.value_and_grad`` over the whole batch at the model-axis test's
+  tolerances (rtol 1e-5; gradients atol 1e-5 of the leaf's largest
+  entry), at the config's capacity factor and at 0.5, where tokens
+  drop: there the reference's loss over each half of the batch routed
+  alone differs from the whole batch's by more than 1e-4 relative (10x
+  the hold's rtol; 7.4e-4 on these inputs), so a per-rank capacity
+  would miss. And 3 steps of the config's train
+  settings (``dense``, momentum, 2 microbatches, ``block`` remat, the
+  clip at 1.0) held to the reference's own pure auto-sharded step on the
+  (data 2, model 2) mesh in the dense step's subprocess, with the
+  config's bf16 momentum and with an f32 one: losses and grad norms at
+  rtol 1e-5, and at the f32 state the parameters at rtol 1e-5 with atol
+  1e-6 of the leaf's largest entry (the bf16 state rounds gradients that
+  differ in their last f32 bits to neighbouring bf16 moments: 1.6e-6
+  apart on ``embed`` after 3 steps); the layout-free view gathers the
+  expert shards over the data ranks, and loaded into a fresh state on
+  the grid it gives the same view back bit for bit.
 - **the checkpoint**: the layout-free state of 2 steps on the grid
   (granite smoke, compressed with top-k, EF and ZeRO-1) loads into
   ``LocalWorkers(2)`` and gives back the same view; the view of 2 steps
   on ``LocalWorkers(2)`` loads into the grid and gives back the same
   view; all bit for bit.
 
-Off the grid: the unported families (ssm, hybrid) and kimi-k2's
-profile raise ``NotImplementedError`` under MP > 1, and an indivisible
-head count ``ValueError``; vlm and encdec pass the check.
+Off the grid: every one of the ten smoke configs passes
+``check_model_axis`` at MP 2 under its own profile; a profile of another
+layout raises ``NotImplementedError``, and a query-head or Mamba-head
+count that MP does not divide ``ValueError``.
 """
 import concurrent.futures
 import dataclasses
@@ -82,8 +106,12 @@ from repro_torch.models.registry import model_api
 from repro_torch.parallel import sharding as shd
 from repro_torch.train.config import TrainConfig
 from repro_torch.train.optimizer import OptimizerConfig
-from repro_torch.train.step import (build_train_step, init_train_state,
-                                    load_state_view, state_view)
+from repro_torch.parallel.hints import model_region
+from repro_torch.train.step import (build_train_step, expert_mean,
+                                    experts_group, init_train_state,
+                                    leaf_specs, load_state_view,
+                                    model_axis_sq_norm, shard_params,
+                                    state_view)
 
 B, S = 8, 32
 GRANITE = get_arch("granite-3-2b")
@@ -115,6 +143,18 @@ FAMILIES = {"internvl": get_arch("internvl2-2b").smoke,
             "whisper": dataclasses.replace(get_arch("whisper-tiny").smoke,
                                            enc_seq=100)}
 FAMILY_TC = dataclasses.replace(DENSE_TC, remat="block")
+# kimi-k2's profile: its train settings, 2 microbatches, lr 1e-2 from step
+# 1; the steps run with the config's bf16 momentum and with an f32 one
+KIMI = get_arch("kimi-k2-1t-a32b")
+KIMI_TC = dataclasses.replace(KIMI.train, workers=2, accum_steps=2,
+                              remat="block", optimizer=OptimizerConfig(
+                                  kind="momentum", state_dtype="bfloat16",
+                                  lr=1e-2, warmup_steps=0, total_steps=100))
+KIMI_STEPS = {"kimi_step": "float32", "kimi_step_bf16": "bfloat16"}
+# the value_and_grad holds: the config's capacity factor, and 0.5 (drops)
+KIMI_CASES = {"kimi": KIMI.smoke,
+              "kimi_drop": dataclasses.replace(KIMI.smoke, moe=dataclasses.replace(
+                  KIMI.smoke.moe, capacity_factor=0.5))}
 
 
 def _batch(cfg, seed):
@@ -160,8 +200,11 @@ def _train(mesh, device, cfg, tc, np_params, batch, steps):
 
 
 def _view(state, tc, mesh):
+    """The state's layout-free view as numpy (a bf16 moment as f32, which
+    holds it exactly)."""
     v = state_view(state, tc, mesh.data, mesh.model)
-    return [t.detach().numpy().copy() for _, t in
+    return [(t.detach().float() if t.dtype == torch.bfloat16 else t.detach())
+            .numpy().copy() for _, t in
             flatten_tree({"opt": v.opt, "params": v.params,
                           "residual": v.residual})]
 
@@ -193,6 +236,33 @@ def _aggregate(mesh, grads_steps):
     return steps
 
 
+def _kimi_grads(mesh, device, cfg, np_params, batch):
+    """kimi's loss and gradient of the global batch on the grid: this
+    data index's rows through the layers, the expert-parallel mean, the
+    gradients gathered whole -> (loss, metrics, {path: grad}, norm)."""
+    api = model_api(cfg)
+    params = shard_params(params_from_jax(np_params, device), KIMI_TC,
+                          mesh.model, mesh.data)
+    specs = leaf_specs(params, KIMI_TC, mesh.model, mesh.data)
+    data = experts_group(KIMI_TC, mesh.data)
+    per, d = B // 2, mesh.coords["data"]
+    rows = {k: v[d * per:(d + 1) * per]
+            for k, v in _torch_batch(batch, device).items()}
+    with model_region(mesh.model, experts=data):
+        loss, metrics = api.loss(params.tree(), rows, remat="none")
+        grads = torch.autograd.grad(loss, params.leaves())
+    grads = expert_mean(grads, specs, mesh.data)
+    names = list(metrics)
+    mean = mesh.data.sum([torch.stack([loss.detach()] + [metrics[k].detach()
+                                                         for k in names])]) / 2
+    whole = {p: shd.gather_leaf(shd.gather_leaf(g, s, mesh.model), s,
+                                mesh.data, axis="data").numpy()
+             for p, g, s in zip(params.paths, grads, specs)}
+    norm = torch.sqrt(model_axis_sq_norm(grads, specs, mesh.model, data))
+    return (mean[0].item(), dict(zip(names, mean[1:].tolist())), whole,
+            norm.item())
+
+
 def _rank(mesh, device, inputs):
     out = {"coords": mesh.coords}
     g_params, g_batch = inputs["granite"]
@@ -218,6 +288,25 @@ def _rank(mesh, device, inputs):
         losses, norms, state = _train(mesh, device, cfg, FAMILY_TC,
                                       *inputs[name], 2)
         out[name] = (losses, norms, _view(state, FAMILY_TC, mesh))
+    for name, cfg in KIMI_CASES.items():
+        out[name] = _kimi_grads(mesh, device, cfg, *inputs["kimi"])
+    for name, sdt in KIMI_STEPS.items():
+        tc = dataclasses.replace(KIMI_TC, optimizer=dataclasses.replace(
+            KIMI_TC.optimizer, state_dtype=sdt))
+        losses, norms, state = _train(mesh, device, KIMI.smoke, tc,
+                                      *inputs["kimi"], 3)
+        view = _view(state, tc, mesh)
+        # the view loaded into a fresh state on the grid gives it back
+        fresh = init_train_state(model_api(KIMI.smoke), tc, device,
+                                 params_from_jax(inputs["kimi"][0], device),
+                                 group=mesh.data, model=mesh.model)
+        load_state_view(fresh, _view_leaves(state_view(state, tc, mesh.data,
+                                                       mesh.model)),
+                        tc, mesh.data, mesh.model)
+        again = _view(fresh, tc, mesh)
+        out[name] = (losses, norms, view,
+                     [tuple(p.shape) for p in state.params.leaves()],
+                     all(np.array_equal(a, b) for a, b in zip(view, again)))
     # checkpoints across layouts
     _, _, state = _train(mesh, device, GRANITE.smoke, CKPT_TC, g_params,
                          g_batch, 2)
@@ -290,7 +379,7 @@ _REFERENCE_DENSE = textwrap.dedent('''
 
     mesh = make_mesh((2, 2), ("data", "model"))
 
-    def run(arch, remat, steps, src, dst, enc_seq=None):
+    def run(arch, remat, steps, src, dst, enc_seq=None, kimi=None):
         data = np.load(src)
         tree, batch = {}, {}
         for key in data.files:
@@ -311,6 +400,12 @@ _REFERENCE_DENSE = textwrap.dedent('''
                                                    warmup_steps=0,
                                                    total_steps=100),
                          sharding=ShardingProfile(zero1=True))
+        if kimi:     # the arch's own settings and profile: a pure-auto step
+            tc = dataclasses.replace(
+                get_arch(arch).train, remat=remat, accum_steps=2,
+                optimizer=OptimizerConfig(kind="momentum", lr=1e-2,
+                                          warmup_steps=0, total_steps=100,
+                                          state_dtype=kimi))
         state = init_train_state(api, tc, mesh, jax.random.PRNGKey(0))
         state = dataclasses.replace(state, params=tree)
         step_fn, specs = build_train_step(api, tc, mesh)(state)
@@ -405,6 +500,32 @@ def _reference_aggregate(ranks):
     return out
 
 
+def _reference_grads(cfg, np_params, batch):
+    """The reference's loss, metrics, gradients and grad norm of the
+    whole batch on one device, and its loss over each half of the batch
+    routed alone (the per-rank capacity a data split would give)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch as j_get_arch
+    from repro.models import model_api as j_model_api
+
+    jcfg = dataclasses.replace(j_get_arch(cfg.name).smoke, moe=dataclasses.replace(
+        j_get_arch(cfg.name).smoke.moe, capacity_factor=cfg.moe.capacity_factor))
+    japi = j_model_api(jcfg)
+    jp = jax.tree.map(jnp.asarray, np_params)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    loss = jax.jit(lambda p, b: japi.loss(p, b))
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p: japi.loss(p, jb), has_aux=True))(jp)
+    halves = [float(loss(jp, {k: v[h * B // 2:(h + 1) * B // 2]
+                              for k, v in jb.items()})[0]) for h in range(2)]
+    return {"loss": float(jl), "metrics": {k: float(v) for k, v in jm.items()},
+            "grads": dict(flatten_tree(jax.tree.map(np.asarray, jg))),
+            "norm": float(jnp.sqrt(sum(jnp.sum(jnp.square(g))
+                                       for g in jax.tree.leaves(jg)))),
+            "halves_loss": float(np.mean(halves))}
+
+
 @pytest.fixture(scope="module")
 def grid(tmp_path_factory):
     from repro_torch.launch.ranks import spawn_ranks
@@ -419,6 +540,8 @@ def grid(tmp_path_factory):
     for i, (name, cfg) in enumerate(FAMILIES.items()):
         inputs[name] = (params_to_numpy(model_api(cfg).init(4 + i, "cpu")),
                         _batch(cfg, 4 + i))
+    inputs["kimi"] = (params_to_numpy(model_api(KIMI.smoke).init(6, "cpu")),
+                      _batch(KIMI.smoke, 6))
     local_listed, local_leaves = _local_ckpt(*inputs["granite"])
     inputs["ckpt_local"] = [t.numpy() for t in local_leaves]
     inputs["aggregate"] = _shard_grads()
@@ -431,13 +554,20 @@ def grid(tmp_path_factory):
         for name, cfg in FAMILIES.items():
             enc_seq = cfg.enc_seq if cfg.family == "encdec" else None
             cases[name] = (cfg.name, FAMILY_TC.remat, 2, enc_seq) + inputs[name]
+        for name in KIMI_STEPS:
+            cases[name] = (KIMI.smoke.name, KIMI_TC.remat, 3, None) \
+                + inputs["kimi"]
         ref = ex.submit(_reference_dense, tmp, cases)
+        kimi = {name: _reference_grads(cfg, *inputs["kimi"])
+                for name, cfg in KIMI_CASES.items()}
         agg = [_reference_aggregate([inputs["aggregate"][d * 2 + t]
                                      for d in range(2)]) for t in range(2)]
         families = {name: _local_family(cfg, *inputs[name])
                     for name, cfg in FAMILIES.items()}
         ref = ref.result()
         return {"ranks": fut.result(), "ref_dense": ref.pop("granite"),
+                "ref_kimi_steps": {n: ref.pop(n) for n in KIMI_STEPS},
+                "ref_kimi": kimi,
                 "ref_families": ref,
                 "ref_aggregate": agg, "inputs": inputs,
                 "local_listed": local_listed, "families": families}
@@ -488,6 +618,60 @@ def test_family_step_on_2x2_grid_matches_local_step_and_reference(grid, name):
             np.testing.assert_allclose(got[path], want, rtol=1e-5,
                                        atol=1e-6 * np.abs(want).max(),
                                        err_msg=str(path))
+
+
+@pytest.mark.parametrize("name", list(KIMI_CASES))
+def test_kimi_profile_gradient_is_the_global_batch_reference(grid, name):
+    ref = grid["ref_kimi"][name]
+    got = [r[name] for r in grid["ranks"]]
+    for loss, metrics, grads, norm in got[1:]:
+        assert loss == got[0][0] and norm == got[0][3]
+    loss, metrics, grads, norm = got[0]
+    np.testing.assert_allclose(loss, ref["loss"], rtol=1e-5)
+    for k, v in ref["metrics"].items():
+        np.testing.assert_allclose(metrics[k], v, rtol=1e-5, atol=1e-7)
+    assert set(grads) == set(ref["grads"])
+    for path, want in ref["grads"].items():
+        np.testing.assert_allclose(grads[path], want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=str(path))
+        for r in got[1:]:
+            np.testing.assert_array_equal(r[2][path], grads[path])
+    np.testing.assert_allclose(norm, ref["norm"], rtol=1e-6)
+    if name == "kimi_drop":
+        # tokens drop: the batch's halves routed alone give another loss
+        # (7.4e-4 relative on these inputs, 74x the hold's rtol)
+        assert abs(ref["halves_loss"] - ref["loss"]) > 1e-4 * abs(ref["loss"])
+
+
+@pytest.mark.parametrize("name", list(KIMI_STEPS))
+def test_kimi_profile_step_matches_reference_pure_auto_step(grid, name):
+    want_losses, want_norms, want_params = grid["ref_kimi_steps"][name]
+    views = [r[name] for r in grid["ranks"]]
+    assert all(v[4] for v in views)            # the view reloads exactly
+    for losses, norms, view, _, _ in views[1:]:
+        assert losses == views[0][0] and norms == views[0][1]
+        for a, b in zip(view, views[0][2]):
+            np.testing.assert_array_equal(a, b)
+    losses, norms, view, shapes, _ = views[0]
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    np.testing.assert_allclose(norms, want_norms, rtol=1e-5)
+    assert losses[-1] != losses[0]
+    paths = [p for p, _ in flatten_tree(grid["inputs"]["kimi"][0])]
+    n_opt = len(view) - 2 * len(paths)
+    got = dict(zip(paths, view[n_opt:n_opt + len(paths)]))
+    # a bf16 moment rounds gradients that differ in their last f32 bits
+    # to neighbouring bf16 values (one ulp, 2^-8 of the moment): the
+    # parameters are held at the f32 state only
+    for path in (paths if KIMI_STEPS[name] == "float32" else ()):
+        want = want_params[path]
+        np.testing.assert_allclose(got[path], want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max(),
+                                   err_msg=str(path))
+    # each rank held 4 of 8 experts, 64 of 128 of their d_ff
+    local = dict(zip(paths, shapes))
+    assert local[("layers", "moe", "we_gate")] == (2, 4, 128, 64)
+    assert local[("layers", "moe", "we_down")] == (2, 4, 64, 128)
 
 
 def test_shard_local_compressed_aggregate_matches_composed_reference(grid):
@@ -558,24 +742,44 @@ def test_checkpoint_round_trips_across_layouts(grid):
 
 
 def test_model_axis_refuses_unported_families_and_layouts():
+    from repro_torch.configs import list_archs
     from repro_torch.models.transformer import check_model_axis
+    from repro_torch.parallel.sharding import ShardingProfile
 
-    for name in ("mamba2-1.3b", "jamba-v0.1-52b"):
+    # every smoke config passes at MP 2 under its own profile, kimi's too
+    names = list_archs()
+    assert len(names) == 10 and "kimi-k2-1t-a32b" in names
+    for name in names:
         arch = get_arch(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            check_model_axis(arch.smoke, 2, arch.profile)
+        check_model_axis(arch.smoke, 2, arch.profile)
         check_model_axis(arch.smoke, 1, arch.profile)        # no model axis
-        group = type("G", (), {"workers": 2, "first_worker": 0})()
+    # a layout other than the default's or kimi's
+    group = type("G", (), {"workers": 2, "first_worker": 0})()
+    for prof in (ShardingProfile(ep_axes=("data",)),
+                 ShardingProfile(ep_ff_axis="model"),
+                 ShardingProfile(dp_axes=(), ep_axes=("data",)),
+                 ShardingProfile(vocab_axis=None)):
+        with pytest.raises(NotImplementedError, match="profile"):
+            check_model_axis(DEEPSEEK.smoke, 2, prof)
         with pytest.raises(NotImplementedError, match="model_parallel=2"):
-            build_train_step(model_api(arch.smoke),
-                             dataclasses.replace(arch.train, workers=1),
+            build_train_step(model_api(DEEPSEEK.smoke),
+                             dataclasses.replace(DEEPSEEK.train, workers=1,
+                                                 sharding=prof),
                              model=group)
-    kimi = get_arch("kimi-k2-1t-a32b")
-    with pytest.raises(NotImplementedError, match="profile"):
-        check_model_axis(kimi.smoke, 2, kimi.profile)
-    for name in ("granite-3-2b", "deepseek-moe-16b", "qwen2-7b",
-                 "internvl2-2b", "whisper-tiny"):
-        check_model_axis(get_arch(name).smoke, 2, get_arch(name).profile)
-    odd = dataclasses.replace(GRANITE.smoke, n_heads=6, n_kv_heads=3)
-    with pytest.raises(ValueError, match="n_kv_heads 3"):
+    # query heads MP does not divide (the reference's uneven head split)
+    odd = dataclasses.replace(GRANITE.smoke, n_heads=3, n_kv_heads=3,
+                              head_dim=32)
+    with pytest.raises(ValueError, match="n_heads 3"):
         check_model_axis(odd, 2)
+    # KV heads MP does not divide are fine (their columns are gathered)
+    check_model_axis(dataclasses.replace(GRANITE.smoke, n_heads=6,
+                                         n_kv_heads=3, head_dim=32), 2)
+    # Mamba heads MP does not divide: 3 heads of 16 (d_inner 48)
+    mamba = get_arch("mamba2-1.3b")
+    odd_ssm = dataclasses.replace(mamba.smoke, d_model=24)
+    with pytest.raises(ValueError, match="ssm n_heads 3"):
+        check_model_axis(odd_ssm, 2, mamba.profile)
+    jamba = get_arch("jamba-v0.1-52b")
+    with pytest.raises(ValueError, match="ssm n_heads 3"):
+        check_model_axis(dataclasses.replace(jamba.smoke, d_model=24), 2,
+                         jamba.profile)

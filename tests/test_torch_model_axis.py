@@ -24,7 +24,15 @@ parameters and batch, computed while the ranks run:
 - whisper-tiny's smoke config (the encdec family: the encoder's
   self-attention, the cross-attention and both GELU MLPs on their
   shards, the tied head vocab-parallel) at 100 frames, so the encoder
-  runs two query blocks of 64, with ``remat="block"``.
+  runs two query blocks of 64, with ``remat="block"``;
+- mamba2-1.3b's smoke config (the ssm family: 16 Mamba heads, 8 a rank;
+  ``wB``, ``wC``, the conv and the gated norm's scale replicated, the
+  norm's mean over the whole ``d_inner``), with ``remat="block"``;
+- jamba-v0.1-52b's smoke config (the hybrid superblock: attention, MoE
+  and Mamba positions on their shards), with ``remat="block"``;
+- granite's smoke config with 6 heads and 3 KV heads of 32 (MP 2 does
+  not divide the KV heads: each rank holds 1.5 of them, gathered whole
+  before RoPE).
 
 Tolerances: the loss and its metrics at rtol 1e-5; the gradients at
 rtol 1e-5 with atol 1e-5 of the leaf's largest entry. The same f32 math
@@ -33,15 +41,22 @@ gradients through ``copy_to_model`` and the vocab ``logsumexp`` add
 their two halves last. The readings: at most 9.2e-7 of the leaf's
 largest entry (``embed`` and the attention projections), where
 ``test_torch_train``'s elementwise atol 1e-7 leaves out a few entries
-near zero on ``embed`` (2.7e-7 absolute at most). The grad norm
+near zero on ``embed`` (2.7e-7 absolute at most); the Mamba cases'
+``A_log`` 3.8e-6 (mamba2) and 5.3e-6 (jamba) of its largest entry, where
+the port's unsharded gradient is already 4.2e-6 / 5.9e-6 off the
+reference's (the same f32 sums in other orders through ``exp``), and
+granite with 3 KV heads 8.6e-7. The grad norm
 (``train.step.model_axis_sq_norm`` from the shards) at rtol 1e-6 of
 ``jnp.sqrt`` of the sum of squares of the reference's gradient. Every
 replicated leaf's gradient (the norm scales, the router) is equal bit
-for bit on the two ranks, and so is the loss.
+for bit on the two ranks (the Mamba cases' ``wB``, ``wC``, conv and
+norm scale too: their shard-local gradients summed over the axis), and
+so is the loss.
 
 The launcher: ``--procs 4 --model-parallel 2`` trains granite's smoke
-config on a 2 x 2 grid, and ``--model-parallel 2`` without ``--procs``
-is an argument error.
+config on a 2 x 2 grid (and internvl2-2b, whisper-tiny, mamba2-1.3b and
+kimi-k2 under its own profile), and ``--model-parallel 2`` without
+``--procs`` is an argument error.
 """
 import dataclasses
 
@@ -74,6 +89,10 @@ def _cases():
         ("internvl", get_arch("internvl2-2b").smoke, "block"),
         ("whisper", dataclasses.replace(get_arch("whisper-tiny").smoke,
                                         enc_seq=100), "block"),
+        ("mamba2", get_arch("mamba2-1.3b").smoke, "block"),
+        ("jamba", get_arch("jamba-v0.1-52b").smoke, "block"),
+        ("granite_kv3", dataclasses.replace(granite, n_heads=6, n_kv_heads=3,
+                                            head_dim=32), "none"),
     ]
 
 
@@ -157,7 +176,9 @@ def _reference(cfg, np_params, batch):
 
     jcfg = dataclasses.replace(j_get_arch(cfg.name).smoke, vocab=cfg.vocab,
                                tie_embeddings=cfg.tie_embeddings,
-                               enc_seq=cfg.enc_seq)
+                               enc_seq=cfg.enc_seq, n_heads=cfg.n_heads,
+                               n_kv_heads=cfg.n_kv_heads,
+                               head_dim=cfg.head_dim)
     japi = j_model_api(jcfg)
     jp = jax.tree.map(jnp.asarray, np_params)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -202,6 +223,9 @@ def test_replicated_gradients_equal_across_model_ranks(runs, name):
         np.testing.assert_array_equal(rep0[path], rep1[path], err_msg=str(path))
     if name == "deepseek":
         assert ("layers", "moe", "router") in rep0
+    if name == "mamba2":
+        assert {("layers", "mamba", k) for k in ("wB", "wC", "conv_w",
+                                                 "conv_b")} <= set(rep0)
 
 
 def test_shards_are_the_profile_split(runs):
@@ -216,6 +240,15 @@ def test_shards_are_the_profile_split(runs):
     assert ds[("layers", "moe", "we_gate")][:2] == (2, 4)  # 4 of 8 experts
     assert ds[("layers", "moe", "router")] == (2, 128, 8)
     assert "bq" in dict((p[-1], 0) for p in got[0]["qwen2"]["local_shapes"])
+    kv3 = got[0]["granite_kv3"]["local_shapes"]
+    assert kv3[("layers", "attn", "wq")] == (2, 128, 96)     # 3 of 6 heads
+    assert kv3[("layers", "attn", "wk")] == (2, 128, 48)     # 1.5 KV heads
+    mb = got[0]["mamba2"]["local_shapes"]
+    assert mb[("layers", "mamba", "wx")] == (2, 128, 128)    # 8 of 16 heads
+    assert mb[("layers", "mamba", "A_log")] == (2, 8)
+    assert mb[("layers", "mamba", "wo")] == (2, 128, 128)
+    assert mb[("layers", "mamba", "conv_w")] == (2, 4, 288)  # replicated
+    assert mb[("layers", "mamba", "wB")] == (2, 128, 16)
 
 
 def test_launcher_trains_on_a_grid_and_refuses_a_lone_model_axis(tmp_path,
@@ -247,4 +280,21 @@ def test_launcher_trains_vlm_and_encdec_on_a_grid(arch):
         "--device", "cpu", "--timeout", "300"])
     assert (summary["workers"], summary["model_parallel"]) == (2, 2)
     assert summary["final_step"] == 2
+    assert all(np.isfinite(summary["losses"]))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "kimi-k2-1t-a32b"])
+def test_launcher_trains_ssm_and_kimi_profile_on_a_grid(arch):
+    """The ssm family (Mamba heads on the model axis) and kimi-k2's
+    profile (experts over the data ranks, the dense pure-auto step)
+    through the launcher on a 2 x 2 grid."""
+    from repro_torch.launch import train as launcher
+
+    summary = launcher.main([
+        "--arch", arch, "--smoke", "--procs", "4", "--model-parallel", "2",
+        "--steps", "2", "--global-batch", "4", "--seq-len", "16",
+        "--device", "cpu", "--timeout", "300"])
+    assert (summary["workers"], summary["model_parallel"]) == (2, 2)
+    assert summary["final_step"] == 2
+    assert summary["aggregator"] == get_arch(arch).train.aggregator
     assert all(np.isfinite(summary["losses"]))
