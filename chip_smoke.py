@@ -369,7 +369,8 @@ freed):
     2048, 16 / 8 heads, d_ff 8192, vocab 92553), depth 24 -> 4, each row
     256 visual tokens from ``batch_fn`` before its 1024 text tokens, the
     loss over the text positions only.
-39. ssm_serve — mamba2-1.3b whole (48 layers) through phase 34's
+39. ssm_serve — mamba2-1.3b at full width, depth 48 -> 24 (it served the
+    whole model before; the cut pays for ``dist_serve``) through phase 34's
     ``serve_model``: ``generate`` on 8 prompts of 512 tokens, 64 new; the
     batcher over 16 requests in 8 slots (the batch is axis 1 of every
     cache leaf); the logit checks and the batch-1 check; the decode bound
@@ -435,6 +436,24 @@ The model axis (after phase 42, its memory freed):
     power limit, step ms, peak memory a rank and the card's (polled over
     the phase and over each arm), the launches a rank, and the last
     step's model-axis collectives replayed alone (ms and bytes a rank).
+43b. dist_serve — serving on the same grid, in the same spawn after
+    ``dist_model``'s arms, through ``serve.steps``' grid steps at full
+    width, 16 greedy tokens an arm: granite-3-2b at depth 4 in f32 with
+    B 8 x 512 (the batch over ``data``, the KV cache's sequence over
+    ``model``) and B 1 x 4,096 (the sequence over all four ranks),
+    mamba2-1.3b at depth 12, deepseek-moe-16b at depth 1 and whisper-tiny
+    whole in f32, granite whole in bf16 for the times. Before the spawn
+    (``dist_serve_ref``) the unsharded ``ServeEngine`` on the card writes
+    each arm's tokens, logits and prefill cache under ``build/``. Holds
+    on every rank, f32 arms: the tokens equal the engine's, the logits at
+    every step and the cache block after the prefill within
+    ``SERVE_LOGITS_ATOL[arch]["grid_f32"]``, Mamba's conv state the same
+    bytes on the model ranks of a data index; no codec launch. Prints
+    prefill ms, decode ms a step against the bound of the four ranks'
+    weights and caches, the groups' collectives a step replayed alone,
+    peak memory a rank and the card's, the bf16 arm's tokens equal to
+    the engine's, and the dry run's argument bytes and peak for the
+    granite B 8 decode against rank 0's.
 
 The long-sequence shapes (after phase 43, its memory freed; every
 training and prefill attention above is blockwise too,
@@ -473,7 +492,7 @@ phases', the MoE trains' and phases 37-38's, 41's and 44's too), ``dist_train``'
 with their ``kernels_a2a`` times under ``a2a``, rows 1, 2 and 4 with
 their ``kernels_elastic`` times under ``elastic`` and every row's
 launches on each ``elastic`` arm, in phases 31-33 (``dist_ckpt``'s
-ranks summed) and in phases 34-36, 39-40, 42 and 45 (0), for the three
+ranks summed) and in phases 34-36, 39-40, 42, 43b and 45 (0), for the three
 peel kernels the rounds histogram, for
 the three encode kernels the phase stamps; a peel kernel below 48
 resident warps an SM, or an encode kernel below 32, fails the run), the
@@ -4237,15 +4256,15 @@ ATTN_LOGITS_ATOL = {
     "batcher_vs_generate": 0.125,
     "batcher_vs_batch1": 0.125,
 }
-# Phases 39-40 (mamba2-1.3b whole, jamba-v0.1-52b one superblock): the
-# same checks. The decode recurrence and the prefill's chunked scan sum
-# the state in different orders in f32, and each layer's output rounds
-# to bf16 before the next. Read on an H100 80GB HBM3 at 700 W, the same
-# in two runs, with the logits' max |logit| 2.8-3.6: mamba2 decode vs
-# prefill 0.088, the first wave 0.0, the second wave 0.072; jamba decode
-# vs prefill 0.176 (its MoE layers at E / K, no token dropped). Each
-# bound is 2.8x or more above its reading and a sixth or less of the
-# logits' max.
+# Phases 39-40 (mamba2-1.3b, read whole, now at depth 24; jamba-v0.1-52b
+# one superblock): the same checks. The decode recurrence and the
+# prefill's chunked scan sum the state in different orders in f32, and
+# each layer's output rounds to bf16 before the next. Read on an H100 80GB
+# HBM3 at 700 W, the same in two runs, with the logits' max |logit|
+# 2.8-3.6: mamba2 decode vs prefill 0.088, the first wave 0.0, the second
+# wave 0.072; jamba decode vs prefill 0.176 (its MoE layers at E / K, no
+# token dropped). Each bound is 2.8x or more above its reading and a sixth
+# or less of the logits' max.
 SSM_LOGITS_ATOL = {"consistency": 0.25, "batcher_vs_generate": 0.125,
                    "batcher_vs_batch1": 0.25}
 HYBRID_LOGITS_ATOL = {"consistency": 0.5}
@@ -4592,6 +4611,7 @@ def phase_serve_consistency(dev):
 # ----------------------------------------------------------------------
 
 SSM_ARCH, SSM_TRAIN_LAYERS = "mamba2-1.3b", 12
+SSM_SERVE_LAYERS = 24     # of mamba2-1.3b's 48: ssm_serve's depth
 VLM_ARCH, VLM_TRAIN_LAYERS = "internvl2-2b", 4
 HYBRID_ARCH, HYBRID_SERVE_LAYERS = "jamba-v0.1-52b", 8    # one superblock
 # whisper-tiny whole (4 + 4 layers); 448 decoder tokens, Whisper's
@@ -5273,7 +5293,7 @@ def _unsharded_loss(api, tc, dev, data, model, rank):
     return loss
 
 
-def dist_model_rank(mesh, dev):
+def dist_model_rank(mesh, dev, serve_ref_dir):
     """One rank of ``dist_model`` on its grid (``mesh``: a ``RankMesh``),
     every arm of :data:`DIST_MODEL_ARMS` in turn (:func:`_dist_model_arm`)
     on the global batch's rows of this rank's data index; on the arms of
@@ -5346,6 +5366,9 @@ def dist_model_rank(mesh, dev):
     arm["model_axis"] = replay_collectives(log, log.step_calls, dev,
                                            staging=True)
     out["arms"][f"{arch_name}/{tc.aggregator}/none@{wide.shape['data']}x{mp}"] = arm
+    del wide
+    torch.cuda.empty_cache()
+    out["serve"] = dist_serve_rank(mesh, dev, serve_ref_dir)
     return out
 
 
@@ -5358,7 +5381,7 @@ def _card_peak(stop, peak):
         stop.wait(0.25)
 
 
-def phase_dist_model(dev, emulated):
+def phase_dist_model(dev, emulated, serve_ref_dir):
     """A grid of ``WORKERS`` data-parallel x ``MODEL_PARALLEL`` model
     ranks, 4 gloo ranks sharing ``cuda:0`` (host-staged, as
     ``dist_train``): each arm of :data:`DIST_MODEL_ARMS` trains
@@ -5406,9 +5429,9 @@ def phase_dist_model(dev, emulated):
     poller.start()
     t0 = time.perf_counter()
     try:
-        outs = spawn_ranks(dist_model_rank, WORKERS * MODEL_PARALLEL, (),
-                           device="cuda", model_parallel=MODEL_PARALLEL,
-                           timeout=DIST_TIMEOUT)
+        outs = spawn_ranks(dist_model_rank, WORKERS * MODEL_PARALLEL,
+                           (serve_ref_dir,), device="cuda",
+                           model_parallel=MODEL_PARALLEL, timeout=DIST_TIMEOUT)
     finally:
         stop.set()
         poller.join()
@@ -5523,9 +5546,347 @@ def phase_dist_model(dev, emulated):
         raise AssertionError(f"dist_model: losses off: against the emulated "
                              f"trains and the unsharded loss {rel}, moe "
                              f"{moe_rel}")
-    return {key: {k: sum(o["arms"][key]["launches"][k] for o in outs)
-                  for k in outs[0]["arms"][key]["launches"]}
-            for key in outs[0]["arms"]}
+    return ({key: {k: sum(o["arms"][key]["launches"][k] for o in outs)
+                   for k in outs[0]["arms"][key]["launches"]}
+             for key in outs[0]["arms"]}, [o["serve"] for o in outs])
+
+
+# ----------------------------------------------------------------------
+# Serving on the grid (dist_serve): the dist_model ranks, after its arms
+# ----------------------------------------------------------------------
+
+# (name, arch, depth (None: whole), dtype, global batch, prompt, new) of
+# each arm, in order. The f32 arms are held to the unsharded engine; the
+# bf16 arm (granite whole) is timed, its tokens counted against the
+# unsharded engine's
+DIST_SERVE_ARMS = (
+    ("granite_b8", "granite-3-2b", 4, "float32", 8, 512, 16),
+    ("granite_b1", "granite-3-2b", 4, "float32", 1, 4096, 16),
+    ("mamba2", "mamba2-1.3b", SSM_TRAIN_LAYERS, "float32", 8, 512, 16),
+    ("deepseek", "deepseek-moe-16b", 1, "float32", 8, 512, 16),
+    ("whisper", "whisper-tiny", None, "float32", 8, ENCDEC_PROMPT, 16),
+    ("granite_bf16", "granite-3-2b", None, "bfloat16", 8, 512, 16))
+# the f32 grid's logits and prefill caches against the unsharded engine's
+# on the same card: the same f32 math summed in other orders (the
+# row-parallel sums and the decode combine over the ranks), so a
+# few ulps of the logits' max; a reduction missed or doubled moves them
+# by its whole size. The bound is the reference's decode-consistency one
+# (``tests/test_decode_consistency.py``)
+DIST_SERVE_ATOL = 2e-3
+for _atol in (ATTN_LOGITS_ATOL, SSM_LOGITS_ATOL, ENCDEC_LOGITS_ATOL):
+    _atol["grid_f32"] = DIST_SERVE_ATOL
+
+
+def dist_serve_cfg(arch_name, layers, dtype):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch_name).model
+    return dataclasses.replace(cfg, dtype=dtype,
+                               n_layers=layers or cfg.n_layers)
+
+
+def dist_serve_inputs(cfg, B, prompt):
+    """Prompts from seed 0, and the encdec family's frames after them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(1, cfg.vocab, (B, prompt), dtype=np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(0, 1, (B, cfg.enc_seq, cfg.d_model)
+                                     ).astype(np.float32)
+    return batch
+
+
+def dist_serve_max_len(cfg, prompt, new):
+    return ENCDEC_SEQ if cfg.family == "encdec" else prompt + new
+
+
+def dist_serve_reference(dev):
+    """The unsharded engine on the card for every ``dist_serve`` arm:
+    ``ServeEngine.prefill`` and ``decode`` as ``generate`` calls them
+    (greedy), from the arm's seed-0 weights and prompts. Writes each
+    arm's tokens, and for the f32 arms each step's logits and the cache
+    after the prefill, to a directory under ``build/`` -> its path."""
+    import tempfile
+    import torch
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.models.registry import model_api
+    from repro_torch.serve import ServeEngine
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ref_dir = tempfile.mkdtemp(prefix="dist_serve_", dir=ROOT / "build")
+    for name, arch_name, layers, dtype, B, prompt, new in DIST_SERVE_ARMS:
+        cfg = dist_serve_cfg(arch_name, layers, dtype)
+        api = model_api(cfg)
+        batch = dist_serve_inputs(cfg, B, prompt)
+        extra = {k: v for k, v in batch.items() if k != "tokens"} or None
+        eng = ServeEngine(api, api.init(0, dev),
+                          max_len=dist_serve_max_len(cfg, prompt, new), batch=B)
+        logits, cache = eng.prefill(batch["tokens"], extra)
+        out = {"logits": [], "tokens": []}
+        if dtype == "float32":
+            # copies: decode updates the cache in place
+            out["cache0"] = {"/".join(p): t.to("cpu", copy=True)
+                             for p, t in flatten_tree(cache)}
+        tok = logits.argmax(dim=-1)
+        for i in range(new + 1):
+            if dtype == "float32":
+                out["logits"].append(logits.cpu())
+            out["tokens"].append(tok.cpu())
+            if i == new:
+                break
+            logits, cache = eng.decode(tok, cache, prompt + i)
+            tok = logits.argmax(dim=-1)
+        torch.save(out, f"{ref_dir}/{name}.pt")
+        del eng, cache, logits, out
+        torch.cuda.empty_cache()
+    return ref_dir
+
+
+class ServeLogMesh:
+    """``mesh`` (a ``RankMesh``) with each group the serve steps ask for
+    wrapped in a :class:`ModelAxisLog`, its calls named by the group's
+    axes."""
+
+    def __init__(self, mesh):
+        self.mesh, self.shape, self.coords = mesh, mesh.shape, mesh.coords
+        self.logs = {}
+
+    def group(self, axes):
+        g = self.mesh.group(axes)
+        if g is None:
+            return None
+        key = "+".join(a for a in axes if self.shape.get(a, 1) > 1)
+        if key not in self.logs:
+            log = ModelAxisLog(g)
+            log._label = lambda op, key=key: f"{key}:{op}"
+            self.logs[key] = log
+        return self.logs[key]
+
+    def end_step(self):
+        for log in self.logs.values():
+            log.end_step()
+
+
+def _tree_bytes(tree):
+    from repro_torch.models.params import flatten_tree
+    return sum(t.numel() * t.element_size() for _, t in flatten_tree(tree))
+
+
+def _dist_serve_arm(mesh, dev, ref_dir, arm):
+    """One ``dist_serve`` arm on this rank: the whole weights from seed 0
+    cut to its shards, the prefill and the greedy decode steps through
+    the grid's serve steps (the launch counters zeroed just before and
+    read just after), timed; held against the unsharded run's file."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import flatten_tree
+    from repro_torch.models.registry import model_api
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import steps as st
+
+    name, arch_name, layers, dtype, B, prompt, new = arm
+    cfg = dist_serve_cfg(arch_name, layers, dtype)
+    prof = get_arch(arch_name).profile
+    api = model_api(cfg)
+    torch.cuda.empty_cache()
+    params = st.shard_params(api.init(0, dev), prof, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in dist_serve_inputs(cfg, B, prompt).items()}
+    batch["tokens"] = batch["tokens"].long()
+    max_len = dist_serve_max_len(cfg, prompt, new)
+    log = ServeLogMesh(mesh)
+    prefill = st.build_prefill_step(api, prof, log, max_len)
+    decode = st.build_decode_step(api, prof, log)
+    ref = torch.load(f"{ref_dir}/{name}.pt")
+    bspec = shd.batch_pspec(B, mesh.shape, prof)
+
+    def rows(x):
+        return shd.shard_leaf(x, bspec, mesh.shape, mesh.coords)
+
+    held = dtype == "float32"
+    errs, steps_ms, toks = [], [], []
+    zero_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out = {"prefill_ms": prefill_ms,
+           "param_bytes": _tree_bytes(params), "cache_bytes": _tree_bytes(cache)}
+    if held:
+        sh = st.serve_shardings(api, prof, mesh, B, max(max_len, prompt))
+        specs = dict(flatten_tree(sh["cache"]))
+        out["cache_max_err"] = max(
+            float((t.float() - shd.shard_leaf(ref["cache0"]["/".join(p)],
+                                              specs[p], mesh.shape,
+                                              mesh.coords).to(dev).float()
+                   ).abs().max()) for p, t in flatten_tree(cache))
+    if cfg.family in ("ssm", "hybrid"):
+        out["conv_sha256"] = [hashlib.sha256(
+            t.contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+            for p, t in flatten_tree(cache) if p[-1] == "conv"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    tok = st.gather_batch(logits.argmax(-1), prof, mesh, B)
+    for i in range(new + 1):
+        if held:
+            errs.append(float((logits - rows(ref["logits"][i].to(dev)))
+                              .abs().max()))
+        toks.append(tok.cpu())
+        if i == new:
+            break
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, cache = decode(params, tok, cache, prompt + i)
+        tok = st.gather_batch(logits.argmax(-1), prof, mesh, B)
+        torch.cuda.synchronize(dev)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        log.end_step()
+    out["launches"] = read_launches("dist_serve")
+    tokens = torch.stack(toks).numpy()
+    want = torch.stack(ref["tokens"]).numpy()
+    out.update(
+        decode_ms=steps_ms, decode_peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+        tokens_equal=bool(np.array_equal(tokens, want)),
+        tokens_equal_count=int((tokens == want).sum()), tokens_total=int(want.size),
+        tokens_sha256=hashlib.sha256(tokens.astype(np.int32).tobytes()).hexdigest())
+    if held:
+        out["logits_max_err"] = max(errs)
+        out["logits_max_abs"] = max(logits_max_abs(r, cfg.vocab)
+                                    for r in ref["logits"])
+    if cfg.family in ("ssm", "hybrid"):
+        out["conv_sha256_end"] = [hashlib.sha256(
+            t.contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+            for p, t in flatten_tree(cache) if p[-1] == "conv"]
+    out["collectives"] = {key: replay_collectives(lg, lg.step_calls, dev,
+                                                  staging=True)
+                          for key, lg in sorted(log.logs.items())
+                          if lg.step_calls}
+    del params, cache, logits, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_serve_rank(mesh, dev, ref_dir):
+    """Every ``dist_serve`` arm on this rank of the grid, in turn; rank 0
+    polls the card's used memory over each arm."""
+    import threading
+    out = {}
+    for arm in DIST_SERVE_ARMS:
+        stop, card = threading.Event(), [0]
+        poller = threading.Thread(target=_card_peak, args=(stop, card),
+                                  daemon=True)
+        if mesh.rank == 0:
+            poller.start()
+        try:
+            out[arm[0]] = _dist_serve_arm(mesh, dev, ref_dir, arm)
+        finally:
+            stop.set()
+            if poller.is_alive():
+                poller.join()
+        out[arm[0]]["card_peak_used_bytes"] = card[0] if mesh.rank == 0 else None
+    return out
+
+
+def phase_dist_serve(dev, outs, ref_dir):
+    """Serving on the grid of ``dist_model``'s ranks (2 data x 2 model,
+    host-staged gloo on one card), through ``serve.steps``'
+    ``build_prefill_step`` / ``build_decode_step`` at full width: the
+    arms of :data:`DIST_SERVE_ARMS` (granite-3-2b at depth 4 in f32 with
+    B 8 x 512, the batch over ``data`` and the sequence over ``model``,
+    and B 1 x 4,096, the sequence over all four ranks; mamba2-1.3b at
+    depth 12, deepseek-moe-16b at depth 1 and whisper-tiny whole in f32;
+    granite whole in bf16 for the times), 16 greedy tokens each. Fails
+    unless on every rank each f32 arm's tokens equal the unsharded
+    engine's (``dist_serve_reference``, the same call), its logits at
+    every step and its cache block after the prefill lie within
+    ``SERVE_LOGITS_ATOL[arch]["grid_f32"]`` of the engine's, Mamba's
+    conv state is the same bytes on the model ranks of a data index, and
+    no codec kernel launched. Prints, beside the card's name and power
+    limit: prefill ms, decode ms a step against the bound of the four
+    ranks' weights and caches at 3.35 TB/s, the model axis's and the
+    combine's collectives a rank a step replayed alone (ms and bytes),
+    peak memory a rank and the card's, for the bf16 arm how many of its
+    tokens equal the engine's; and the dry run's ``argument_bytes`` and
+    peak for the granite f32 B 8 arm's decode on rank 0, against what the
+    rank held and its peak."""
+    import shutil
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import model_api
+    from repro_torch.configs import get_arch
+
+    smi = smi_line()
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    arms, bad = {}, []
+    for name, arch_name, layers, dtype, B, prompt, new in DIST_SERVE_ARMS:
+        per = [o[name] for o in outs]
+        held = dtype == "float32"
+        nbytes = sum(a["param_bytes"] + a["cache_bytes"] for a in per)
+        decode_ms = [statistics.median(a["decode_ms"]) for a in per]
+        arm = {"arch": arch_name, "layers": layers or "whole", "dtype": dtype,
+               "batch": B, "prompt": prompt, "new": new,
+               "prefill_ms_by_rank": [a["prefill_ms"] for a in per],
+               "decode_ms_median_by_rank": decode_ms,
+               "decode_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "decode_bound_bytes": nbytes,
+               "param_bytes_by_rank": [a["param_bytes"] for a in per],
+               "cache_bytes_by_rank": [a["cache_bytes"] for a in per],
+               "decode_peak_mem_bytes_by_rank": [a["decode_peak_mem_bytes"]
+                                                 for a in per],
+               "card_peak_used_bytes": per[0]["card_peak_used_bytes"],
+               "collectives_rank0": {
+                   k: {"calls": v["calls"], "payload_bytes": v["payload_bytes"],
+                       "bytes_per_step": v["payload_bytes_total"],
+                       "ms_median": v["ms_median"],
+                       "ms_median_by_op": v["ms_median_by_op"],
+                       "staging_copies_ms_median": v["staging_copies_ms_median"]}
+                   for k, v in per[0]["collectives"].items()},
+               "tokens_equal_by_rank": [a["tokens_equal"] for a in per],
+               "tokens_equal_count": per[0]["tokens_equal_count"],
+               "tokens_total": per[0]["tokens_total"]}
+        if held:
+            atol = SERVE_LOGITS_ATOL[arch_name]["grid_f32"]
+            arm.update(atol=atol,
+                       logits_max_err_by_rank=[a["logits_max_err"] for a in per],
+                       logits_max_abs=per[0]["logits_max_abs"],
+                       cache_max_err_by_rank=[a["cache_max_err"] for a in per])
+            for r, a in enumerate(per):
+                if not a["tokens_equal"] or a["logits_max_err"] > atol \
+                        or a["cache_max_err"] > atol:
+                    bad.append((name, r, a["tokens_equal"], a["logits_max_err"],
+                                a["cache_max_err"]))
+        if "conv_sha256" in per[0]:
+            same = all(per[r]["conv_sha256"] == per[r - r % MODEL_PARALLEL]
+                       ["conv_sha256"] and per[r]["conv_sha256_end"]
+                       == per[r - r % MODEL_PARALLEL]["conv_sha256_end"]
+                       for r in range(len(per)))
+            arm["conv_state_equal_across_model_ranks"] = same
+            if not same:
+                bad.append((name, "conv state differs across the model ranks"))
+        if any(any(a["launches"].values()) for a in per):
+            bad.append((name, "launched a codec kernel"))
+        arms[name] = arm
+    # the dry run's figures for the granite f32 B 8 arm's decode, rank 0
+    name, arch_name, layers, dtype, B, prompt, new = DIST_SERVE_ARMS[0]
+    cfg = dist_serve_cfg(arch_name, layers, dtype)
+    rec = dryrun.trace_serve(model_api(cfg), get_arch(arch_name).profile,
+                             dryrun.RecordingMesh({"data": WORKERS,
+                                                   "model": MODEL_PARALLEL}),
+                             "decode", B, dist_serve_max_len(cfg, prompt, new))
+    r0 = outs[0][name]
+    emit({"phase": "dist_serve", "card": smi,
+          "grid": {"data": WORKERS, "model": MODEL_PARALLEL},
+          "arms": arms,
+          "dryrun_granite_b8_decode": {
+              "argument_bytes": rec["memory"]["argument_bytes"],
+              "peak_per_device_gib": rec["memory"]["peak_per_device_gib"],
+              "rank0_param_plus_cache_bytes": r0["param_bytes"] + r0["cache_bytes"],
+              "rank0_decode_peak_mem_gib": r0["decode_peak_mem_bytes"] / 2**30,
+              "collectives": rec["collectives"]}})
+    if bad:
+        raise AssertionError(f"dist_serve: {bad}")
+    return {k: 0 for k in outs[0][DIST_SERVE_ARMS[0][0]]["launches"]}
 
 
 PHASE_SECONDS = {}      # wall seconds of each phase (or group), in order
@@ -5668,7 +6029,8 @@ def main() -> int:
         VLM_TRAIN_LAYERS)
     torch.cuda.empty_cache()
     launches_serve["ssm_serve"] = timed("ssm_serve", serve_model, dev, SSM_ARCH,
-                                        "ssm_serve", True)
+                                        "ssm_serve", True,
+                                        layers=SSM_SERVE_LAYERS)
     torch.cuda.empty_cache()
     launches_serve["hybrid_serve"] = timed(
         "hybrid_serve", serve_model, dev, HYBRID_ARCH, "hybrid_serve", False,
@@ -5682,9 +6044,13 @@ def main() -> int:
         "encdec_serve", serve_model, dev, ENCDEC_ARCH, "encdec_serve", False,
         prompt_len=ENCDEC_PROMPT, max_len=ENCDEC_SEQ)
     torch.cuda.empty_cache()
-    launches_dist_model = timed("dist_model", phase_dist_model, dev,
-                                family_losses)
+    serve_ref_dir = timed("dist_serve_ref", dist_serve_reference, dev)
     torch.cuda.empty_cache()
+    launches_dist_model, serve_outs = timed("dist_model", phase_dist_model, dev,
+                                            family_losses, serve_ref_dir)
+    torch.cuda.empty_cache()
+    launches_serve["dist_serve"] = timed("dist_serve", phase_dist_serve, dev,
+                                         serve_outs, serve_ref_dir)
     launches_long = timed("long_train", phase_long_train, dev)
     torch.cuda.empty_cache()
     launches_serve["long_serve"] = timed("long_serve", phase_long_serve, dev)

@@ -38,6 +38,19 @@ class MeshShape:
     def size(self) -> int:
         return math.prod(self.shape.values())
 
+    @property
+    def coords(self) -> Dict[str, int]:
+        """The first device's coordinates (a shape has no ranks)."""
+        return {a: 0 for a in self.shape}
+
+    def group(self, axes: Sequence[str]):
+        """None where ``axes`` span one device; a shape holds no process
+        groups, so any larger span raises."""
+        if math.prod(self.shape.get(a, 1) for a in axes) > 1:
+            raise ValueError(f"a mesh shape has no process group for the "
+                             f"axes {tuple(axes)}; use a RankMesh")
+        return None
+
 
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
@@ -49,6 +62,24 @@ class RankMesh:
     data: ProcessGroupWorkers        # the W ranks of this model index
     model: Optional[ProcessGroupWorkers]   # the MP ranks of this data
                                            # index (None when MP == 1)
+    grid: Optional[ProcessGroupWorkers] = None   # all W·MP ranks, in
+                                                 # rank order d·MP + t
+
+    def group(self, axes: Sequence[str]):
+        """The process group of the ranks that differ only in ``axes``
+        (this rank's index in it rank-major over them, as a spec's tuple
+        of axes blocks a dim): ``data``, ``model`` or both (the grid);
+        None where they span one rank."""
+        axes = tuple(a for a in axes if self.shape.get(a, 1) > 1)
+        if not axes:
+            return None
+        if axes == ("data",):
+            return self.data
+        if axes == ("model",):
+            return self.model
+        if axes == ("data", "model"):
+            return self.grid
+        raise ValueError(f"no group for the axes {axes} of {self.shape}")
 
 
 def grid_ranks(data: int, model: int) -> Tuple[Tuple[Tuple[int, ...], ...],
@@ -76,10 +107,11 @@ def make_host_mesh(model_parallel: int = 1,
     data = ProcessGroupWorkers(levels, partition=dp_parts)
     model = (ProcessGroupWorkers(partition=mp_parts)
              if model_parallel > 1 else None)
+    grid = ProcessGroupWorkers() if W > 1 and model_parallel > 1 else None
     return RankMesh(shape={"data": W, "model": model_parallel},
                     coords={"data": rank // model_parallel,
                             "model": rank % model_parallel},
-                    rank=rank, data=data, model=model)
+                    rank=rank, data=data, model=model, grid=grid)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -38,7 +38,8 @@ from torch.utils import checkpoint as ckpt_lib
 from .config import ModelConfig
 from .params import ParamTree
 from repro_torch.parallel import hints
-from .transformer import REMAT_POLICIES, _layer, check_model_axis
+from .transformer import (REMAT_POLICIES, _check_region, _layer, put_kv,
+                          seq_block)
 from . import layers as L
 
 # the reference checkpoints the decoder's scan body under these policies
@@ -148,8 +149,7 @@ def encdec_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     The frames, the sinusoid and the LayerNorms are replicated."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; have {list(REMAT_POLICIES)}")
-    if hints.model_group() is not None:
-        check_model_axis(cfg, hints.model_group().workers)
+    _check_region(cfg)
     if ep_exchange is not None:
         raise ValueError("the encdec family has no MoE layer for an "
                          "expert-parallel exchange")
@@ -176,7 +176,9 @@ def encdec_loss(tree: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def init_encdec_cache(tree: Dict, cfg: ModelConfig, batch: int, max_len: int
                       ) -> Dict[str, Any]:
-    """Zero decode cache on the params' device, in the activation dtype."""
+    """Zero decode cache on the params' device, in the activation dtype,
+    of ``batch`` rows and ``max_len`` self positions as given (a rank's
+    share on the grid)."""
     dt, dev = cfg.activation_dtype, tree["embed"].device
     KV, hd, Ld = cfg.n_kv_heads, cfg.hd, cfg.n_layers
     self_shape, cross_shape = ((Ld, batch, max_len, KV, hd),
@@ -193,19 +195,28 @@ def encdec_prefill(tree: Dict, cfg: ModelConfig, frames: torch.Tensor,
     """The encoder over ``frames`` and the decoder over the prompt ->
     (last-position logits (B, V) f32, the cache): the self K (after
     RoPE) and V zero-padded to ``max_len`` positions, the cross K/V (no
-    RoPE) of the encoder's states."""
+    RoPE) of the encoder's states.
+
+    In a model region (serving on the grid, ``serve/steps.py``) the
+    encoder and the decoder run tensor-parallel, the cross K/V and the
+    self K/V are gathered whole over the model axis (every KV head), the
+    self cache keeps this rank's block of the ``max_len`` positions
+    (``transformer.seq_block``), and the logits are this rank's vocab
+    columns."""
+    _check_region(cfg)
     enc_out = encode(tree, cfg, frames)
-    x = tree["embed"][tokens]
+    x = hints.vocab_embed(tree["embed"], tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None, :]
-    cache = init_encdec_cache(tree, cfg, B, max_len)
+    off, n = seq_block(max_len)
+    cache = init_encdec_cache(tree, cfg, B, n)
     for i in range(cfg.n_layers):
         x, (k, v), (xk, xv) = _dec_block(x, _layer(tree["dec_layers"], i), cfg,
                                          enc_out, positions)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-        cache["xk"][i] = xk
-        cache["xv"][i] = xv
+        k, v = L.kv_whole(k, v, cfg)
+        put_kv(cache["k"][i], k, off)
+        put_kv(cache["v"][i], v, off)
+        cache["xk"][i], cache["xv"][i] = L.kv_whole(xk, xv, cfg)
     x = L.layernorm(x[:, -1:], tree["dec_ln"], cfg.norm_eps)
     return _logits(tree, cfg, x)[:, 0], cache
 
@@ -216,9 +227,11 @@ def encdec_decode(tree: Dict, cfg: ModelConfig, token: torch.Tensor,
     """One decoder step. token: (B,) ids at ``position`` (an int) ->
     (logits (B, V) f32, cache): the self K/V written in place
     (``layers.attention_decode``: RoPE at ``position``, the write clamped
-    at the cache's end), the cross K/V read as they are."""
+    at the cache's end), the cross K/V read as they are; in a model
+    region on this rank's shards and cache block."""
+    _check_region(cfg)
     eps = cfg.norm_eps
-    x = tree["embed"][token[:, None]]
+    x = hints.vocab_embed(tree["embed"], token[:, None])
     for i in range(cfg.n_layers):
         p = _layer(tree["dec_layers"], i)
         h = L.layernorm(x, p["ln1"], eps)

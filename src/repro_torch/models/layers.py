@@ -144,18 +144,36 @@ def _kv_split_uneven(cfg: ModelConfig) -> bool:
     return group is not None and cfg.n_kv_heads % group.workers != 0
 
 
+def _q_split_uneven(cfg: ModelConfig) -> bool:
+    """In a model region whose MP does not divide the query heads: each
+    rank holds an even column slice of ``wq`` (``H·hd/MP``, which may end
+    inside a head) and the same rows of ``wo``."""
+    group = hints.model_group()
+    return group is not None and cfg.n_heads % group.workers != 0
+
+
+def _own_columns(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """This model rank's columns of the whole attention output ``o``:
+    those its row shard of ``wo`` multiplies."""
+    n, t = wo.shape[0], hints.model_index()
+    return o[..., t * n:(t + 1) * n]
+
+
 def _project_qkv(x, p, cfg: ModelConfig, kv_input=None):
     """Returns q (B,S,H,hd), k/v (B,Skv,KV,hd): k and v from ``kv_input``
     (B,Skv,D) where given (cross-attention), else from ``x``. On column
     shards of the projections, the heads are this rank's; where MP does
     not divide the KV heads (:func:`_kv_split_uneven`), k and v are
     every rank's column slices gathered whole (``hints.
-    gather_from_model``), all KV heads."""
+    gather_from_model``), all KV heads, and where it does not divide the
+    query heads (:func:`_q_split_uneven`) q too."""
     B, S, _ = x.shape
     kv_x = x if kv_input is None else kv_input
     q, k, v = x @ p["wq"], kv_x @ p["wk"], kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if _q_split_uneven(cfg):
+        q = hints.gather_from_model(q)
     if _kv_split_uneven(cfg):
         k, v = hints.gather_from_model(k), hints.gather_from_model(v)
     Skv = kv_x.shape[1]
@@ -341,7 +359,9 @@ def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
     head: k and v are gathered whole (:func:`_project_qkv`), RoPE goes on
     the whole k, and then each of this rank's query heads (global head
     ``g``) takes KV head ``g // (H/KV)`` before ``flash_attention``; the
-    prefill cache is the whole (k, v)."""
+    prefill cache is the whole (k, v). Where MP does not divide the query
+    heads either, q is gathered whole too, every rank attends with all H
+    heads and keeps its columns of the output for its rows of ``wo``."""
     B, S, _ = x.shape
     x = hints.copy_to_model(x)
     if kv_input is not None:
@@ -353,13 +373,31 @@ def attention_train(x, p, cfg: ModelConfig, positions=None, causal=True,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions[:, :k.shape[1]], cfg.rope_theta)
     kq, vq = k, v
-    if _kv_split_uneven(cfg):
+    if _kv_split_uneven(cfg) and not _q_split_uneven(cfg):
         H_loc = q.shape[2]
         heads = hints.model_index() * H_loc + torch.arange(H_loc, device=x.device)
         kv_of = heads // (cfg.n_heads // cfg.n_kv_heads)
         kq, vq = k.index_select(2, kv_of), v.index_select(2, kv_of)
     o = flash_attention(q, kq, vq, causal, cfg.q_block).reshape(B, S, -1)
+    if _q_split_uneven(cfg):
+        o = _own_columns(o, p["wo"])
     return hints.reduce_from_model(o @ p["wo"]), (k, v)
+
+
+def kv_whole(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
+    """``attention_train``'s (k, v) ``(B, S, KV_loc, hd)`` with every KV
+    head: in a model region whose ranks split the KV heads, every rank's
+    heads gathered in one all-gather (as they are where MP does not
+    divide them: ``_project_qkv`` gathered them whole already)."""
+    if hints.model_group() is None or k.shape[2] == cfg.n_kv_heads:
+        return k, v
+    B, S = k.shape[:2]
+    n = k.shape[2] * k.shape[3]
+    kv = hints.gather_from_model(torch.cat([k.reshape(B, S, n),
+                                            v.reshape(B, S, n)], dim=-1))
+    kv = kv.reshape(B, S, -1, 2, n)
+    return (kv[..., 0, :].reshape(B, S, cfg.n_kv_heads, cfg.hd),
+            kv[..., 1, :].reshape(B, S, cfg.n_kv_heads, cfg.hd))
 
 
 def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, position: int,
@@ -377,7 +415,13 @@ def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, position: int,
     ``1/sqrt(hd)``; -1e30 where ``arange(Skv) > position``; the softmax
     normalised in f32 *before* the weights are cast to the cache's dtype
     (the training attention divides after its value product), then the
-    value product in f32 and the output cast to ``x.dtype``."""
+    value product in f32 and the output cast to ``x.dtype``.
+
+    In a model region, or with the cache's sequence split over
+    ``hints.seq_group()``, :func:`_attention_decode_sharded`."""
+    if hints.model_group() is not None or hints.seq_group() is not None:
+        return _attention_decode_sharded(x, p, cfg, cache_k, cache_v,
+                                         position, rope)
     B, Skv = x.shape[0], cache_k.shape[1]
     KV, hd = cfg.n_kv_heads, cfg.hd
     q, k_new, v_new = _project_qkv(x, p, cfg)                    # q (B,1,H,hd)
@@ -397,17 +441,100 @@ def attention_decode(x, p, cfg: ModelConfig, cache_k, cache_v, position: int,
     return o.to(x.dtype).reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
 
 
+def _attention_decode_sharded(x, p, cfg: ModelConfig, cache_k, cache_v,
+                              position: int, rope: bool):
+    """:func:`attention_decode` on this rank's column shards of the
+    projections and its slice of the cache's sequence (the
+    flash-decoding combine that the reference leaves to GSPMD, written
+    out).
+
+    The new token's q, K and V columns of every model rank are gathered
+    in one all-gather, so every rank holds all H query and KV heads, and
+    RoPE goes on the whole q and K. The cache ``(B, S_loc, KV, hd)`` is
+    this rank's block of the sequence, block ``i`` of ``hints.
+    seq_group()``'s ranks (positions ``[i·S_loc, (i+1)·S_loc)`` of a
+    cache of ``Skv = n·S_loc``): the new K/V is written at the global
+    ``min(position, Skv - 1)`` by the rank whose block holds it. The
+    softmax takes two passes over the group, so that the reference's
+    order survives: the all-reduced max ``M`` of the local f32 scores
+    (-1e30 where the global index exceeds ``position``), the
+    all-reduced sum of ``exp(s - M)``; then each rank casts its
+    normalised weights to the cache's dtype, takes its partial value
+    product in f32, and the partials are summed. Every rank then holds
+    ``o`` of all heads, takes its own heads' columns into its row shard
+    of ``wo`` and the products are summed over the model axis. Ranks
+    that hold the same rows (the batch replicated over a data axis the
+    sequence is split over) compute the same values."""
+    B, S_loc = x.shape[0], cache_k.shape[1]
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    x = hints.copy_to_model(x)
+    cols = [x @ p["wq"], x @ p["wk"], x @ p["wv"]]
+    if "bq" in p:
+        cols = [c + p[b] for c, b in zip(cols, ("bq", "bk", "bv"))]
+    widths = [c.shape[-1] for c in cols]
+    whole = hints.gather_from_model(torch.cat(cols, dim=-1))
+    parts = whole.reshape(B, 1, -1, sum(widths)).split(widths, dim=-1)
+    q, k_new, v_new = (t.reshape(B, 1, -1, hd) for t in parts)
+    if rope:
+        pos = torch.full((B, 1), position, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    seq = hints.seq_group()
+    n, idx = (1, 0) if seq is None else (seq.workers, seq.first_worker)
+    off = idx * S_loc
+    at = min(position, n * S_loc - 1)
+    if off <= at < off + S_loc:
+        cache_k[:, at - off] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, at - off] = v_new[:, 0].to(cache_v.dtype)
+    qg = q.reshape(B, KV, cfg.n_heads // KV, hd).to(torch.float32)
+    s = qg @ cache_k.to(torch.float32).permute(0, 2, 3, 1)     # (B,KV,rep,S_loc)
+    s = s * (1.0 / math.sqrt(hd))
+    s = s.masked_fill(torch.arange(off, off + S_loc, device=x.device)
+                      > position, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - (m if seq is None else seq.max([m])))
+    l = e.sum(dim=-1, keepdim=True)
+    w = (e / (l if seq is None else seq.sum([l]))).to(cache_v.dtype)
+    o = w.to(torch.float32) @ cache_v.to(torch.float32).transpose(1, 2)
+    if seq is not None:
+        o = seq.sum([o])
+    o = _own_columns(o.to(x.dtype).reshape(B, 1, -1), p["wo"])
+    return hints.reduce_from_model(o @ p["wo"]), cache_k, cache_v
+
+
 def attention_cross_decode(x, p, cfg: ModelConfig, enc_k, enc_v):
     """Cross-attention for decode: x (B,1,D) against the static encoder
     K/V (B,Senc,KV,hd): no mask, no RoPE, no cache write. The grouped
     scores in f32, the softmax normalised in f32 and cast to the values'
-    dtype before the value product, as ``attention_decode``."""
+    dtype before the value product, as ``attention_decode``. In a model
+    region on this rank's query heads (global head ``g`` reads KV head
+    ``g // (H/KV)`` of the whole ``enc_k`` / ``enc_v``), its output
+    through ``wo``'s row shard summed over the axis; where MP does not
+    divide the query heads, on all of them (q gathered whole), each rank
+    keeping its columns of the output."""
     B, hd, KV = x.shape[0], cfg.hd, cfg.n_kv_heads
-    q = (x @ p["wq"]).reshape(B, KV, cfg.n_heads // KV, hd).to(torch.float32)
-    s = q @ enc_k.to(torch.float32).permute(0, 2, 3, 1) * (1.0 / math.sqrt(hd))
+    scale = 1.0 / math.sqrt(hd)
+    if hints.model_group() is not None and not _q_split_uneven(cfg):
+        x = hints.copy_to_model(x)
+        q = (x @ p["wq"]).reshape(B, -1, 1, hd).to(torch.float32)  # (B,H_loc,1,hd)
+        H_loc = q.shape[1]
+        heads = hints.model_index() * H_loc + torch.arange(H_loc, device=x.device)
+        kv_of = heads // (cfg.n_heads // KV)
+        k = enc_k.index_select(2, kv_of).to(torch.float32).permute(0, 2, 3, 1)
+        w = torch.softmax(q @ k * scale, dim=-1).to(enc_v.dtype)
+        o = w.to(torch.float32) @ enc_v.index_select(2, kv_of).to(
+            torch.float32).transpose(1, 2)
+        return hints.reduce_from_model(o.to(x.dtype).reshape(B, 1, -1) @ p["wo"])
+    x = hints.copy_to_model(x)
+    q = hints.gather_from_model(x @ p["wq"])
+    q = q.reshape(B, KV, cfg.n_heads // KV, hd).to(torch.float32)
+    s = q @ enc_k.to(torch.float32).permute(0, 2, 3, 1) * scale
     w = torch.softmax(s, dim=-1).to(enc_v.dtype)
     o = w.to(torch.float32) @ enc_v.to(torch.float32).transpose(1, 2)
-    return o.to(x.dtype).reshape(B, 1, -1) @ p["wo"]
+    o = o.to(x.dtype).reshape(B, 1, -1)
+    if hints.model_group() is not None:
+        o = _own_columns(o, p["wo"])
+    return hints.reduce_from_model(o @ p["wo"])
 
 
 # ----------------------------------------------------------------------
@@ -521,7 +648,8 @@ def moe_route(x: torch.Tensor, p, m: MoEConfig,
     t_flat = torch.arange(T, device=dev).repeat_interleave(K)
     order = torch.argsort(e_flat, stable=True)
     e_s, t_s, w_s = e_flat[order], t_flat[order], w.reshape(-1)[order]
-    counts = torch.bincount(e_s, minlength=E)                    # (E,)
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, e_s, torch.ones_like(e_s))                            # (E,)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - starts[e_s]
     keep = rank < C
@@ -599,11 +727,28 @@ def moe_ffn(x: torch.Tensor, p, m: MoEConfig,
     an experts' data group bound (kimi-k2's profile,
     :func:`_moe_data_axis`) data rank d holds experts ``[d·E/W,
     (d+1)·E/W)``, and on a model axis their ``d_ff`` split over it.
+    With a row group bound and no experts' group (serving, whose batch
+    is split over the data ranks: ``hints.row_group()``) every rank's
+    tokens are gathered and routed as one batch, the reference's serve
+    step's routing, and this rank keeps its rows of the result.
     """
-    T, D = x.shape
-    E = m.num_experts
     if hints.expert_group() is not None:
         return _moe_data_axis(x, p, m, capacity_factor)
+    rows = hints.row_group()
+    if rows is None:
+        return _moe_local(x, p, m, capacity_factor, ep_exchange)
+    # every rank's rows routed as one batch (serving), this rank's kept
+    T = x.shape[0]
+    out, aux = _moe_local(hints.gather_rows(x), p, m, capacity_factor,
+                          ep_exchange)
+    return out[rows.first_worker * T:(rows.first_worker + 1) * T], aux
+
+
+def _moe_local(x, p, m: MoEConfig, capacity_factor, ep_exchange):
+    """:func:`moe_ffn` on the rows ``x`` (all of them routed as one
+    batch), with the routed experts whole or on the model axis."""
+    T, D = x.shape
+    E = m.num_experts
     rt = moe_route(x, p, m, capacity_factor)
     if hints.model_group() is not None:
         return _moe_model_axis(x, p, m, rt, ep_exchange)
@@ -684,7 +829,9 @@ def _moe_data_axis(x, p, m: MoEConfig, capacity_factor):
     the slots over the global token order, so routing a data rank's own
     tokens at a local capacity would drop other tokens. So the layer's
     tokens are gathered over the data ranks (``hints.gather_rows``, in
-    rank order: the global order), every rank routes them alike (the aux
+    rank order: the global order; serving a batch that the data ranks
+    all hold whole gathers nothing and sums the partial combines instead
+    of reduce-scattering them), every rank routes them alike (the aux
     loss is the global one), runs its own experts' slots (``x`` through
     ``copy_to_model`` for the ``d_ff`` shards), sums the partial
     ``w_down`` products over the model axis, combines its slots in f32
@@ -695,7 +842,7 @@ def _moe_data_axis(x, p, m: MoEConfig, capacity_factor):
     model rank. Backward, each data rank's experts see every rank's
     tokens' gradients: their gradient is that of the sum of the W ranks'
     losses (``train/step.py`` scales it by ``1/W``)."""
-    X = hints.gather_rows(x)
+    X = hints.gather_rows(x)       # x itself where the rows are replicated
     D = x.shape[1]
     rt = moe_route(X, p, m, capacity_factor)
     E_loc, C = p["we_gate"].shape[0], rt.capacity
@@ -708,5 +855,11 @@ def _moe_data_axis(x, p, m: MoEConfig, capacity_factor):
     y = hints.reduce_from_model(
         moe_experts(xg.reshape(E_loc, C, D), p).to(torch.float32))
     contrib = torch.cat([y * rt.slot_w[lo:hi, None], y.new_zeros(1, D)])
-    out = hints.scatter_rows(_combine(contrib, mine))
+    partial = _combine(contrib, mine)
+    if hints.row_group() is None:
+        # the rows are every data rank's (serving a batch the data axis
+        # does not split): the partial combines summed, no autograd
+        out = hints.expert_group().sum([partial])
+    else:
+        out = hints.scatter_rows(partial)
     return _moe_tail(out, x, p, m, rt)

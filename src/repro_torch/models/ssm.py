@@ -25,8 +25,10 @@ training forward runs on this rank's heads, the reference's layout
 (``H/MP`` heads of ``head_dim``), ``A_log``, ``D_skip``, ``dt_bias``
 this rank's heads' entries, ``wo`` a row shard summed over the axis;
 ``wB``, ``wC``, ``conv_w``, ``conv_b`` and the gated norm's scale are
-replicated (see :func:`mamba_forward`). Decode and prefill with a state
-run unsharded only.
+replicated (see :func:`mamba_forward`). Prefill and decode run there
+too (serving on the grid, ``serve/steps.py``): the ``ssm`` state holds
+this rank's heads and the ``conv`` state all ``d_inner + 2N`` channels,
+the same on every model rank (:func:`mamba_decode`).
 """
 
 from __future__ import annotations
@@ -218,14 +220,16 @@ def mamba_forward(x: torch.Tensor, p, cfg: ModelConfig,
     are independent); the gated RMSNorm takes its mean over the whole
     ``d_inner`` (``hints.sum_over_model``: a per-shard mean would be a
     group norm, another function); ``wo``'s partial product is summed by
-    ``reduce_from_model``."""
-    if hints.model_group() is not None:
-        if return_state:
-            raise NotImplementedError("a Mamba decode state on the model "
-                                      "axis (serving runs unsharded)")
+    ``reduce_from_model``. The returned state holds this rank's heads'
+    ``ssm`` and the whole ``conv`` state: its ``x`` channels gathered
+    over the model axis (:func:`_whole_conv`)."""
+    sharded = hints.model_group() is not None
+    if sharded:
         x = hints.copy_to_model(x)
         p = _head_shard(p, cfg)
     xh, z, Bm, Cm, dt, conv_state = _project(x, p, cfg)
+    if sharded and return_state:
+        conv_state = _whole_conv(conv_state, p["wx"].shape[-1])
     A = -torch.exp(p["A_log"])                        # (H,) negative
     y, ssm_state = _ssd_chunk_scan(xh * dt[..., None], dt * A, Bm, Cm,
                                    cfg.ssm.chunk)
@@ -236,10 +240,24 @@ def mamba_forward(x: torch.Tensor, p, cfg: ModelConfig,
     return out
 
 
+def _whole_conv(conv: torch.Tensor, n: int) -> torch.Tensor:
+    """A head shard's conv rows ``(B, d, n + 2N)`` (its ``n`` channels of
+    ``x``, then ``B`` and ``C``) with all ``d_inner`` channels of ``x``:
+    every model rank's gathered in rank order, the same bytes on every
+    rank."""
+    return torch.cat([hints.gather_from_model(conv[..., :n].contiguous()),
+                      conv[..., n:]], dim=-1)
+
+
 def init_mamba_state(batch: int, cfg: ModelConfig, dtype=torch.float32,
                      device=None) -> Dict[str, torch.Tensor]:
+    """Zero decode state; in a model region the ``ssm`` state holds this
+    rank's ``H/MP`` heads (the ``conv`` state stays whole)."""
     s = cfg.ssm
     nh = s.n_heads(cfg.d_model)
+    group = hints.model_group()
+    if group is not None:
+        nh //= group.workers
     return {
         "ssm": torch.zeros((batch, nh, s.head_dim, s.d_state), dtype=dtype,
                            device=device),
@@ -252,8 +270,25 @@ def init_mamba_state(batch: int, cfg: ModelConfig, dtype=torch.float32,
 def mamba_decode(x: torch.Tensor, p, cfg: ModelConfig, state):
     """Single-token decode. x: (B, 1, D); ``state`` as
     :func:`init_mamba_state`. Returns (y (B, 1, D), new state in the
-    state's dtypes)."""
-    xh, z, Bm, Cm, dt, conv_state = _project(x, p, cfg, state["conv"])
+    state's dtypes).
+
+    In a model region on this rank's heads, as :func:`mamba_forward`:
+    the conv runs on this rank's channels of the whole ``conv`` state,
+    and the new state is the old one shifted by a row with the new input
+    row appended, its ``x`` channels gathered over the model axis, so
+    every model rank keeps the same whole state."""
+    conv_in = state["conv"]
+    sharded = hints.model_group() is not None
+    if sharded:
+        x = hints.copy_to_model(x)
+        p = _head_shard(p, cfg)
+        n = p["wx"].shape[-1]
+        lo, di = hints.model_index() * n, cfg.ssm.d_inner(cfg.d_model)
+        conv_in = torch.cat([conv_in[..., lo:lo + n], conv_in[..., di:]], dim=-1)
+    xh, z, Bm, Cm, dt, conv_state = _project(x, p, cfg, conv_in)
+    if sharded and conv_state.shape[1]:
+        row = _whole_conv(conv_state[:, -1:], n).to(state["conv"].dtype)
+        conv_state = torch.cat([state["conv"][:, 1:], row], dim=1)
     xh, Bm, Cm, dt0 = xh[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0]   # (B,H,P), (B,N), (B,H)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt0 * A)                           # (B,H)

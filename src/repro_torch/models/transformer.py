@@ -47,8 +47,16 @@ shards (``hints.vocab_parallel_lse``). Every family runs there
 (:func:`check_model_axis`): the vlm's visual prefix is an input, the
 same on every model rank; a Mamba layer runs on its head shard
 (``models/ssm.py``), in the ssm family and at the hybrid superblock's
-Mamba positions; encdec through ``models/encdec.py``. Training only:
-prefill and decode run unsharded. ``remat``
+Mamba positions; encdec through ``models/encdec.py``. Prefill and decode
+run there too, as ``serve/steps.py`` drives them on the grid: the
+cache holds this rank's batch rows, its block of the sequence (split
+over ``hints.seq_group()``, the reference's ``cache_pspecs``) with every
+KV head, and for Mamba this rank's heads of the ``ssm`` state and the
+whole ``conv`` state; :func:`init_cache` gives those local shapes,
+:func:`lm_prefill` gathers each layer's K/V heads over the model axis
+and keeps its sequence block, and decode combines the blocks
+(``layers.attention_decode``). The logits are this rank's vocab columns
+(the serve steps gather them). ``remat``
 takes the reference's policies (:data:`REMAT_POLICIES`, see
 :func:`lm_hidden`); any other value raises.
 """
@@ -99,9 +107,9 @@ def check_model_axis(cfg: ModelConfig, mp: int, prof=None) -> None:
     sharding profile ``prof``, where given): a profile of
     :data:`MODEL_AXIS_LAYOUTS` (``NotImplementedError`` for any other),
     and every split dim divisible by ``mp`` (``ValueError``): the query
-    heads (the reference's uneven head split stays out), the KV columns
-    ``n_kv_heads·hd`` (a split may fall inside a KV head:
-    ``layers.attention_train`` gathers them), the Mamba heads, the
+    columns ``n_heads·hd`` and the KV columns ``n_kv_heads·hd`` (a split
+    may fall inside a head, the reference's uneven head split:
+    ``layers.attention_train`` gathers such heads whole), the Mamba heads, the
     padded vocab, the dense FFN's ``d_ff``, and the routed experts (the
     default layout) or their ``d_ff`` (kimi's)."""
     if mp <= 1:
@@ -117,7 +125,7 @@ def check_model_axis(cfg: ModelConfig, mp: int, prof=None) -> None:
             "only (the default profile's and kimi-k2's)")
     dims = {"padded_vocab": cfg.padded_vocab}
     if cfg.family != "ssm":
-        dims.update({"n_heads": cfg.n_heads,
+        dims.update({"n_heads * hd": cfg.n_heads * cfg.hd,
                      "n_kv_heads * hd": cfg.n_kv_heads * cfg.hd})
     if cfg.family in ("ssm", "hybrid"):
         dims["ssm n_heads"] = cfg.ssm.n_heads(cfg.d_model)
@@ -133,6 +141,12 @@ def check_model_axis(cfg: ModelConfig, mp: int, prof=None) -> None:
         if n % mp:
             raise ValueError(f"{cfg.name}: {name} {n} does not split over "
                              f"model_parallel={mp}")
+
+
+def _check_region(cfg: ModelConfig):
+    """:func:`check_model_axis` on the bound model axis, if any."""
+    if hints.model_group() is not None:
+        check_model_axis(cfg, hints.model_group().workers)
 
 
 def _require_decoder_lm(cfg: ModelConfig):
@@ -377,8 +391,7 @@ def lm_hidden(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     exchange's kernels and collectives run once a step under every
     policy."""
     _require_decoder_lm(cfg)
-    if hints.model_group() is not None:
-        check_model_axis(cfg, hints.model_group().workers)
+    _check_region(cfg)
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; have {list(REMAT_POLICIES)}")
     x = _embed(tree, tokens, vis_embed)
@@ -434,7 +447,9 @@ def init_cache(tree: Dict, cfg: ModelConfig, batch: int, max_len: int
                ) -> Dict[str, Any]:
     """The decode cache of the family (see the module doc), zeros on the
     params' device: K/V in ``cfg.activation_dtype``, Mamba states in
-    f32."""
+    f32. The shapes are local: ``batch`` rows and ``max_len`` positions
+    as given (a rank's share), and in a model region the Mamba ``ssm``
+    state on this rank's heads."""
     _require_decoder_lm(cfg)
     dt, dev = cfg.activation_dtype, tree["embed"].device
     kv_shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
@@ -459,6 +474,29 @@ def _put_states(dst: Dict, states, at: Tuple = ()):
         dst[k][at] = states[k].to(dst[k].dtype)
 
 
+def seq_block(length: int) -> Tuple[int, int]:
+    """(offset, size) of this rank's block of a cache of ``length``
+    positions split over ``hints.seq_group()`` (the whole cache outside
+    one); raises ``ValueError`` where the length does not split."""
+    seq = hints.seq_group()
+    if seq is None:
+        return 0, length
+    if length % seq.workers:
+        raise ValueError(f"the cache length {length} does not split over "
+                         f"the {seq.workers} ranks of its sequence axes")
+    n = length // seq.workers
+    return seq.first_worker * n, n
+
+
+def put_kv(dst: torch.Tensor, kv: torch.Tensor, offset: int) -> None:
+    """Write ``kv`` ``(B, S, KV, hd)`` (positions ``0..S-1``) into
+    ``dst``, this rank's block of the cache's positions from ``offset``:
+    the positions the block holds, in place."""
+    lo, hi = offset, min(offset + dst.shape[1], kv.shape[1])
+    if hi > lo:
+        dst[:, :hi - lo] = kv[:, lo:hi]
+
+
 def lm_prefill(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                max_len: int | None = None, vis_embed=None
                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -468,12 +506,19 @@ def lm_prefill(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     into a cache of ``max(max_len, S_full)`` positions, zero past the
     prompt, as the reference's padded scan output (``S_full`` counts
     the visual prefix); a Mamba layer's chunked scan gives its final
-    state. Only the last position is unembedded."""
+    state. Only the last position is unembedded.
+
+    In a model region the K/V of every KV head (``layers.kv_whole``) go
+    into this rank's block of those positions (:func:`seq_block`: a
+    ``ValueError`` where the length does not split over the sequence's
+    ranks), and the logits are this rank's vocab columns."""
     _require_decoder_lm(cfg)
+    _check_region(cfg)
     B, S_tok = tokens.shape
     x = _embed(tree, tokens, vis_embed)
     S = x.shape[1]
-    cache = init_cache(tree, cfg, B, max(max_len or S_tok, S))
+    off, n = seq_block(max(max_len or S_tok, S))
+    cache = init_cache(tree, cfg, B, n)
     positions = torch.arange(S, device=tokens.device)[None, :]
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
@@ -485,14 +530,16 @@ def lm_prefill(tree: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 x, _layer(tree["superblocks"], i), cfg, positions, caches=True)
             for j, st in enumerate(states):
                 _put_states(cache["mamba"], st, (i, j))
-            cache["kv"]["k"][i, :, :S] = k
-            cache["kv"]["v"][i, :, :S] = v
+            k, v = L.kv_whole(k, v, cfg)
+            put_kv(cache["kv"]["k"][i], k, off)
+            put_kv(cache["kv"]["v"][i], v, off)
     else:
         for i in range(cfg.n_layers):
             x, _, (k, v) = _attn_block(x, _layer(tree["layers"], i), cfg,
                                        positions)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            k, v = L.kv_whole(k, v, cfg)
+            put_kv(cache["k"][i], k, off)
+            put_kv(cache["v"][i], v, off)
     x = L.rmsnorm(x[:, -1:], tree["final_norm"], cfg.norm_eps)
     return _unembed(tree, cfg, x)[:, 0], cache
 
@@ -514,9 +561,11 @@ def lm_decode(tree: Dict, cfg: ModelConfig, token: torch.Tensor,
     ``0..position-1`` are in the cache. Returns ``(logits (B, V) f32,
     cache)``, the cache updated in place (``layers.attention_decode``,
     whose write clamps at the cache's end; the Mamba states). The MoE
-    layers route at ``capacity_factor_decode``."""
+    layers route at ``capacity_factor_decode``. In a model region, on
+    this rank's shards and cache block (see the module doc)."""
     _require_decoder_lm(cfg)
-    x = tree["embed"][token[:, None]]
+    _check_region(cfg)
+    x = hints.vocab_embed(tree["embed"], token[:, None])
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x = x + _mamba_decode_layer(x, _layer(tree["layers"], i), cfg,

@@ -35,9 +35,15 @@ shards are not a plain column or row split:
 that the routed experts are split over (kimi-k2's profile, experts on the
 ``data`` axis): :func:`expert_group`, and the token all-gather
 :func:`gather_rows` / reduce-scatter :func:`scatter_rows` around the
-layer. Outside a region (or in a region of one rank) every one of them
-is the identity or the unsharded form, so every single-rank path
-computes what it computed before.
+layer, over :func:`row_group`: the ranks whose token rows a MoE layer
+routes as one batch (``rows``; by default the experts' group). Serving
+(``serve/steps.py``) binds ``rows`` to the group its batch is split
+over, since the reference routes a serve step's whole batch, and
+``seq`` to the group its KV cache's sequence is split over
+(:func:`seq_group`, read by ``layers.attention_decode`` and the
+prefill's cache). Outside a region (or in a region of one rank) every
+one of them is the identity or the unsharded form, so every
+single-rank path computes what it computed before.
 
 The binding is a module global, not a thread-local: a checkpointed
 block's recompute runs on autograd's device thread for CUDA tensors, and
@@ -55,6 +61,8 @@ import torch
 
 _GROUP = None
 _EXPERTS = None
+_ROWS = None
+_SEQ = None
 
 
 def _bound(group):
@@ -62,18 +70,23 @@ def _bound(group):
 
 
 @contextlib.contextmanager
-def model_region(group, experts=None):
+def model_region(group, experts=None, rows=..., seq=None):
     """Bind ``group`` (the model-axis process group, or None) as the
-    model axis for the layers, and ``experts`` (a data-parallel group,
-    or None) as the axis the routed experts are split over; a group of
-    one binds nothing."""
-    global _GROUP, _EXPERTS
-    prev = _GROUP, _EXPERTS
+    model axis for the layers, ``experts`` (a data-parallel group, or
+    None) as the axis the routed experts are split over, ``rows`` (by
+    default ``experts``) as the ranks whose token rows a MoE layer
+    gathers and routes as one batch, and ``seq`` as the ranks the decode
+    cache's sequence is split over (rank-major: its rank index is its
+    block's); a group of one binds nothing."""
+    global _GROUP, _EXPERTS, _ROWS, _SEQ
+    prev = _GROUP, _EXPERTS, _ROWS, _SEQ
     _GROUP, _EXPERTS = _bound(group), _bound(experts)
+    _ROWS = _EXPERTS if rows is ... else _bound(rows)
+    _SEQ = _bound(seq)
     try:
         yield
     finally:
-        _GROUP, _EXPERTS = prev
+        _GROUP, _EXPERTS, _ROWS, _SEQ = prev
 
 
 def model_group():
@@ -84,6 +97,18 @@ def model_group():
 def expert_group():
     """The bound data-parallel group of the routed experts, or None."""
     return _EXPERTS
+
+
+def row_group():
+    """The bound group whose ranks' token rows a MoE layer routes as one
+    batch, or None."""
+    return _ROWS
+
+
+def seq_group():
+    """The bound group the decode cache's sequence is split over, or
+    None."""
+    return _SEQ
 
 
 def model_index() -> int:
@@ -198,17 +223,17 @@ class _ScatterRows(torch.autograd.Function):
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every data rank's rows of ``x`` (dim 0) over the experts' group,
-    in rank order; backward, each rank's rows get the sum of every
-    rank's gradient of them."""
-    return x if _EXPERTS is None else _Gather.apply(x, _EXPERTS, 0)
+    """Every rank's rows of ``x`` (dim 0) over :func:`row_group`, in rank
+    order; backward, each rank's rows get the sum of every rank's
+    gradient of them."""
+    return x if _ROWS is None else _Gather.apply(x, _ROWS, 0)
 
 
 def scatter_rows(x: torch.Tensor) -> torch.Tensor:
     """This rank's rows of ``x`` (dim 0, the group's rows in rank order)
-    summed over the experts' group (the ring reduce-scatter); backward,
+    summed over :func:`row_group` (the ring reduce-scatter); backward,
     the all-gather of the rows' gradients."""
-    return x if _EXPERTS is None else _ScatterRows.apply(x, _EXPERTS)
+    return x if _ROWS is None else _ScatterRows.apply(x, _ROWS)
 
 
 class _WireSum(torch.autograd.Function):

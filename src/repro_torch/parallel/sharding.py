@@ -133,6 +133,18 @@ def param_pspecs(params: Dict[str, Any], prof: ShardingProfile) -> Dict:
     return walk(params, ())
 
 
+def param_shardings(params: Dict[str, Any], prof: ShardingProfile,
+                    mesh_shape: Mapping[str, int]) -> Dict:
+    """What a device of the mesh holds of each leaf of ``params`` (the
+    reference's ``NamedSharding`` tree): its local shape under
+    :func:`param_pspecs`."""
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        return local_shape(tuple(node.shape), spec, mesh_shape)
+    return walk(params, param_pspecs(params, prof))
+
+
 def filter_rules_for_mesh(rules: dict, mesh_shape: Mapping[str, int]) -> dict:
     """Drop logical-rule axes the mesh doesn't have (e.g. ``pod`` on a
     single-pod mesh)."""

@@ -228,6 +228,89 @@ def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
     return TrainState(params=params, opt=opt, residual=residual, step=0)
 
 
+# ----------------------------------------------------------------------
+# The reference's sharding trees of the state and the batch, as spec
+# functions of a mesh shape (``launch/dryrun.py`` reads them)
+# ----------------------------------------------------------------------
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    return dict(getattr(mesh, "shape", mesh))
+
+
+def effective_dp_axes(prof: shd.ShardingProfile, mesh) -> tuple:
+    """The profile's DP axes the mesh has."""
+    return tuple(a for a in prof.dp_axes if a in _mesh_shape(mesh))
+
+
+def _one(axes: tuple):
+    """A spec entry for ``axes``: the name alone, a tuple of several."""
+    return axes if len(axes) > 1 else axes[0]
+
+
+def state_specs(state: TrainState, tc: TrainConfig, mesh) -> Dict:
+    """The reference's ``state_specs`` for a state of whole leaves (a
+    ``LocalWorkers`` state, e.g. of ``meta`` tensors; its residual rows
+    the leading DP dim): ``"full"``, each leaf's spec over the whole
+    mesh, and ``"manual"``, its spec over the DP axes alone, as
+    ``TrainState`` trees of spec lists in ``state.params.paths`` order, and
+    ``"pspecs"``, the parameters' specs. A moment with a ZeRO-1 dim is
+    sliced over the DP axes there (``streams.zero_slice_dim`` on the
+    leaf's whole shape), a residual carries the DP axes first and the
+    parameter's spec after."""
+    shape = _mesh_shape(mesh)
+    prof = tc.sharding
+    dp_axes = effective_dp_axes(prof, shape)
+    dp = 1
+    for a in dp_axes:
+        dp *= shape[a]
+    leaves = state.params.leaves()
+    pspecs = [shd.leaf_spec(p, t.ndim, prof)
+              for p, t in zip(state.params.paths, leaves)]
+
+    def opt(p, s):
+        d = zero_slice_dim(tuple(p.shape), s, dp) if prof.zero1 and dp > 1 \
+            else None
+        if d is None:
+            return (), s
+        manual = [None] * p.ndim
+        manual[d] = _one(dp_axes)
+        full = list(s) + [None] * (p.ndim - len(s))
+        full[d] = manual[d]
+        return tuple(manual), tuple(full)
+
+    def res(r, s, full):
+        if r.ndim == 1 and r.shape[0] == 0:
+            return ()
+        return (_one(dp_axes),) + (tuple(s) if full else ())
+
+    moms = {k: [opt(p, s) for p, s in zip(leaves, pspecs)] for k in state.opt}
+    manual = TrainState(params=[()] * len(leaves),
+                        opt={k: [m for m, _ in v] for k, v in moms.items()},
+                        residual=[res(r, s, False)
+                                  for r, s in zip(state.residual, pspecs)],
+                        step=())
+    full = TrainState(params=pspecs,
+                      opt={k: [f for _, f in v] for k, v in moms.items()},
+                      residual=[res(r, s, True)
+                                for r, s in zip(state.residual, pspecs)],
+                      step=())
+    return {"manual": manual, "full": full, "pspecs": pspecs}
+
+
+def batch_specs(batch_shapes: Dict[str, torch.Tensor], mesh,
+                tc: TrainConfig):
+    """The reference's ``batch_specs``: (the manual spec of each batch
+    entry, over the DP axes only; its full spec, over those and the
+    profile's batch axes that are not manual, e.g. kimi-k2's ``data``)."""
+    shape = _mesh_shape(mesh)
+    prof = tc.sharding
+    dp_axes = effective_dp_axes(prof, shape)
+    auto = tuple(a for a in prof.batch_auto_axes if a in shape)
+    man = (_one(dp_axes),) if dp_axes else ()
+    full = (_one(dp_axes + auto),) if dp_axes + auto else ()
+    return ({k: man for k in batch_shapes}, {k: full for k in batch_shapes})
+
+
 def state_view(state: TrainState, tc: TrainConfig, group=None,
                model=None) -> TrainState:
     """The state with no layout, as a checkpoint holds it: the

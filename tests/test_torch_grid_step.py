@@ -79,7 +79,7 @@ references:
 
 Off the grid: every one of the ten smoke configs passes
 ``check_model_axis`` at MP 2 under its own profile; a profile of another
-layout raises ``NotImplementedError``, and a query-head or Mamba-head
+layout raises ``NotImplementedError``, and query columns or a Mamba-head
 count that MP does not divide ``ValueError``.
 """
 import concurrent.futures
@@ -766,11 +766,14 @@ def test_model_axis_refuses_unported_families_and_layouts():
                              dataclasses.replace(DEEPSEEK.train, workers=1,
                                                  sharding=prof),
                              model=group)
-    # query heads MP does not divide (the reference's uneven head split)
+    # query heads MP does not divide are fine (the reference's uneven
+    # head split: the heads gathered whole), query columns it does not
+    # divide raise
     odd = dataclasses.replace(GRANITE.smoke, n_heads=3, n_kv_heads=3,
                               head_dim=32)
-    with pytest.raises(ValueError, match="n_heads 3"):
-        check_model_axis(odd, 2)
+    check_model_axis(odd, 2)
+    with pytest.raises(ValueError, match=r"n_heads \* hd 102"):
+        check_model_axis(dataclasses.replace(odd, head_dim=34), 4)
     # KV heads MP does not divide are fine (their columns are gathered)
     check_model_axis(dataclasses.replace(GRANITE.smoke, n_heads=6,
                                          n_kv_heads=3, head_dim=32), 2)
