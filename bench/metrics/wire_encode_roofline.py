@@ -1,0 +1,11 @@
+"""The fused producer's least time (its bytes at the HBM rate, each
+input read once and each output written once) over its device time,
+summed over its launches in the profiled stretch."""
+
+import yardstick as ys
+
+UNIT = "%"
+
+
+def read(run):
+    return ys.kernel_roofline_pct(run, "wire_encode_kernel", "producer")
