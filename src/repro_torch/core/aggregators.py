@@ -66,6 +66,16 @@ instead, each exact inside that worker's owned coordinates and zero
 outside. The compressed strategies write the new residuals into
 ``state.residual`` in place (the only holder of that memory; at full
 width it is one f32 copy of the model a worker).
+
+Each stage of a compressed strategy is a :mod:`repro_torch.obs` span
+(subclasses inherit them): ``aggregate/sparsify`` (one local worker's
+f32 cast, error feedback, top-k, residual write and pack),
+``aggregate/encode`` (each producer call), ``aggregate/wire`` (each
+reduction of the payloads: sum and OR, their scatters, or the switch
+tree), ``aggregate/peel`` (the consumer of a wire group) and
+``aggregate/unpack`` (unpack and mean). Where the streamed paths run a
+chunk's reduction on a communication thread, that span times the
+thread's side stream.
 """
 
 from __future__ import annotations
@@ -77,6 +87,7 @@ from typing import Any, List, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.net.fixedpoint import FixedPointWire
 from repro_torch.net.topology import make_topology, tree_all_reduce
 from .config import CompressionConfig
@@ -186,21 +197,27 @@ class CompressedAggregator:
         place) and pack: its ``(n_buckets, E)`` f32 stream."""
         cfg = self.cfg
         ef_on = cfg.topk_ratio is not None and cfg.error_feedback
-        flats = []
-        for g, r in zip(grads, state.residual):
-            flat, nr = sparsify_leaf(g.reshape(-1).to(torch.float32),
-                                     r[w] if ef_on else r, cfg)
-            flats.append(flat)
-            if ef_on:
-                r[w].copy_(nr.reshape(r.shape[1:]))
-        return plan.pack_flat(flats)
+        with obs.span("aggregate/sparsify"):
+            flats = []
+            for g, r in zip(grads, state.residual):
+                flat, nr = sparsify_leaf(g.reshape(-1).to(torch.float32),
+                                         r[w] if ef_on else r, cfg)
+                flats.append(flat)
+                if ef_on:
+                    r[w].copy_(nr.reshape(r.shape[1:]))
+            return plan.pack_flat(flats)
 
     def _produce(self, streams, comp):
         """One-shot phase I: each local worker's stream packed and
         compressed in turn (one stream held at a time) at
         ``base_block``: ``(CompressedLeaf, maxabs)`` a worker."""
-        return [comp.compress_wire(s().reshape(-1), block_offset=self.base_block)
-                for s in streams]
+        out = []
+        for s in streams:
+            x = s().reshape(-1)
+            with obs.span("aggregate/encode"):
+                out.append(comp.compress_wire(x, block_offset=self.base_block))
+            del x       # before the next worker's stream is packed
+        return out
 
     def _stream_plan(self, plan: BucketPlan) -> StreamPlan:
         """The wire-chunk grid (subclasses align it to their wire)."""
@@ -209,8 +226,9 @@ class CompressedAggregator:
     def _reduce_allreduce(self, payload_w):
         """The all-reduce wire for one chunk: the local workers'
         ``(sketch, words)`` -> (sketch SUM, word OR)."""
-        return (self.group.sum([p[0] for p in payload_w]),
-                self.group.bor([p[1] for p in payload_w]))
+        with obs.span("aggregate/wire"):
+            return (self.group.sum([p[0] for p in payload_w]),
+                    self.group.bor([p[1] for p in payload_w]))
 
     def _encode_streamed(self, streams, comp, splan, reduce_fn,
                          with_maxabs=False):
@@ -227,8 +245,9 @@ class CompressedAggregator:
         def enc(i, chunks):
             out = []
             for chunk in chunks:
-                leaf, mx = comp.compress_wire(
-                    chunk.reshape(-1), block_offset=splan.chunk_start_block(i))
+                with obs.span("aggregate/encode"):
+                    leaf, mx = comp.compress_wire(
+                        chunk.reshape(-1), block_offset=splan.chunk_start_block(i))
                 out.append((leaf.sketch, leaf.index_words, mx) if with_maxabs
                            else (leaf.sketch, leaf.index_words))
             return out
@@ -301,7 +320,8 @@ class CompressedAggregator:
         """Encode, wire and recover on this strategy's own wire: the
         ``(n_buckets, E)`` aggregate and its recovery stats."""
         payload = self._encode(streams, plan, comp)
-        return self._recover(payload, plan, comp)
+        with obs.span("aggregate/peel"):
+            return self._recover(payload, plan, comp)
 
     def _execute_plan(self, streams, plan: BucketPlan, comp, device):
         """The local workers' streams -> the aggregated ``(n_buckets, E)``
@@ -354,7 +374,8 @@ class CompressedAggregator:
         def unpack(r):
             return plan.unpack(r / W if W > 1 else r)
 
-        out = [unpack(r) for r in rec] if isinstance(rec, list) else unpack(rec)
+        with obs.span("aggregate/unpack"):
+            out = [unpack(r) for r in rec] if isinstance(rec, list) else unpack(rec)
         return out, AggregationState(residual=state.residual, stats=stats,
                                      telemetry=telemetry)
 
@@ -455,8 +476,9 @@ class CompressedReduceScatterAggregator(CompressedAggregator):
     def _reduce_scatter(self, payload_w):
         """The native wire for one chunk: each local worker's slice of the
         sketch SUM and of the word OR, stacked ``(local_workers, ...)``."""
-        return (torch.stack(self.group.sum_scatter([p[0] for p in payload_w])),
-                torch.stack(self.group.bor_scatter([p[1] for p in payload_w])))
+        with obs.span("aggregate/wire"):
+            return (torch.stack(self.group.sum_scatter([p[0] for p in payload_w])),
+                    torch.stack(self.group.bor_scatter([p[1] for p in payload_w])))
 
     def _encode(self, streams, plan, comp):
         self._check_bitmap()
@@ -625,16 +647,17 @@ class CompressedInNetworkAggregator(CompressedAggregator):
             exponents agreed from the producers' per-block maxima, the
             quantized sketches added and the words ORed, window by
             window. Returns (int32 sum, words, exponents)."""
-            sks, words, maxabs = zip(*payload_w)
-            exp = group.max([wire.exponents_from_maxabs(
-                mx.reshape(n_b, nbpb).amax(dim=1)) for mx in maxabs])
-            q = tree_all_reduce(
-                [wire.encode(sk.reshape(n_b, -1), exp) for sk in sks],
-                topo, "add", window_slots=cfg.switch_slots, group=group)[0]
-            w = tree_all_reduce(
-                [wd.reshape(n_b, -1) for wd in words],
-                topo, "or", window_slots=cfg.switch_slots, group=group)[0]
-            return (q.reshape(sks[0].shape), w.reshape(words[0].shape), exp)
+            with obs.span("aggregate/wire"):
+                sks, words, maxabs = zip(*payload_w)
+                exp = group.max([wire.exponents_from_maxabs(
+                    mx.reshape(n_b, nbpb).amax(dim=1)) for mx in maxabs])
+                q = tree_all_reduce(
+                    [wire.encode(sk.reshape(n_b, -1), exp) for sk in sks],
+                    topo, "add", window_slots=cfg.switch_slots, group=group)[0]
+                w = tree_all_reduce(
+                    [wd.reshape(n_b, -1) for wd in words],
+                    topo, "or", window_slots=cfg.switch_slots, group=group)[0]
+                return (q.reshape(sks[0].shape), w.reshape(words[0].shape), exp)
 
         if not splan.streamed:
             produced = self._produce(streams, comp)

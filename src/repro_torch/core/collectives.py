@@ -48,6 +48,9 @@ The OR all-reduce primitives are the reference's
 
 Every exchange posts its send and its receive together
 (``dist.batch_isend_irecv``), so no ring step waits on a blocking send.
+While :mod:`repro_torch.obs` traces, each call of a group's collective
+counts once under ``collective/calls/<op>`` and its first payload (one
+worker's) under ``collective/bytes/<op>``.
 The words are int32 tensors carrying uint32 bits; every path moves and
 ORs them as bits, bit 31 included.
 """
@@ -62,7 +65,17 @@ from typing import Any, Callable, List, NamedTuple, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from .streams import CommThread, InlineIssue
+
+
+def _note(op: str, parts: Sequence[torch.Tensor]):
+    """One call of the collective ``op`` and one worker's payload bytes,
+    on the tracer's counters while it is on."""
+    if obs.enabled():
+        x = parts[0]
+        obs.count(f"collective/calls/{op}")
+        obs.count(f"collective/bytes/{op}", x.numel() * x.element_size())
 
 
 def linear_rank(indices: Sequence[int], levels: Sequence[int]) -> int:
@@ -127,20 +140,22 @@ class LocalWorkers:
         if len(parts) != self.workers:
             raise ValueError(f"{len(parts)} payloads for {self.workers} workers")
 
+    def _fold(self, op: str, fn, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        self._check(parts)
+        _note(op, parts)
+        return functools.reduce(fn, parts)
+
     def sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Sum over workers, folded in worker order ((w0 + w1) + w2) ..."""
-        self._check(parts)
-        return functools.reduce(torch.add, parts)
+        return self._fold("sum", torch.add, parts)
 
     def bor(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Bitwise OR over workers (int32 words carrying uint32 bits)."""
-        self._check(parts)
-        return functools.reduce(torch.bitwise_or, parts)
+        return self._fold("bor", torch.bitwise_or, parts)
 
     def max(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Elementwise max over workers (the reference's ``pmax``)."""
-        self._check(parts)
-        return functools.reduce(torch.maximum, parts)
+        return self._fold("max", torch.maximum, parts)
 
     def _scatter(self, total: torch.Tensor) -> List[torch.Tensor]:
         if total.shape[0] % self.workers:
@@ -151,16 +166,17 @@ class LocalWorkers:
     def sum_scatter(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Reduce-scatter of the sum: worker w's slice is the w-th of W
         equal leading-dim slices of :meth:`sum`."""
-        return self._scatter(self.sum(parts))
+        return self._scatter(self._fold("sum_scatter", torch.add, parts))
 
     def bor_scatter(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Reduce-scatter of the bitwise OR, sliced as :meth:`sum_scatter`."""
-        return self._scatter(self.bor(parts))
+        return self._scatter(self._fold("bor_scatter", torch.bitwise_or, parts))
 
     def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """All-gather: the workers' equal slices concatenated in worker
         order on the leading dim."""
         self._check(parts)
+        _note("gather", parts)
         return torch.cat(list(parts))
 
     def issuer(self) -> InlineIssue:
@@ -173,8 +189,8 @@ class LocalWorkers:
         ...)`` stack, lane d destined for worker d; worker r receives lane
         r summed (``"add"``) or ORed (``"or"``) over the sources in order
         s = 0..W-1, as :meth:`sum` folds."""
-        full = (self.sum if combine == "add" else self.bor)(parts)
-        return list(full.unbind(0))
+        fn = torch.add if combine == "add" else torch.bitwise_or
+        return list(self._fold("lane_sum", fn, parts).unbind(0))
 
 
 class DPLevel(NamedTuple):
@@ -422,10 +438,11 @@ class ProcessGroupWorkers:
     def first_worker(self) -> int:
         return self.rank
 
-    def _one(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    def _one(self, parts: Sequence[torch.Tensor], op: str) -> torch.Tensor:
         if len(parts) != 1:
             raise ValueError(f"{len(parts)} payloads for the one worker "
                              "of a rank")
+        _note(op, parts)
         return parts[0]
 
     def to_wire(self, x: torch.Tensor) -> torch.Tensor:
@@ -444,29 +461,29 @@ class ProcessGroupWorkers:
     def sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Sum over the W ranks (``all_reduce(SUM)``); every rank receives
         the same bits."""
-        return self._all_reduce(self._one(parts), dist.ReduceOp.SUM)
+        return self._all_reduce(self._one(parts, "sum"), dist.ReduceOp.SUM)
 
     def bor(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Bitwise OR over the W ranks (int32 words carrying uint32 bits),
         by :func:`or_allreduce` over the levels' subgroups."""
-        x = self._one(parts)
+        x = self._one(parts, "bor")
         return or_allreduce(self.to_wire(x), self.dp_levels).to(x.device)
 
     def max(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Elementwise max over the W ranks (``all_reduce(MAX)``)."""
-        return self._all_reduce(self._one(parts), dist.ReduceOp.MAX)
+        return self._all_reduce(self._one(parts, "max"), dist.ReduceOp.MAX)
 
     def sum_scatter(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """This rank's slice of the sum over the W ranks, by the ring
         reduce-scatter over the levels (:func:`reduce_scatter`)."""
-        x = self._one(parts)
+        x = self._one(parts, "sum_scatter")
         return [reduce_scatter(self.to_wire(x), self.dp_levels,
                                torch.Tensor.add_).to(x.device)]
 
     def bor_scatter(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """This rank's slice of the bitwise OR over the W ranks
         (:func:`or_reduce_scatter`)."""
-        x = self._one(parts)
+        x = self._one(parts, "bor_scatter")
         return [or_reduce_scatter(self.to_wire(x), self.dp_levels).to(x.device)]
 
     def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -474,7 +491,7 @@ class ProcessGroupWorkers:
         concatenated in rank order on the leading dim. The slices move as
         bytes (``all_gather`` on their ``uint8`` view), whatever their
         dtype."""
-        x = self._one(parts).contiguous()
+        x = self._one(parts, "gather").contiguous()
         wire = self.to_wire(x)
         if x.dim() == 0:
             raise ValueError("gather needs a slice with a leading dim")
@@ -498,9 +515,10 @@ class ProcessGroupWorkers:
         in that order. On several levels, its emulated leg: the whole
         stack summed (``all_reduce``) or ORed (:func:`or_allreduce`),
         then this rank's lane."""
-        x = self._one(parts)
+        x = self._one(parts, "lane_sum")
         if len(self.levels) > 1:
-            full = self.sum([x]) if combine == "add" else self.bor([x])
+            full = (self._all_reduce(x, dist.ReduceOp.SUM) if combine == "add"
+                    else or_allreduce(self.to_wire(x), self.dp_levels).to(x.device))
             return [full[self.rank]]
         level = self.dp_levels[0]
         W, i = level.size, level.index

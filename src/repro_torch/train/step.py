@@ -79,6 +79,14 @@ On ``LocalWorkers`` the profile's data split does not apply.
 :func:`state_view` gives the state without its layout (whole moments,
 every worker's residual row), as a checkpoint holds it, and
 :func:`load_state_view` puts such a state back into any layout.
+
+The step's stages are :mod:`repro_torch.obs` spans: ``step/forward`` and
+``step/backward`` (one worker's, the backward with the block
+recompute), ``step/aggregate`` (the aggregator's call, whose own stages
+nest under it) and ``step/optimizer`` (:func:`apply_update`, with
+``optimizer/norm``, ``optimizer/clip``, ``optimizer/update`` and, under
+it, each ZeRO-1 ``optimizer/gather``); ``setup/init_state`` is
+:func:`init_train_state`.
 """
 
 from __future__ import annotations
@@ -88,6 +96,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import aggregators as agg_lib
 from repro_torch.core.collectives import (AggregationState, LocalWorkers,
                                           dense_all_reduce)
@@ -201,31 +210,32 @@ def init_train_state(api: ModelAPI, tc: TrainConfig, device="cuda",
     (default: all ``tc.workers``); with ``tc.zero1``, a rank of W (a
     group with fewer local workers than W) holds only its slice of each
     sliced leaf's moments."""
-    check_model_axis(api.cfg, _mp(model), tc.sharding)
-    params = api.init(tc.seed, device) if params is None else params
-    params = shard_params(params, tc, model, group)
-    leaves = params.leaves()
-    local = tc.workers if group is None else group.local_workers
-    pure = pure_auto(tc, group)
-    shapes = []
-    for p, d in zip(leaves, zero1_dims(leaves, tc,
-                                       leaf_specs(params, tc, model, group),
-                                       pure)):
-        shape = list(p.shape)
-        if d is not None and local < tc.workers:
-            shape[d] //= tc.workers
-        shapes.append(shape)
-    opt = opt_lib.init_opt_state(leaves, tc.optimizer, shapes)
-    ccfg = tc.compression
-    if tc.aggregator != "dense" and ccfg.topk_ratio is not None \
-            and ccfg.error_feedback and not pure:
-        residual = [torch.zeros((local,) + tuple(p.shape),
-                                dtype=torch.float32, device=p.device)
-                    for p in leaves]
-    else:
-        residual = [torch.zeros((0,), dtype=torch.float32, device=p.device)
-                    for p in leaves]
-    return TrainState(params=params, opt=opt, residual=residual, step=0)
+    with obs.span("setup/init_state"):
+        check_model_axis(api.cfg, _mp(model), tc.sharding)
+        params = api.init(tc.seed, device) if params is None else params
+        params = shard_params(params, tc, model, group)
+        leaves = params.leaves()
+        local = tc.workers if group is None else group.local_workers
+        pure = pure_auto(tc, group)
+        shapes = []
+        for p, d in zip(leaves, zero1_dims(leaves, tc,
+                                           leaf_specs(params, tc, model, group),
+                                           pure)):
+            shape = list(p.shape)
+            if d is not None and local < tc.workers:
+                shape[d] //= tc.workers
+            shapes.append(shape)
+        opt = opt_lib.init_opt_state(leaves, tc.optimizer, shapes)
+        ccfg = tc.compression
+        if tc.aggregator != "dense" and ccfg.topk_ratio is not None \
+                and ccfg.error_feedback and not pure:
+            residual = [torch.zeros((local,) + tuple(p.shape),
+                                    dtype=torch.float32, device=p.device)
+                        for p in leaves]
+        else:
+            residual = [torch.zeros((0,), dtype=torch.float32, device=p.device)
+                        for p in leaves]
+        return TrainState(params=params, opt=opt, residual=residual, step=0)
 
 
 # ----------------------------------------------------------------------
@@ -488,48 +498,55 @@ def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
     """
     W = group.workers
     leaves = state.params.leaves()
-    lr = opt_lib.lr_schedule(state.step, ocfg, leaves[0].device)
-    if _mp(model) > 1 or data is not None:
-        if skip:
-            gnorm = torch.sqrt(group.sum([model_axis_sq_norm(g, specs, model)
-                                          for g in grads]))
-        else:
-            gnorm = torch.sqrt(model_axis_sq_norm(grads, specs, model, data))
-            grads = [grads]
-    elif skip:
-        # each worker's aggregate is exact on its own coordinates and
-        # zero elsewhere: every coordinate is counted once
-        norms = [opt_lib.global_grad_norm(g) for g in grads]
-        gnorm = torch.sqrt(group.sum([n * n for n in norms]))
-    else:
-        gnorm = opt_lib.global_grad_norm(grads)
-        grads = [grads]
-    if ocfg.grad_clip:
-        grads = [opt_lib.clip_grads(g, gnorm, ocfg.grad_clip) for g in grads]
-    if not skip:
-        grads = grads * group.local_workers         # one aggregate for all
-    moms = list(state.opt)
-    for i, (p, d) in enumerate(zip(leaves, dims)):
-        if d is None:
-            st = {k: state.opt[k][i] for k in moms}
-            new_p, new_st = opt_lib.opt_leaf_update(p, grads[0][i], st, lr,
-                                                    state.step, ocfg)
-            p.copy_(new_p)
-            for k in moms:
-                state.opt[k][i] = new_st[k]
-            continue
-        blk = p.shape[d] // W
-        deltas = []
-        for w in range(group.local_workers):
-            start = (group.first_worker + w) * blk
-            p_s = p.narrow(d, start, blk)
-            st = {k: state.opt[k][i].narrow(d, w * blk, blk) for k in moms}
-            new_p_s, new_st = opt_lib.opt_leaf_update(
-                p_s, grads[w][i].narrow(d, start, blk), st, lr, state.step, ocfg)
-            for k in moms:
-                st[k].copy_(new_st[k])
-            deltas.append((new_p_s - p_s).to(p.dtype).movedim(d, 0).contiguous())
-        p.add_(group.gather(deltas).movedim(0, d))
+    with obs.span("step/optimizer"):
+        lr = opt_lib.lr_schedule(state.step, ocfg, leaves[0].device)
+        with obs.span("optimizer/norm"):
+            if _mp(model) > 1 or data is not None:
+                if skip:
+                    gnorm = torch.sqrt(group.sum([model_axis_sq_norm(g, specs, model)
+                                                  for g in grads]))
+                else:
+                    gnorm = torch.sqrt(model_axis_sq_norm(grads, specs, model, data))
+                    grads = [grads]
+            elif skip:
+                # each worker's aggregate is exact on its own coordinates and
+                # zero elsewhere: every coordinate is counted once
+                norms = [opt_lib.global_grad_norm(g) for g in grads]
+                gnorm = torch.sqrt(group.sum([n * n for n in norms]))
+            else:
+                gnorm = opt_lib.global_grad_norm(grads)
+                grads = [grads]
+        if ocfg.grad_clip:
+            with obs.span("optimizer/clip"):
+                grads = [opt_lib.clip_grads(g, gnorm, ocfg.grad_clip) for g in grads]
+        if not skip:
+            grads = grads * group.local_workers         # one aggregate for all
+        moms = list(state.opt)
+        with obs.span("optimizer/update"):
+            for i, (p, d) in enumerate(zip(leaves, dims)):
+                if d is None:
+                    st = {k: state.opt[k][i] for k in moms}
+                    new_p, new_st = opt_lib.opt_leaf_update(p, grads[0][i], st, lr,
+                                                            state.step, ocfg)
+                    p.copy_(new_p)
+                    for k in moms:
+                        state.opt[k][i] = new_st[k]
+                    continue
+                blk = p.shape[d] // W
+                deltas = []
+                for w in range(group.local_workers):
+                    start = (group.first_worker + w) * blk
+                    p_s = p.narrow(d, start, blk)
+                    st = {k: state.opt[k][i].narrow(d, w * blk, blk) for k in moms}
+                    new_p_s, new_st = opt_lib.opt_leaf_update(
+                        p_s, grads[w][i].narrow(d, start, blk), st, lr, state.step,
+                        ocfg)
+                    for k in moms:
+                        st[k].copy_(new_st[k])
+                    deltas.append((new_p_s - p_s).to(p.dtype).movedim(d, 0)
+                                  .contiguous())
+                with obs.span("optimizer/gather"):
+                    p.add_(group.gather(deltas).movedim(0, d))
     return gnorm
 
 
@@ -611,9 +628,11 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
             # the backward too: a checkpointed block's recompute runs
             # the model axis's collectives again
             with model_region(model, experts=data):
-                loss, metrics = api.loss(params.tree(), b, remat=tc.remat,
-                                         ep_exchange=ep_exchange)
-                grads = torch.autograd.grad(loss, leaves)
+                with obs.span("step/forward"):
+                    loss, metrics = api.loss(params.tree(), b, remat=tc.remat,
+                                             ep_exchange=ep_exchange)
+                with obs.span("step/backward"):
+                    grads = torch.autograd.grad(loss, leaves)
             return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
         if tc.accum_steps <= 1:
@@ -664,12 +683,13 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
             grads_w.append(grads)
         aggregator, dims, skip, specs = aggregator_for(state.params)
         with torch.no_grad():
-            if data is not None:
-                grads = expert_mean(grads_w[0], specs, group)
-                agg_state = AggregationState(residual=state.residual)
-            else:
-                grads, agg_state = aggregator(
-                    grads_w, AggregationState(residual=state.residual))
+            with obs.span("step/aggregate"):
+                if data is not None:
+                    grads = expert_mean(grads_w[0], specs, group)
+                    agg_state = AggregationState(residual=state.residual)
+                else:
+                    grads, agg_state = aggregator(
+                        grads_w, AggregationState(residual=state.residual))
             del grads_w
             if mp > 1 and not isinstance(aggregator, agg_lib.DenseAggregator):
                 grads = ([sync_replicated(g, specs, model) for g in grads]
