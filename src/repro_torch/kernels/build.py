@@ -26,7 +26,8 @@ from typing import Dict, Iterable, List
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parents[3] / "build" / "kernels"
 SOURCES = {"sketch_wire": CSRC / "sketch_wire.cu",
-           "sketch_codec": CSRC / "sketch_codec.cu"}
+           "sketch_codec": CSRC / "sketch_codec.cu",
+           "adam_update": CSRC / "adam_update.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

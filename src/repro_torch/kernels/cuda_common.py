@@ -24,11 +24,13 @@ from repro_torch.core.config import CompressionConfig
 from repro_torch.core import hashing
 
 # Kernel launches by wrapper (and by leg of the fused kernels: ``_q``/
-# ``_dq`` are the fxp32 quantize and dequant legs). Each wrapper adds one
-# to its count where it launches, and nowhere else.
-LAUNCHES = {"encode_pack_quantize": 0, "dequant_peel_unpack": 0,
-            "encode_pack_quantize_q": 0, "dequant_peel_unpack_dq": 0,
-            "sketch_encode": 0, "sketch_peel": 0}
+# ``_dq`` are the fxp32 quantize and dequant legs; ``adam_update`` is the
+# optimizer's, the others the codec's). Each wrapper adds one to its count
+# where it launches, and nowhere else.
+CODEC_KERNELS = ("encode_pack_quantize", "dequant_peel_unpack",
+                 "encode_pack_quantize_q", "dequant_peel_unpack_dq",
+                 "sketch_encode", "sketch_peel")
+LAUNCHES = {**dict.fromkeys(CODEC_KERNELS, 0), "adam_update": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int

@@ -5,6 +5,13 @@ The update is elementwise per leaf and computed in float32 in the
 reference's operation order (scalars enter as float32, as JAX's weakly
 typed Python scalars do), so the f32 parity tests can hold the port to
 the reference's losses.
+
+On the card, AdamW runs as one hand kernel a leaf
+(``kernels/adam_update.py``; :func:`fused_adamw` says where): the same
+clip and update in the same order, bit for bit, with the step's scalars
+from :func:`step_scalars`. The scalars are made on the device by fill
+kernels (:func:`_f32`), never copied from the host, so neither path
+blocks the host.
 """
 
 from __future__ import annotations
@@ -37,7 +44,10 @@ class OptimizerConfig:
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """``x`` as a float32 scalar on ``device``, by a fill kernel (the
+    bits ``torch.tensor(x, dtype=float32)`` has, without a blocking copy
+    from the host)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def lr_schedule(step: int, cfg: OptimizerConfig, device=None) -> torch.Tensor:
@@ -94,7 +104,41 @@ def global_grad_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_grads(grads: Sequence[torch.Tensor], norm: torch.Tensor,
                max_norm: float) -> List[torch.Tensor]:
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return [(g.to(torch.float32) * scale).to(g.dtype) for g in grads]
+
+
+def fused_adamw(cfg: OptimizerConfig, device, use_pallas: str = "auto") -> bool:
+    """Whether a leaf on ``device`` takes the hand AdamW kernel: AdamW on
+    a CUDA device unless the policy is ``"never"`` (the compression
+    config's ``use_pallas``, read as the codec's dispatch reads it, so
+    ``"always"`` raises off the card). The CPU, ``"never"`` and
+    ``momentum`` take :func:`opt_leaf_update`."""
+    if cfg.kind != "adamw" or use_pallas == "never":
+        return False
+    if torch.device(device).type == "cuda":
+        return True
+    if use_pallas == "always":
+        raise ValueError("use_pallas='always' needs a CUDA tensor: the hand "
+                         "AdamW kernel exists only on the card")
+    return False
+
+
+def step_scalars(step: int, norm: torch.Tensor, cfg: OptimizerConfig,
+                 device) -> torch.Tensor:
+    """The hand kernel's (4,) float32 step scalars on ``device``: the lr,
+    ``1 - b1^t``, ``1 - b2^t`` and the clip scale (1 without clipping),
+    by the expressions :func:`opt_leaf_update` and :func:`clip_grads`
+    evaluate, so with the same bits."""
+    t = _f32(float(step), device) + 1.0
+    scale = (clip_scale(norm, cfg.grad_clip) if cfg.grad_clip
+             else _f32(1.0, device))
+    return torch.stack([lr_schedule(step, cfg, device),
+                        1 - torch.pow(cfg.b1, t), 1 - torch.pow(cfg.b2, t),
+                        scale])

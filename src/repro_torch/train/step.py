@@ -84,9 +84,11 @@ The step's stages are :mod:`repro_torch.obs` spans: ``step/forward`` and
 ``step/backward`` (one worker's, the backward with the block
 recompute), ``step/aggregate`` (the aggregator's call, whose own stages
 nest under it) and ``step/optimizer`` (:func:`apply_update`, with
-``optimizer/norm``, ``optimizer/clip``, ``optimizer/update`` and, under
-it, each ZeRO-1 ``optimizer/gather``); ``setup/init_state`` is
-:func:`init_train_state`.
+``optimizer/norm``, ``optimizer/clip`` (the plain path's; the hand AdamW
+kernel folds the clip in), ``optimizer/update`` and, under it, each
+ZeRO-1 ``optimizer/gather``); ``setup/init_state`` is
+:func:`init_train_state`. The counter ``optimizer/plain_slices`` counts
+the slices the plain update ran on a CUDA device.
 """
 
 from __future__ import annotations
@@ -101,6 +103,7 @@ from repro_torch.core import aggregators as agg_lib
 from repro_torch.core.collectives import (AggregationState, LocalWorkers,
                                           dense_all_reduce)
 from repro_torch.core.streams import zero_slice_dim
+from repro_torch.kernels.adam_update import adam_update_cuda
 from repro_torch.models.params import ParamTree, unflatten_tree
 from repro_torch.models.registry import ModelAPI
 from repro_torch.models.transformer import check_model_axis
@@ -483,7 +486,7 @@ def expert_mean(grads: Sequence[torch.Tensor], specs, group
 def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
                  group, ocfg: opt_lib.OptimizerConfig,
                  skip: bool = False, specs=None, model=None,
-                 data=None) -> torch.Tensor:
+                 data=None, use_pallas: str = "auto") -> torch.Tensor:
     """The optimizer update of one step, in place; returns the grad norm.
 
     ``grads`` is the aggregate (every local worker's), or with ``skip``
@@ -495,11 +498,22 @@ def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
     With ``model`` (MP > 1) or ``data`` (the experts' data group) the
     leaves are shards as ``specs`` say, and the norm is the whole
     gradient's (:func:`model_axis_sq_norm`).
+
+    AdamW on the card runs the hand kernel (``opt_lib.fused_adamw`` under
+    the compression config's ``use_pallas``): one launch a leaf for all
+    local workers' slices, the clip folded in, bit for bit the plain
+    path's. Elsewhere each slice runs ``clip_grads`` and
+    ``opt_leaf_update``; on a CUDA device each such slice counts to
+    ``optimizer/plain_slices``.
     """
     W = group.workers
     leaves = state.params.leaves()
+    dev = leaves[0].device
+    fused = opt_lib.fused_adamw(ocfg, dev, use_pallas)
+    plain_on_card = not fused and dev.type == "cuda"
     with obs.span("step/optimizer"):
-        lr = opt_lib.lr_schedule(state.step, ocfg, leaves[0].device)
+        if not fused:
+            lr = opt_lib.lr_schedule(state.step, ocfg, dev)
         with obs.span("optimizer/norm"):
             if _mp(model) > 1 or data is not None:
                 if skip:
@@ -516,7 +530,9 @@ def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
             else:
                 gnorm = opt_lib.global_grad_norm(grads)
                 grads = [grads]
-        if ocfg.grad_clip:
+        if fused:
+            scalars = opt_lib.step_scalars(state.step, gnorm, ocfg, dev)
+        elif ocfg.grad_clip:
             with obs.span("optimizer/clip"):
                 grads = [opt_lib.clip_grads(g, gnorm, ocfg.grad_clip) for g in grads]
         if not skip:
@@ -525,26 +541,43 @@ def apply_update(state: TrainState, grads, dims: Sequence[Optional[int]],
         with obs.span("optimizer/update"):
             for i, (p, d) in enumerate(zip(leaves, dims)):
                 if d is None:
+                    if fused:
+                        adam_update_cuda([p], [grads[0][i]], state.opt["m"][i:i + 1],
+                                         state.opt["v"][i:i + 1], scalars, ocfg)
+                        continue
                     st = {k: state.opt[k][i] for k in moms}
                     new_p, new_st = opt_lib.opt_leaf_update(p, grads[0][i], st, lr,
                                                             state.step, ocfg)
                     p.copy_(new_p)
                     for k in moms:
                         state.opt[k][i] = new_st[k]
+                    if plain_on_card:
+                        obs.count("optimizer/plain_slices")
                     continue
                 blk = p.shape[d] // W
-                deltas = []
-                for w in range(group.local_workers):
-                    start = (group.first_worker + w) * blk
-                    p_s = p.narrow(d, start, blk)
-                    st = {k: state.opt[k][i].narrow(d, w * blk, blk) for k in moms}
-                    new_p_s, new_st = opt_lib.opt_leaf_update(
-                        p_s, grads[w][i].narrow(d, start, blk), st, lr, state.step,
-                        ocfg)
-                    for k in moms:
-                        st[k].copy_(new_st[k])
-                    deltas.append((new_p_s - p_s).to(p.dtype).movedim(d, 0)
-                                  .contiguous())
+                starts = [(group.first_worker + w) * blk
+                          for w in range(group.local_workers)]
+                if fused:
+                    m_s, v_s = ([state.opt[k][i].narrow(d, w * blk, blk)
+                                 for w in range(group.local_workers)] for k in ("m", "v"))
+                    deltas = adam_update_cuda(
+                        [p.narrow(d, s, blk) for s in starts],
+                        [grads[w][i].narrow(d, s, blk) for w, s in enumerate(starts)],
+                        m_s, v_s, scalars, ocfg, dim=d)
+                else:
+                    deltas = []
+                    for w, start in enumerate(starts):
+                        p_s = p.narrow(d, start, blk)
+                        st = {k: state.opt[k][i].narrow(d, w * blk, blk) for k in moms}
+                        new_p_s, new_st = opt_lib.opt_leaf_update(
+                            p_s, grads[w][i].narrow(d, start, blk), st, lr,
+                            state.step, ocfg)
+                        for k in moms:
+                            st[k].copy_(new_st[k])
+                        deltas.append((new_p_s - p_s).to(p.dtype).movedim(d, 0)
+                                      .contiguous())
+                    if plain_on_card:
+                        obs.count("optimizer/plain_slices", len(starts))
                 with obs.span("optimizer/gather"):
                     p.add_(group.gather(deltas).movedim(0, d))
     return gnorm
@@ -695,7 +728,8 @@ def build_train_step(api: ModelAPI, tc: TrainConfig, group=None,
                 grads = ([sync_replicated(g, specs, model) for g in grads]
                          if skip else sync_replicated(grads, specs, model))
             gnorm = apply_update(state, grads, dims, group, ocfg, skip,
-                                 specs=specs, model=model, data=data)
+                                 specs=specs, model=model, data=data,
+                                 use_pallas=tc.compression.use_pallas)
         stats = agg_state.stats
         names = list(metrics_w[0])    # one reduction for the loss and metrics
         mean = group.sum([torch.stack([l, *(m[k] for k in names)])

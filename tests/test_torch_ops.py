@@ -515,7 +515,8 @@ def test_quantized_legs_count_their_own_launches(cuda_dev):
     assert {k: after[k] - before[k] for k in after} == {
         "encode_pack_quantize": 0, "dequant_peel_unpack": 0,
         "encode_pack_quantize_q": 1, "dequant_peel_unpack_dq": 1,
-        "sketch_encode": 0, "sketch_peel": 0}
+        "sketch_encode": 0, "sketch_peel": 0,
+        "adam_update": 0}
 
 
 # ----------------------------------------------------------------------
@@ -584,7 +585,8 @@ def test_standalone_kernels_repeat_and_count_launches(cuda_dev):
     assert {k: after[k] - before[k] for k in after} == {
         "encode_pack_quantize": 0, "dequant_peel_unpack": 0,
         "encode_pack_quantize_q": 0, "dequant_peel_unpack_dq": 0,
-        "sketch_encode": 2, "sketch_peel": 2}
+        "sketch_encode": 2, "sketch_peel": 2,
+        "adam_update": 0}
 
 
 @pytest.mark.cuda
@@ -732,7 +734,8 @@ def test_peel_kernels_take_short_caps(cuda_dev, cfg, rounds):
     assert {k: after[k] - before[k] for k in after} == {
         "encode_pack_quantize": 1, "dequant_peel_unpack": 3,
         "encode_pack_quantize_q": 1, "dequant_peel_unpack_dq": 1,
-        "sketch_encode": 0, "sketch_peel": 1}
+        "sketch_encode": 0, "sketch_peel": 1,
+        "adam_update": 0}
 
 
 @pytest.mark.cuda
@@ -926,7 +929,8 @@ def test_streamed_encode_repeats_and_stamps_its_phases(cuda_dev):
     assert {k: after[k] - before[k] for k in after} == {
         "encode_pack_quantize": 2, "dequant_peel_unpack": 0,
         "encode_pack_quantize_q": 2, "dequant_peel_unpack_dq": 0,
-        "sketch_encode": 2, "sketch_peel": 0}
+        "sketch_encode": 2, "sketch_peel": 0,
+        "adam_update": 0}
     for pc in stamps:
         assert bool((pc >= 0).all())
         assert bool((pc[:, 0] + pc[:, 1] <= pc[:, 2]).all())
