@@ -5,7 +5,11 @@ was busy, what ran on it, and what the host did while it sat idle.
 a second, shorter stretch) the host's operators on the same clock. The
 busy time is the union of the card's intervals; each of the longest
 idle gaps is named after the innermost host operator that covers most
-of it.
+of it. The program's own ranges (``repro_torch:<span>``, which the
+profiler records on the host and mirrors on the device while the
+program's tracer is on) are neither device work nor host operators
+here: only ``program_spans.idle_by_span`` reads them, from the events
+that :func:`label_steps` returns.
 """
 
 from __future__ import annotations
@@ -16,15 +20,18 @@ import numpy as np
 import torch
 
 WINDOW = "bench_trace_window"
+PROGRAM_PREFIX = "repro_torch:"
 LABELLED = 500          # the longest idle gaps named by their host operator
 LABEL_STEPS = 2         # steps traced on the host too, for those names
 
 
 def _intervals(events, kind) -> List[Tuple[float, float, str]]:
     """``(start, end, name)`` of the events on ``kind``, the stretch's own
-    annotation (which the profiler mirrors on the device) left out."""
+    annotation and the program's ranges (which the profiler mirrors on
+    the device) left out."""
     return [(e.time_range.start, e.time_range.end, e.name) for e in events
-            if e.device_type == kind and e.name != WINDOW]
+            if e.device_type == kind and e.name != WINDOW
+            and not e.name.startswith(PROGRAM_PREFIX)]
 
 
 def _union(spans: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -90,32 +97,41 @@ def idle_gaps(events, lo: float, hi: float) -> List[list]:
     return [[n[:160], s] for n, s in sorted(gaps.items(), key=lambda kv: -kv[1])[:10]]
 
 
-def profile_steps(step: Callable[[int], tuple], n: int, device,
-                  read: Callable[[dict], object]) -> Dict[str, object]:
+def device_steps(step: Callable[[int], tuple], n: int, device,
+                 read: Callable[[dict], object]) -> Dict[str, object]:
     """Steps ``0..n-1`` (``step(j)`` returns ``(state, metrics)``; ``read``
-    copies the metrics to the host) under the device's tracing alone, for
+    copies the metrics to the host) under the device's tracing alone:
     the busy and idle time, the device operations and the kernels' times
-    (``steps``: ``n``);
-    then, for the names of the idle gaps, ``LABEL_STEPS`` more under the
-    host's tracing too, after one step that lets it settle. The host's
-    tracing slows the host by tens of percent, so it measures no share."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    (:func:`device_stretch`; ``steps``: ``n``)."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for j in range(n):
             read(step(j)[1])
         torch.cuda.synchronize(device)
     out = device_stretch(prof.events())
     out["steps"] = n
+    return out
+
+
+def label_steps(step: Callable[[int], tuple], device,
+                 read: Callable[[dict], object]) -> Dict[str, object]:
+    """Under the host's tracing too, step 0 to let it settle, then steps
+    ``1..LABEL_STEPS`` in :data:`WINDOW`: the idle gaps named by their
+    host operator (``idle_gaps``), and the stretch's ``events`` and its
+    ``window`` ``(lo, hi)`` (microseconds) for a reduction of the
+    caller's (``program_spans.idle_by_span``). The host's tracing slows
+    the host by tens of percent, so it measures no share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        read(step(n)[1])
+        read(step(0)[1])
         torch.cuda.synchronize(device)
         with record_function(WINDOW):
-            for j in range(n + 1, n + 1 + LABEL_STEPS):
+            for j in range(1, 1 + LABEL_STEPS):
                 read(step(j)[1])
             torch.cuda.synchronize(device)
     events = prof.events()
     win = [e for e in events if e.name == WINDOW and e.device_type.name == "CPU"]
     if not win:
         raise RuntimeError("the profiler recorded no window")
-    out["idle_gaps"] = idle_gaps(events, win[0].time_range.start, win[0].time_range.end)
-    return out
+    lo, hi = win[0].time_range.start, win[0].time_range.end
+    return {"idle_gaps": idle_gaps(events, lo, hi), "events": events, "window": (lo, hi)}

@@ -1,12 +1,15 @@
 """One run of one cell: set-up, the measured window, the traced stretch
 and the check against the plain reference.
 
-The cell's configuration, traffic mix, limits and per-layer readers are
-files found by name (``bench/configs``, ``bench/mixes``,
-``bench/limits``, ``bench/metrics``). The program under test is
-``repro_torch``; the benchmark hands it the parameters and batches it
-makes from the seed, and its own ``ModelAPI`` and worker group, which in
-a traced run time the calls into the model and the collectives.
+The cell's configuration, its reference model, traffic mix, limits and
+per-layer readers are files found by name (``bench/configs``,
+``bench/refmodels``, ``bench/mixes``, ``bench/limits``,
+``bench/metrics``). The program under test is ``repro_torch``; the
+benchmark hands it the parameters and batches it makes from the seed,
+and its own ``ModelAPI`` and worker group, which in a traced run time
+the calls into the model and the collectives. A traced run also turns
+the program's own tracer (``repro_torch.obs``) on, but never in the
+window or the device-only profiled stretch.
 """
 
 from __future__ import annotations
@@ -19,12 +22,15 @@ import math
 import pathlib
 import sys
 import time
+import typing
 from typing import Dict, List, Optional
 
 import torch
 
 import devtrace
+import program_spans
 import reference as ref_lib
+import refmodels
 import yardstick as ys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -48,16 +54,20 @@ def load_json(path) -> dict:
 
 def cell_files(manifest: dict, workload: str, root=ROOT) -> Dict[str, object]:
     """The workload's entry and its configuration, mix, limits and
-    per-layer readers, each found by name."""
+    per-layer readers, each found by name; the reference module that
+    the configuration names is imported here, so a missing one fails
+    before the run."""
     cells = {c["name"]: c for c in manifest["workloads"]}
     if workload not in cells:
         raise KeyError(f"no workload {workload!r}; have {sorted(cells)}")
     cell = cells[workload]
     conf = {c["name"]: c for c in manifest["configs"]}[cell["config"]]
+    config = load_json(root / conf["file"])
+    refmodels.for_config(config)
     readers = {m["name"]: root / "bench" / "metrics" / f"{m['name']}.py"
                for m in manifest["per_layer"]}
     return {"cell": cell,
-            "config": load_json(root / conf["file"]),
+            "config": config,
             "mix": load_json(root / "bench" / "mixes" / f"{cell['traffic']}.json"),
             "limits": load_json(root / "bench" / "limits" / f"{workload}.json"),
             "readers": readers}
@@ -161,17 +171,31 @@ def timed_api(api, spans: Spans):
 # The program's objects, from the configuration and the mix
 # ----------------------------------------------------------------------
 
+def _dataclass_of(hint):
+    """The dataclass that a field's type hint names (``X`` or
+    ``Optional[X]``), or None."""
+    for t in (hint, *typing.get_args(hint)):
+        if dataclasses.is_dataclass(t):
+            return t
+    return None
+
+
 def program_configs(cfg: dict, mix: dict, seed: int):
-    """(ModelConfig, TrainConfig) of the program for ``cfg`` and ``mix``."""
+    """(ModelConfig, TrainConfig) of the program for ``cfg`` and ``mix``:
+    the file's keys that ``ModelConfig`` has, each dict-valued one built
+    as the dataclass its field is typed with (``moe``, ``ssm``, ...)."""
     from repro_torch.core.config import CompressionConfig
-    from repro_torch.models.config import ModelConfig, MoEConfig
+    from repro_torch.models.config import ModelConfig
     from repro_torch.train.config import TrainConfig
     from repro_torch.train.optimizer import OptimizerConfig
+    hints = typing.get_type_hints(ModelConfig)
     names = {f.name for f in dataclasses.fields(ModelConfig)}
     fields = {k: v for k, v in cfg.items() if k in names}
     fields["name"] = cfg["arch"]
-    if fields.get("moe"):
-        fields["moe"] = MoEConfig(**fields["moe"])
+    for k, v in fields.items():
+        sub = _dataclass_of(hints[k]) if isinstance(v, dict) else None
+        if sub is not None:
+            fields[k] = sub(**v)
     mcfg = ModelConfig(**fields)
     tc = TrainConfig(aggregator=mix["aggregator"],
                      compression=CompressionConfig(**mix["compression"]),
@@ -210,13 +234,38 @@ def _program_grad_norms(state, group, b1: float) -> List[float]:
 # One run
 # ----------------------------------------------------------------------
 
+def _program_tracer():
+    """The program's tracer (``repro_torch.obs``), or None on a tree
+    without it."""
+    try:
+        from repro_torch import obs
+    except ImportError:
+        return None
+    return obs
+
+
+def _first_step_spans(obs) -> Dict[str, float]:
+    """Each span's host seconds so far; the tracer then reset and off."""
+    spans = {n: s["host_ms"] * 1e-3 for n, s in obs.snapshot()["spans"].items()}
+    obs.reset()
+    obs.disable()
+    return spans
+
+
 def run_cell(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
              trace: bool, device, group=None, t0: Optional[float] = None) -> dict:
     """Set-up (kernels, parameters, state, the checked first steps), the
-    window of ``seconds``, with ``trace`` the profiled stretch after it,
+    window of ``seconds``, with ``trace`` the traced stretches after it,
     then the check. ``group``: this process's rank (``ProcessGroupWorkers``),
     or None for the mix's workers emulated here. Returns this process's
-    part of the result; rank 0's (or the only one) carries the check."""
+    part of the result; rank 0's (or the only one) carries the check.
+
+    With ``trace`` the program's tracer is on from ``init_train_state``
+    to the end of the first checked step (``first_step_spans_s``), then
+    off through the window and the ``trace_steps`` steps the profiler
+    reads on the device alone; then on over ``trace_steps`` steps of its
+    own (``program``: its snapshot, with those ``steps``) and through
+    the host-traced steps that name the idle gaps (``idle_by_span``)."""
     from repro_torch.core.collectives import LocalWorkers
     from repro_torch.models.params import ParamTree, unflatten_tree
     from repro_torch.models.registry import model_api
@@ -234,6 +283,7 @@ def run_cell(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
         torch.cuda.reset_peak_memory_stats(dev)
     phases["kernels"] = time.time() - t0
     rank0 = group is None or group.first_worker == 0
+    obs = _program_tracer() if trace else None
     spans = Spans(dev)
     mcfg, tc = program_configs(cfg, mix, seed)
     api = timed_api(model_api(mcfg), spans)
@@ -241,11 +291,16 @@ def run_cell(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
     params = ref_lib.make_params(cfg, seed, dev)
     tree = ParamTree(unflatten_tree([(tuple(p.split("/")), t) for p, t in params.items()]))
     del params
+    if obs:
+        obs.enable(dev)
+        obs.reset()
     state = init_train_state(api, tc, dev, params=tree, group=group)
     step_fn = build_train_step(api, tc, group=group)
     B, S = mix["global_batch"], mix["seq_len"]
-    n_check = mix["check_steps"]
-    n_trace = mix["trace_steps"] + 1 + devtrace.LABEL_STEPS
+    n_check, n_traced = mix["check_steps"], mix["trace_steps"]
+    # the profiled stretches' batches, made in every run; the tracer's
+    # stretch's only in a traced run, so an untraced run holds no more
+    n_trace = n_traced + 1 + devtrace.LABEL_STEPS + (n_traced if obs else 0)
     host = ref_lib.make_batches(cfg, B, S, seed, range(n_check))
     batches = [{k: v.to(dev) for k, v in b.items()} for b in host]
     _sync(dev)
@@ -264,6 +319,7 @@ def run_cell(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
         if k == 0:
             grad = _program_grad_norms(state, group, tc.optimizer.b1)
             phases["first_step"] = time.time() - t0
+            first_spans = _first_step_spans(obs) if obs else None
     start = ref_lib.make_params(cfg, seed, dev)
     change = [float((p.detach().to(torch.float32) - s.to(torch.float32)).norm())
               for p, s in zip(state.params.leaves(), start.values())]
@@ -281,11 +337,15 @@ def run_cell(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
     batches += [{k: v.to(dev) for k, v in b.items()} for b in more]
     del more
 
-    # the window
-    _sync(dev)
-    if ranks:
-        group.sum([torch.zeros((), device=dev)])
+    def align():
+        """Every rank past this point together (the device idle)."""
         _sync(dev)
+        if ranks:
+            group.sum([torch.zeros((), device=dev)])
+            _sync(dev)
+
+    # the window
+    align()
     spans.on = trace
     step_s, i = [], n_check
     t_start = time.perf_counter()
@@ -314,9 +374,10 @@ def run_cell(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
            "collective_ms": spans.total_ms("collective"),
            "wire_bytes": spans.counts.get("wire", 0)}
 
-    if trace and dev.type == "cuda":
-        out["profile"] = devtrace.profile_steps(
-            lambda j: step_fn(state, batches[i + j]), mix["trace_steps"], dev, _scalars)
+    if trace:
+        out.update(_traced(step_fn, state, batches[i:], n_traced, dev, obs, align))
+        if first_spans is not None:
+            out["first_step_spans_s"] = first_spans
     _sync(dev)
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
@@ -329,6 +390,37 @@ def run_cell(cfg: dict, mix: dict, limits: dict, seed: int, seconds: float,
         out["readings"] = ref_lib.compare(prog, ref)
         out["readings"]["residual_share"] = {"value": residual_share(recovery)}
     out["loaded"] = loaded_forbidden()
+    return out
+
+
+def _traced(step_fn, state, batches, n: int, dev, obs, align) -> dict:
+    """The stretches after the window (``run_cell``'s doc), over
+    ``batches`` in turn: ``profile`` on a CUDA device, ``program`` where
+    the tracer is there. The tracer's stretch starts with the ranks
+    aligned (``align``), so that no span holds a rank's wait for a peer
+    still closing its profiler."""
+    def step(j):
+        return step_fn(state, batches[j])
+    out, i = {}, 0
+    if dev.type == "cuda":
+        out["profile"] = devtrace.device_steps(step, n, dev, _scalars)
+        i = n
+    if obs:
+        align()
+        obs.enable(dev)
+        obs.reset()
+        for j in range(i, i + n):
+            _scalars(step(j)[1])
+        out["program"] = dict(obs.snapshot(), steps=n)
+        i += n
+    if dev.type == "cuda":
+        lab = devtrace.label_steps(lambda j: step(i + j), dev, _scalars)
+        out["profile"].update(idle_gaps=lab["idle_gaps"],
+                              idle_by_span=program_spans.idle_by_span(lab["events"],
+                                                                      *lab["window"]))
+    if obs:
+        obs.disable()
+        obs.reset()
     return out
 
 
@@ -373,7 +465,8 @@ def result_line(parts: List[dict], files: dict, trace: bool, chips: int,
     run = {"cfg": cfg, "mix": mix, "chips": chips, "steps": steps,
            "window_s": window, "tokens_per_step": lead["tokens_per_step"],
            "forward_ms": lead["forward_ms"], "collective_ms": lead["collective_ms"],
-           "wire_bytes": lead["wire_bytes"], "profile": lead.get("profile")}
+           "wire_bytes": lead["wire_bytes"], "profile": lead.get("profile"),
+           "program": lead.get("program")}
     dev = torch.device(device)
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -393,6 +486,9 @@ def result_line(parts: List[dict], files: dict, trace: bool, chips: int,
             device_info.update(busy_s=prof["busy_s"], window_s=prof["window_s"])
             line["breakdown"] = {"device_ops": prof["device_ops"],
                                  "idle_gaps": prof["idle_gaps"]}
+            line["idle_by_span"] = prof["idle_by_span"]
+        if lead.get("first_step_spans_s") is not None:
+            line["first_step_spans_s"] = lead["first_step_spans_s"]
     else:
         step_ms = [s * 1e3 for s in lead["step_s"]]
         e2e = {"tokens_per_s": (steps * lead["tokens_per_step"] / window, "tokens/s"),

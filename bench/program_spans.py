@@ -4,17 +4,14 @@ benchmark reads them, and a run of one cell with them on.
 Library, for the per-layer readers and for a traced run:
 
 - :func:`span_ms` / :func:`counter_per_step`: a span's device ms, or a
-  counter family's total, a step of the window, from the tracer's
-  snapshot in ``run["program"]``; None where the run has none (a
-  program without the tracer, a traced run that did not take it) or
-  the span never fired.
-- :func:`device_events`: the profiler's events without the program's
-  ``repro_torch:`` ranges, which the profiler also mirrors on the
-  device, so that the busy and idle time read the same kernels as
-  without the tracer.
+  counter family's total, a step of the stretch the tracer was on for,
+  from its snapshot in ``run["program"]`` (``steps``: that stretch's
+  steps); None where the run has none (a program without the tracer, an
+  untraced run) or the span never fired.
 - :func:`idle_by_span`: the idle seconds of a host-traced stretch, each
   gap put down to the innermost program range that covers most of it,
-  else to ``(outside the program)``.
+  else to ``(outside the program)``. The device's intervals leave the
+  program's ranges out (``devtrace._intervals``).
 
 Command, on one CUDA device (a cell whose mix runs one process):
 
@@ -27,9 +24,11 @@ Set-up as the benchmark's (``harness``), with the tracer on from
 (off, on, on, off, ...): tokens/s of each, the tracer's cost; each
 span's device ms and each counter a step of the on-arms, and what every
 per-layer reader of ``bench/metrics`` reads from them. Then the
-benchmark's traced stretch with the tracer on: the device alone for the
-busy and idle time, then the host too for ``idle_by_span``. One JSON
-line on standard output (and in ``--out``).
+benchmark's profiled stretches with the tracer on: the device alone for
+the busy and idle time, then the host too for ``idle_by_span``. One
+JSON line on standard output (and in ``--out``). (The benchmark's own
+traced run keeps the tracer off in its window and its device-only
+stretch; this command measures what the tracer costs there.)
 """
 
 from __future__ import annotations
@@ -44,9 +43,11 @@ from typing import Dict, List
 
 import numpy as np
 
+import devtrace
+
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
-PREFIX = "repro_torch:"
+PREFIX = devtrace.PROGRAM_PREFIX
 OUTSIDE = "(outside the program)"
 
 
@@ -55,24 +56,19 @@ OUTSIDE = "(outside the program)"
 # ----------------------------------------------------------------------
 
 def span_ms(run: Dict, name: str):
-    """Span ``name``'s device ms a step of the window (every call in the
-    step summed), or None."""
-    s = ((run.get("program") or {}).get("spans") or {}).get(name)
-    return s["device_ms"] / run["steps"] if s else None
+    """Span ``name``'s device ms a step of the tracer's stretch (every
+    call in the step summed), or None."""
+    program = run.get("program") or {}
+    s = (program.get("spans") or {}).get(name)
+    return s["device_ms"] / program["steps"] if s else None
 
 
 def counter_per_step(run: Dict, prefix: str):
     """The counters whose names start with ``prefix``, summed, a step of
-    the window, or None where there is none."""
-    counters = (run.get("program") or {}).get("counters") or {}
-    vals = [n for k, n in counters.items() if k.startswith(prefix)]
-    return sum(vals) / run["steps"] if vals else None
-
-
-def device_events(events) -> list:
-    """The profiler's events without the program's ranges (host side and
-    their device mirror)."""
-    return [e for e in events if not e.name.startswith(PREFIX)]
+    the tracer's stretch, or None where there is none."""
+    program = run.get("program") or {}
+    vals = [n for k, n in (program.get("counters") or {}).items() if k.startswith(prefix)]
+    return sum(vals) / program["steps"] if vals else None
 
 
 def idle_by_span(events, lo: float, hi: float) -> List[list]:
@@ -80,10 +76,9 @@ def idle_by_span(events, lo: float, hi: float) -> List[list]:
     the program stage running meanwhile: each gap put down to the
     innermost ``repro_torch:`` host range that covers at least half of
     it, else to :data:`OUTSIDE`. Every gap is counted."""
-    import devtrace
     from torch.autograd import DeviceType
     busy = devtrace._union([(max(a, lo), min(b, hi)) for a, b, _ in
-                            devtrace._intervals(device_events(events), DeviceType.CUDA)
+                            devtrace._intervals(events, DeviceType.CUDA)
                             if b > lo and a < hi])
     prog = [(e.time_range.start, e.time_range.end, e.name[len(PREFIX):])
             for e in events if e.device_type == DeviceType.CPU
@@ -111,47 +106,6 @@ def _batches(ref_lib, cfg, mix, seed, idx, dev):
     return [{k: v.to(dev) for k, v in b.items()}
             for b in ref_lib.make_batches(cfg, mix["global_batch"], mix["seq_len"],
                                           seed, idx)]
-
-
-def _mirrored(events) -> int:
-    """The program's ranges the profiler mirrored on the device."""
-    from torch.autograd import DeviceType
-    return sum(e.device_type == DeviceType.CUDA and e.name.startswith(PREFIX)
-               for e in events)
-
-
-def _profiled(step, n: int, device) -> Dict:
-    """The benchmark's traced stretch (``devtrace.profile_steps``) with the
-    tracer on: ``n`` steps on the device alone, then one to settle and
-    ``devtrace.LABEL_STEPS`` under the host's tracing too, in
-    ``devtrace.WINDOW``."""
-    import torch
-    import devtrace
-    from torch.profiler import ProfilerActivity, profile, record_function
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for j in range(n):
-            step(j)
-        torch.cuda.synchronize(device)
-    events = prof.events()
-    out = devtrace.device_stretch(device_events(events))
-    out["steps"] = n
-    out["busy_s_with_ranges"] = devtrace.device_stretch(events)["busy_s"]
-    out["program_ranges_on_device"] = [_mirrored(events)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(n)
-        torch.cuda.synchronize(device)
-        with record_function(devtrace.WINDOW):
-            for j in range(n + 1, n + 1 + devtrace.LABEL_STEPS):
-                step(j)
-            torch.cuda.synchronize(device)
-    events = prof.events()
-    out["program_ranges_on_device"].append(_mirrored(events))
-    win = [e for e in events if e.name == devtrace.WINDOW and e.device_type.name == "CPU"]
-    lo, hi = win[0].time_range.start, win[0].time_range.end
-    out["idle_gaps_with_ranges"] = devtrace.idle_gaps(events, lo, hi)
-    out["idle_gaps"] = devtrace.idle_gaps(device_events(events), lo, hi)
-    out["idle_by_span"] = idle_by_span(events, lo, hi)
-    return out
 
 
 def measure(files: Dict, seed: int, seconds: float, arms: int, device="cuda") -> Dict:
@@ -220,13 +174,18 @@ def measure(files: Dict, seed: int, seconds: float, arms: int, device="cuda") ->
                         "tokens_per_s": n * B * S / window})
         if on:
             on_steps, on_s = on_steps + n, on_s + window
-    program = obs.snapshot()
+    program = dict(obs.snapshot(), steps=on_steps)
 
-    feed = _batches(ref_lib, cfg, mix, seed,
-                    range(i, i + mix["trace_steps"] + 1 + 2), dev)
+    n = mix["trace_steps"]
+    feed = _batches(ref_lib, cfg, mix, seed, range(i, i + n + 1 + devtrace.LABEL_STEPS), dev)
+
+    def step(j):
+        return step_fn(state, feed[j])
     obs.enable(dev)
-    profile = _profiled(lambda j: harness._scalars(step_fn(state, feed[j])[1]),
-                        mix["trace_steps"], dev)
+    profile = devtrace.device_steps(step, n, dev, harness._scalars)
+    lab = devtrace.label_steps(lambda j: step(n + j), dev, harness._scalars)
+    profile.update(idle_gaps=lab["idle_gaps"],
+                   idle_by_span=idle_by_span(lab["events"], *lab["window"]))
     obs.disable()
 
     run = {"cfg": cfg, "mix": mix, "chips": 1, "steps": on_steps, "window_s": on_s,
@@ -250,12 +209,9 @@ def measure(files: Dict, seed: int, seconds: float, arms: int, device="cuda") ->
         "counters": {k: v / on_steps for k, v in program["counters"].items()},
         "coverage": sum(split.get(n, 0.0) for n in top) / (on_s / on_steps * 1e3),
         "metrics": metrics,
-        "profile": {k: profile[k] for k in ("busy_s", "window_s", "steps",
-                                             "program_ranges_on_device",
-                                             "busy_s_with_ranges")},
+        "profile": {k: profile[k] for k in ("busy_s", "window_s", "steps")},
         "breakdown": {"device_ops": profile["device_ops"],
-                      "idle_gaps": profile["idle_gaps"],
-                      "idle_gaps_with_ranges": profile["idle_gaps_with_ranges"]},
+                      "idle_gaps": profile["idle_gaps"]},
         "idle_by_span": profile["idle_by_span"],
         "labelled_idle_s": labelled,
         "program_share_of_idle": 1.0 - outside / labelled if labelled else None,

@@ -1,6 +1,9 @@
-"""The plain reference of a training cell: the decoder LM, its loss and
-gradients, per-worker top-k with error feedback, the mean over the
-workers, global-norm clipping and AdamW, written out in plain PyTorch.
+"""The plain reference of a training cell: the configuration's model
+(its module of ``refmodels``, which gives the parameters' layout and the
+loss), per-worker top-k with error feedback, the mean over the workers,
+global-norm clipping and AdamW, written out in plain PyTorch. The
+pieces every model module shares (the products, RMSNorm, rotary
+embeddings) are in ``modelparts``.
 
 It follows the semantics of the configuration and the mix, not the
 program's code: the model in float32 (TF32 off) from the bf16 values
@@ -8,9 +11,8 @@ the benchmark made (:func:`make_params`), the weights stored back in
 their dtype after each update, as the configuration states, and the
 aggregate the lossless mean of the workers' sparse gradients.
 
-``prec="fp8"`` is the control: every product's operands and result
-rounded to float8 (e4m3 forward, e5m2 backward), each with a per-tensor
-scale, where the program rounds them to bf16; the rest unchanged.
+``prec="fp8"`` is the control (``modelparts.mm``): every product in
+float8 where the program works in bf16; the rest unchanged.
 
 Faults for the checks of the check (``fault=``): ``"half_batch"`` (each
 worker's loss over the first half of its rows), ``"no_exchange"`` (each
@@ -23,60 +25,22 @@ import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
-Layout = List[Tuple[str, Tuple[int, ...], torch.dtype, int]]
+import refmodels
 
 
 # ----------------------------------------------------------------------
-# Parameters: the layout and the seeded values, shared by both sides
+# Parameters: the seeded values of the model's layout, shared by both sides
 # ----------------------------------------------------------------------
-
-def layout(cfg: Dict) -> Layout:
-    """``(path, shape, dtype, fan_in)`` of every leaf, sorted by path
-    (``/``-joined, layers stacked on dim 0); fan_in 0 marks a norm's
-    scale (ones). A tied head is the embedding's transpose: no
-    ``lm_head`` leaf."""
-    L, D, H, KV = cfg["n_layers"], cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"]
-    hd = cfg.get("head_dim") or D // H
-    Vp = -(-cfg["vocab"] // 128) * 128
-    bf, f32 = torch.bfloat16, torch.float32
-    dt = bf if cfg.get("dtype", "bfloat16") == "bfloat16" else f32
-    leaves = [("embed", (Vp, D), dt, D), ("final_norm/scale", (D,), f32, 0),
-              ("layers/attn/wq", (L, D, H * hd), dt, D),
-              ("layers/attn/wk", (L, D, KV * hd), dt, D),
-              ("layers/attn/wv", (L, D, KV * hd), dt, D),
-              ("layers/attn/wo", (L, H * hd, D), dt, H * hd),
-              ("layers/ln1/scale", (L, D), f32, 0),
-              ("layers/ln2/scale", (L, D), f32, 0)]
-    if not cfg.get("tie_embeddings"):
-        leaves.append(("lm_head", (D, Vp), dt, D))
-    moe = cfg.get("moe")
-    if moe:
-        E, f, s = moe["num_experts"], moe["expert_d_ff"], moe["shared_experts"]
-        leaves += [("layers/moe/router", (L, D, E), f32, D),
-                   ("layers/moe/we_gate", (L, E, D, f), dt, D),
-                   ("layers/moe/we_up", (L, E, D, f), dt, D),
-                   ("layers/moe/we_down", (L, E, f, D), dt, f)]
-        if s:
-            leaves += [("layers/moe/shared/w_gate", (L, D, s * f), dt, D),
-                       ("layers/moe/shared/w_up", (L, D, s * f), dt, D),
-                       ("layers/moe/shared/w_down", (L, s * f, D), dt, s * f)]
-    else:
-        F_ = cfg["d_ff"]
-        leaves += [("layers/ffn/w_gate", (L, D, F_), dt, D),
-                   ("layers/ffn/w_up", (L, D, F_), dt, D),
-                   ("layers/ffn/w_down", (L, F_, D), dt, F_)]
-    return sorted(leaves, key=lambda t: t[0].split("/"))
-
 
 def make_params(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """The leaves from ``seed``, made on ``device`` by one generator: one
     uniform(-1, 1) draw for all leaves of each dtype, each leaf's view
-    then scaled by ``1/sqrt(fan_in)``; the norms' scales ones."""
+    then scaled by ``1/sqrt(fan_in)``; the norms' scales ones. The
+    leaves are those of the model's ``layout``, in its order."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    lay = layout(cfg)
+    lay = refmodels.for_config(cfg).layout(cfg)
     out: Dict[str, torch.Tensor] = {}
     for dtype in (torch.bfloat16, torch.float32):
         mine = [t for t in lay if t[2] == dtype and t[3]]
@@ -109,144 +73,6 @@ def make_batches(cfg: Dict, global_batch: int, seq_len: int, seed: int,
         t = torch.from_numpy(ids.astype(np.int64))
         out.append({"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()})
     return out
-
-
-# ----------------------------------------------------------------------
-# Products, in float32 or (the control) float8
-# ----------------------------------------------------------------------
-
-def _fake_quant(x: torch.Tensor, dtype) -> torch.Tensor:
-    fmax = torch.finfo(dtype).max
-    scale = x.detach().abs().amax().clamp(min=1e-30) / fmax
-    return (x / scale).to(dtype).to(torch.float32) * scale
-
-
-class _Fp8Matmul(torch.autograd.Function):
-    """``a @ b`` in float8 where the program works in bf16: the operands
-    and the product e4m3, the backward's incoming gradient and its two
-    products e5m2 (f32 accumulation throughout). ``b`` is a 2-D weight
-    or a batch of matrices shaped as ``a``."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        e4 = torch.float8_e4m3fn
-        qa, qb = _fake_quant(a, e4), _fake_quant(b, e4)
-        ctx.save_for_backward(qa, qb)
-        return _fake_quant(qa @ qb, e4)
-
-    @staticmethod
-    def backward(ctx, g):
-        qa, qb = ctx.saved_tensors
-        e5 = torch.float8_e5m2
-        qg = _fake_quant(g, e5)
-        da = qg @ qb.transpose(-1, -2)
-        if qb.dim() == 2:
-            db = qa.reshape(-1, qa.shape[-1]).T @ qg.reshape(-1, qg.shape[-1])
-        else:
-            db = qa.transpose(-1, -2) @ qg
-        return _fake_quant(da, e5), _fake_quant(db, e5)
-
-
-def _mm(a, b, prec):
-    return _Fp8Matmul.apply(a, b) if prec == "fp8" else a @ b
-
-
-# ----------------------------------------------------------------------
-# The model
-# ----------------------------------------------------------------------
-
-def _rmsnorm(x, scale, eps):
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * scale
-
-
-def _rope(x, theta):
-    """Rotary embedding on (B, S, heads, hd): the two halves of each
-    head rotated by position x frequency."""
-    S, hd = x.shape[1], x.shape[-1]
-    freqs = 1.0 / theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd)
-    ang = torch.arange(S, dtype=torch.float32, device=x.device)[:, None] * freqs
-    cos, sin = torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-
-
-def _attention(h, P, l, cfg, prec):
-    B, S, D = h.shape
-    H, KV = cfg["n_heads"], cfg["n_kv_heads"]
-    hd = cfg.get("head_dim") or D // H
-    q = _mm(h, P["layers/attn/wq"][l], prec).view(B, S, H, hd)
-    k = _mm(h, P["layers/attn/wk"][l], prec).view(B, S, KV, hd)
-    v = _mm(h, P["layers/attn/wv"][l], prec).view(B, S, KV, hd)
-    q, k = _rope(q, cfg["rope_theta"]), _rope(k, cfg["rope_theta"])
-    k, v = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (k, v))
-    s = _mm(q.transpose(1, 2), k.transpose(-1, -2), prec) / math.sqrt(hd)
-    causal = torch.ones(S, S, dtype=torch.bool, device=h.device).tril()
-    p = torch.softmax(s.masked_fill(~causal, -math.inf), dim=-1)
-    o = _mm(p, v, prec).transpose(1, 2).reshape(B, S, H * hd)
-    return _mm(o, P["layers/attn/wo"][l], prec)
-
-
-def _swiglu(x, gate, up, down, prec):
-    return _mm(F.silu(_mm(x, gate, prec)) * _mm(x, up, prec), down, prec)
-
-
-def _moe(h, P, l, cfg, prec):
-    """Top-k routing with the weights renormalised, each expert taking at
-    most ``C = ceil(T·K·cf/E)`` tokens in token order (later ones
-    dropped), the shared experts on every token, and the load-balance
-    term ``E · sum_e (share of choices_e) · (mean probability_e)``."""
-    m = cfg["moe"]
-    B, S, D = h.shape
-    x = h.reshape(B * S, D)
-    T, E, K = x.shape[0], m["num_experts"], m["top_k"]
-    C = max(1, math.ceil(T * K * m["capacity_factor"] / E))
-    probs = torch.softmax(_mm(x, P["layers/moe/router"][l], prec), dim=-1)
-    w, idx = torch.topk(probs, K, dim=-1)
-    w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
-    chosen = torch.zeros(T, E, dtype=torch.int64, device=x.device).scatter_(1, idx, 1)
-    rank = (chosen.cumsum(0) - 1).gather(1, idx)
-    keep = rank < C
-    out = torch.zeros_like(x)
-    for e in range(E):
-        t, kk = torch.nonzero((idx == e) & keep, as_tuple=True)
-        if t.numel():
-            y = _swiglu(x[t], P["layers/moe/we_gate"][l, e], P["layers/moe/we_up"][l, e],
-                        P["layers/moe/we_down"][l, e], prec)
-            out = out.index_add(0, t, y * w[t, kk][:, None])
-    if m["shared_experts"]:
-        out = out + _swiglu(x, P["layers/moe/shared/w_gate"][l], P["layers/moe/shared/w_up"][l],
-                            P["layers/moe/shared/w_down"][l], prec)
-    frac = chosen.sum(0).to(torch.float32) / (T * K)
-    aux = E * (frac * probs.mean(0)).sum()
-    return out.reshape(B, S, D), aux
-
-
-def loss_fn(P: Dict[str, torch.Tensor], cfg: Dict, tokens, labels, prec="f32"):
-    """Mean next-token cross entropy + ``1e-4`` x mean squared
-    log-partition + the configuration's ``router_aux_coef`` x the
-    load-balance terms."""
-    eps = cfg["norm_eps"]
-    x = P["embed"][tokens]
-    aux = x.new_zeros(())
-    for l in range(cfg["n_layers"]):
-        x = x + _attention(_rmsnorm(x, P["layers/ln1/scale"][l], eps), P, l, cfg, prec)
-        h = _rmsnorm(x, P["layers/ln2/scale"][l], eps)
-        if cfg.get("moe"):
-            y, a = _moe(h, P, l, cfg, prec)
-            aux = aux + a
-        else:
-            y = _swiglu(h, P["layers/ffn/w_gate"][l], P["layers/ffn/w_up"][l],
-                        P["layers/ffn/w_down"][l], prec)
-        x = x + y
-    x = _rmsnorm(x, P["final_norm/scale"], eps)
-    head = P["embed"].T if cfg.get("tie_embeddings") else P["lm_head"]
-    logits = _mm(x, head, prec)
-    V = cfg["vocab"]
-    logits = torch.cat([logits[..., :V], torch.full_like(logits[..., V:], -1e30)], dim=-1)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels[..., None])[..., 0]
-    coef = cfg["moe"]["router_aux_coef"] if cfg.get("moe") else 0.0
-    return (lse - ll).mean() + 1e-4 * lse.square().mean() + coef * aux
 
 
 # ----------------------------------------------------------------------
@@ -294,6 +120,7 @@ def train_readings(cfg: Dict, mix: Dict, seed: int, batches, device, prec="f32",
 
 def _readings(cfg, mix, seed, batches, device, prec, fault):
     W, comp, opt = mix["workers"], mix["compression"], mix["optimizer"]
+    loss_fn = refmodels.for_config(cfg).loss_fn
     stored = make_params(cfg, seed, device)
     paths = list(stored)
     dtypes = [t.dtype for t in stored.values()]

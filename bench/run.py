@@ -4,7 +4,8 @@
 
 Run from the root of a checkout that holds ``BENCHMARK.json``, this
 folder and the program (``src/repro_torch``). The cell's configuration,
-mix, limits and per-layer readers are found by name from the manifest.
+its reference model, mix, limits and per-layer readers are found by name
+from the manifest.
 The run needs as many CUDA devices as the cell's ``chips``; it exits 2,
 printing no result, where there are fewer, and 3 where ``jax`` or the
 JAX package was loaded in this process or in any rank's. The last line
@@ -90,6 +91,10 @@ def main(argv=None) -> int:
         return 3
     print("setup_phases_s " + " ".join(f"{k} {v:.3f}" for k, v in
                                        line["setup_phases_s"].items()), file=sys.stderr)
+    if "first_step_spans_s" in line:
+        print("first_step_spans_s " + " ".join(f"{k} {v:.3f}" for k, v in
+                                               line["first_step_spans_s"].items()),
+              file=sys.stderr)
     for name, c in line["check"].items():
         if c.get("left_out"):
             print(f"check {name} leaves out {' '.join(c['left_out'])}", file=sys.stderr)

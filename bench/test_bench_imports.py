@@ -13,7 +13,8 @@ PROBE = """
 import importlib.util, json, pathlib, sys
 here = pathlib.Path(sys.argv[1])
 sys.path[:0] = [str(here), str(here.parent / "src")]
-import calibrate, devtrace, harness, reference, run, yardstick
+import calibrate, devtrace, harness, modelparts, program_spans, reference, run, yardstick
+import refmodels.decoder
 import repro_torch.train.step, repro_torch.launch.ranks, repro_torch.kernels.build
 for path in sorted((here / "metrics").glob("*.py")):
     harness.load_reader(path)

@@ -2,10 +2,12 @@
 synthetic profiler events, the program's ``repro_torch:`` ranges, which
 the profiler mirrors on the device, leave the busy time, the window and
 the idle gaps as they read without them, and ``idle_by_span`` puts each
-gap down to the innermost program range that covers most of it; each new
-reader reads None without its span and the span a step with it; and on
-the CPU at a small size the tracer's collective bytes a step equal the
-harness's own ``wire`` count."""
+gap down to the innermost program range that covers most of it; each
+reader of the tracer reads None without its snapshot or span, and the
+span a step of the tracer's own stretch with it; and on the CPU at a
+small size a traced run takes the tracer's snapshot over a stretch of
+its own, leaves it off in the window, and its collective bytes a step
+equal the harness's own ``wire`` count."""
 
 import pathlib
 import sys
@@ -53,14 +55,13 @@ def test_program_ranges_leave_busy_and_idle_time_unchanged():
     plain = KERNELS + HOST
     traced = KERNELS + HOST + PROGRAM + MIRROR
     want = devtrace.device_stretch(plain)
-    got = devtrace.device_stretch(ps.device_events(traced))
+    got = devtrace.device_stretch(traced)
     assert (got["busy_s"], got["window_s"]) == (want["busy_s"], want["window_s"])
     assert got["device_ops"] == want["device_ops"] and got["kernels"] == want["kernels"]
-    assert ps.device_events(traced) == plain
-    assert devtrace.idle_gaps(ps.device_events(traced), 0, 100) == \
-        devtrace.idle_gaps(plain, 0, 100)
-    # unfiltered, the mirrored ranges would read as busy the whole stretch
-    assert devtrace.device_stretch(traced)["busy_s"] == pytest.approx(100e-6)
+    assert devtrace.idle_gaps(traced, 0, 100) == devtrace.idle_gaps(plain, 0, 100)
+    # the mirrored ranges alone, counted, would read busy the whole stretch
+    assert devtrace._intervals(MIRROR, DeviceType.CUDA) == []
+    assert devtrace._intervals(PROGRAM, DeviceType.CPU) == []
     assert want["busy_s"] == pytest.approx(50e-6)
 
 
@@ -83,16 +84,20 @@ def test_idle_by_span_names_the_innermost_covering_range():
 
 @pytest.mark.parametrize("name", sorted(READERS) + ["collective_calls"])
 def test_readers_read_the_program_a_step(name):
+    """A step of the tracer's own stretch (its snapshot's ``steps``), not
+    of the window (the run's ``steps``)."""
     reader = harness.load_reader(HERE / "metrics" / f"{name}.py")
-    assert reader.read({"steps": 4, "program": None}) is None
-    assert reader.read({"steps": 4}) is None
-    assert reader.read({"steps": 4, "program": {"spans": {}, "counters": {}}}) is None
+    assert reader.read({"steps": 40, "program": None}) is None
+    assert reader.read({"steps": 40}) is None
+    assert reader.read({"steps": 40, "program": {"spans": {}, "counters": {},
+                                                 "steps": 4}}) is None
     program = {"spans": {span: {"calls": 8, "device_ms": 10.0 + i, "host_ms": 1.0,
                                 "self_device_ms": 1.0}
                          for i, span in enumerate(sorted(READERS.values()))},
                "counters": {"collective/calls/sum": 8, "collective/calls/bor": 4,
-                            "collective/calls/gather": 48, "collective/bytes/sum": 99}}
-    value = reader.read({"steps": 4, "program": program})
+                            "collective/calls/gather": 48, "collective/bytes/sum": 99},
+               "steps": 4}
+    value = reader.read({"steps": 40, "program": program})
     if name == "collective_calls":
         assert value == 15.0
     else:
@@ -100,24 +105,32 @@ def test_readers_read_the_program_a_step(name):
 
 
 def test_tracer_bytes_equal_the_harness_wire_a_step():
-    """The program's counters and the benchmark's wrapped group see the
-    same payloads: every step sends the same bytes, so the tracer's over
-    all steps (checked and window) a step equal the harness's over the
-    window a step."""
+    """A traced run turns the program's tracer on for the first checked
+    step and for a stretch of ``trace_steps`` steps after the window, and
+    leaves it off in the window and after the run. Every step sends the
+    same bytes, so the tracer's a step of its stretch equal the
+    harness's a step of the window."""
     from repro_torch import obs
     files = small("train.granite-3-2b.d4.w2")
-    obs.enable("cpu")
-    obs.reset()
-    try:
-        part = harness.run_cell(files["config"], files["mix"], files["limits"],
-                                2**31 + 9, 0.3, True, "cpu")
-        snap = obs.snapshot()
-    finally:
-        obs.disable()
-        obs.reset()
-    steps = snap["spans"]["step/aggregate"]["calls"]
-    assert steps == part["steps"] + files["mix"]["check_steps"]
+    part = harness.run_cell(files["config"], files["mix"], files["limits"],
+                            2**31 + 9, 0.3, True, "cpu")
+    assert not obs.enabled()
+    snap = part["program"]
+    n = files["mix"]["trace_steps"]
+    assert snap["steps"] == n and part["steps"] > 0
+    assert snap["spans"]["step/aggregate"]["calls"] == n
+    assert snap["spans"]["step/forward"]["calls"] == 2 * n
+    assert "setup/init_state" not in snap["spans"]
     c = snap["counters"]
     assert (c["collective/bytes/sum"] + c["collective/bytes/bor"]) * part["steps"] == \
-        part["wire_bytes"] * steps
-    assert snap["spans"]["step/forward"]["calls"] == 2 * steps
+        part["wire_bytes"] * n
+    first = part["first_step_spans_s"]
+    assert first["setup/init_state"] > 0 and first["step/forward"] > 0
+    assert set(first) >= {"step/backward", "step/aggregate", "step/optimizer"}
+
+
+def test_untraced_run_leaves_the_tracer_alone():
+    files = small("train.granite-3-2b.d4.w2")
+    part = harness.run_cell(files["config"], files["mix"], files["limits"],
+                            2**31 + 10, 0.1, False, "cpu")
+    assert "program" not in part and "first_step_spans_s" not in part

@@ -16,6 +16,7 @@ sys.path[:0] = [str(HERE), str(HERE.parent / "src")]
 
 import harness  # noqa: E402
 import reference as ref_lib  # noqa: E402
+import refmodels  # noqa: E402
 import yardstick as ys  # noqa: E402
 
 MANIFEST = json.loads((HERE.parent / "BENCHMARK.json").read_text())
@@ -56,7 +57,7 @@ def test_loss_and_gradients_equal_the_program(workload):
     loss, _ = model_api(mcfg).loss(tree.tree(), batch, remat="block")
     grads = torch.autograd.grad(loss, tree.leaves())
     P = {p: t.clone().requires_grad_() for p, t in params.items()}
-    ref = ref_lib.loss_fn(P, cfg, batch["tokens"], batch["labels"])
+    ref = refmodels.for_config(cfg).loss_fn(P, cfg, batch["tokens"], batch["labels"])
     rgrads = torch.autograd.grad(ref, list(P.values()))
     assert abs(float(loss.detach()) - float(ref.detach())) < 1e-5 * float(ref.detach())
     for path, g, r in zip(params, grads, rgrads):

@@ -3,6 +3,7 @@ token, parameters, the codec's geometry, bytes and bounds, the wire
 bytes, a kernel's roofline share."""
 
 import json
+import math
 import pathlib
 import sys
 
@@ -11,6 +12,7 @@ import pytest
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
+import refmodels  # noqa: E402
 import yardstick as ys  # noqa: E402
 
 GRANITE = json.loads((HERE / "configs" / "granite-3-2b.d4.json").read_text())
@@ -39,6 +41,29 @@ def test_deepseek_flops_per_token():
 @pytest.mark.parametrize("cfg", [GRANITE, DEEPSEEK], ids=["granite", "deepseek"])
 def test_param_count_is_the_configs(cfg):
     assert ys.param_count(cfg) == cfg["params"]
+
+
+def _decoder_param_count(cfg):
+    """The count's closed form before the reference's layout gave it."""
+    D, H, KV = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"]
+    hd = cfg.get("head_dim") or D // H
+    layer = D * H * hd + 2 * D * KV * hd + H * hd * D + 2 * D
+    moe = cfg.get("moe")
+    if moe:
+        f = moe["expert_d_ff"]
+        layer += D * moe["num_experts"] + (moe["num_experts"] + moe["shared_experts"]) * 3 * D * f
+    else:
+        layer += 3 * D * cfg["d_ff"]
+    tables = 1 if cfg.get("tie_embeddings") else 2
+    return cfg["n_layers"] * layer + tables * (-(-cfg["vocab"] // 128) * 128) * D + D
+
+
+@pytest.mark.parametrize("cfg", [GRANITE, DEEPSEEK, dict(GRANITE, tie_embeddings=False)],
+                         ids=["granite", "deepseek", "granite-untied"])
+def test_param_count_is_the_layouts_sum(cfg):
+    lay = refmodels.for_config(cfg).layout(cfg)
+    assert ys.param_count(cfg) == sum(math.prod(s) for _, s, _, _ in lay) \
+        == _decoder_param_count(cfg)
 
 
 def test_param_counts_by_hand():

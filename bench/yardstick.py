@@ -1,8 +1,9 @@
 """The benchmark's arithmetic: peaks of the card, model FLOPs, the wire
 codec's geometry and bytes, a kernel's roofline share, percentiles.
 
-Everything here follows from a configuration's shapes and the codec's
-configured geometry; nothing is read from the program under test.
+Everything here follows from a configuration's shapes (through its
+reference module) and the codec's configured geometry; nothing is read
+from the program under test.
 """
 
 from __future__ import annotations
@@ -10,56 +11,27 @@ from __future__ import annotations
 import math
 from typing import Dict, Sequence
 
+import refmodels
+
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def padded_vocab(cfg: Dict) -> int:
-    return -(-cfg["vocab"] // 128) * 128
-
-
-def head_dim(cfg: Dict) -> int:
-    return cfg.get("head_dim") or cfg["d_model"] // cfg["n_heads"]
-
-
-def matmul_params_per_token(cfg: Dict) -> int:
-    """Weights a token meets in a product: the attention projections, the
-    dense MLP or the router, its ``top_k`` routed experts and the shared
-    ones, and the head over the real vocabulary; the embedding is a
-    lookup and counts nothing."""
-    D, H, KV, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], head_dim(cfg)
-    attn = D * H * hd + 2 * D * KV * hd + H * hd * D
-    moe = cfg.get("moe")
-    if moe:
-        f = moe["expert_d_ff"]
-        ffn = D * moe["num_experts"] + (moe["top_k"] + moe["shared_experts"]) * 3 * D * f
-    else:
-        ffn = 3 * D * cfg["d_ff"]
-    return cfg["n_layers"] * (attn + ffn) + D * cfg["vocab"]
-
-
-def train_flops_per_token(cfg: Dict, seq_len: int) -> float:
+def train_flops_per_token(cfg: Dict, seq_len: int) -> int:
     """Model FLOPs of one trained token (forward and backward, no
-    recompute): 6 a matmul weight, plus the causal score and value
-    products, ``2·2·S·hd·H / 2`` a layer forward, three times over."""
-    attn = 6 * seq_len * cfg["n_heads"] * head_dim(cfg) * cfg["n_layers"]
-    return 6 * matmul_params_per_token(cfg) + attn
+    recompute): 6 a weight the token meets in a product, plus the
+    products between activations, both as the configuration's reference
+    module counts them (``refmodels``)."""
+    model = refmodels.for_config(cfg)
+    return 6 * model.matmul_params_per_token(cfg) + model.attention_flops_per_token(cfg, seq_len)
 
 
 def param_count(cfg: Dict) -> int:
-    """Elements of the trained tree (the padded vocabulary, the norms'
-    scales, the router; a tied head adds no leaf)."""
-    D, H, KV, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], head_dim(cfg)
-    layer = D * H * hd + 2 * D * KV * hd + H * hd * D + 2 * D
-    moe = cfg.get("moe")
-    if moe:
-        f = moe["expert_d_ff"]
-        layer += D * moe["num_experts"] + (moe["num_experts"] + moe["shared_experts"]) * 3 * D * f
-    else:
-        layer += 3 * D * cfg["d_ff"]
-    tables = 1 if cfg.get("tie_embeddings") else 2
-    return cfg["n_layers"] * layer + tables * padded_vocab(cfg) * D + D
+    """Elements of the trained tree: the sum of the configuration's
+    reference layout (the padded vocabulary, the norms' scales, the
+    router; a tied head adds no leaf)."""
+    return sum(math.prod(shape) for _, shape, _, _ in refmodels.for_config(cfg).layout(cfg))
 
 
 def codec_geometry(n_elems: int, comp: Dict) -> Dict[str, int]:
